@@ -9,7 +9,8 @@ Phases (any failure raises and exits non-zero):
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build of the kernels from ``src/repro_torch/csrc`` (nvcc, in parallel);
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's vicuna-7b shapes in bf16, plus a ragged GQA attention case
+   path's vicuna-7b shapes in bf16 (attention at both the verify pass's
+   Tq = K+1 and the draft feeds' Tq = 1), plus a ragged GQA attention case
    (Tq = 1 and 5), an r = 1 LoRA case and an exact argmax tie case, with
    each kernel's time, its plain version's, a library call's where one
    computes the same function, and the least time the card could take;
@@ -200,7 +201,11 @@ def kernels_phase(cfg):
     lora_args, err_l = check_lora(ops, ref, gen, B, d, V, cfg.dvi.lora_rank, "main")
     check_lora(ops, ref, gen, B, d, V, 1, "r=1 (ar_generate)")
     att_args, err_a = check_attention(ops, ref, gen, B, K + 1, H, KV, hd, cap,
-                                      main_lens, "main")
+                                      main_lens, "main (verify pass)")
+    # a draft feed: one query per lane; its post-write length is the
+    # committed length + 1, K below the verify pass's
+    check_attention(ops, ref, gen, B, 1, H, KV, hd, cap, [n - K for n in main_lens],
+                    "draft feed")
     ragged = list(rng.randint(5, 301, size=3))
     check_attention(ops, ref, gen, 3, 1, 32, 8, 128, 300, ragged, "GQA G=4 Tq=1")
     check_attention(ops, ref, gen, 3, 5, 32, 8, 128, 300, ragged, "GQA G=4 Tq=5")

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 
 _ROWS = ("h_k", "h_L", "action", "reward", "pos", "prev")
@@ -18,6 +19,7 @@ def init_buffer(cfg: ModelConfig, slots: int = 0, dtype=torch.float32,
                 device=None) -> dict:
     S = slots or cfg.dvi.buffer_slots
     d = cfg.d_model
+    device = resolve_device(device)
 
     def zeros(*shape, dt=torch.int32):
         return torch.zeros(shape, dtype=dt, device=device)

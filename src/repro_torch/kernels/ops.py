@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -146,7 +146,7 @@ def lora_logits(h: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tens
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+                     lengths: torch.Tensor) -> torch.Tensor:
     """Flash-decode GQA over a contiguous cache, visiting only live slots.
 
     q (B, H, hd) attends slots j < lengths[b]; q (B, Tq, H, hd) is a block
@@ -156,7 +156,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     slot is not defined (the kernel gives 0, the plain version a uniform
     average); the model path never has one."""
     if _device(q, k, v, lengths).type == "cpu":
-        return ref.decode_attention(q, k, v, lengths, scale)
+        return ref.decode_attention(q, k, v, lengths)
     single = q.ndim == 3
     q4 = q[:, None] if single else q
     _need(q4.ndim == 4 and k.ndim == 4 and k.shape == v.shape,
@@ -174,9 +174,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is_bf16 = _check_dtype(q.dtype)
     q4 = q4.contiguous() if single else q4
     _contig(q=q4, k=k, v=v, lengths=lengths)
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q4)
     _launch("decode_attention", q4.data_ptr(), k.data_ptr(), v.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd, S, float(scale),
+            lengths.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd, S, 1.0 / math.sqrt(hd),
             is_bf16, _stream(q.device))
     return out[:, 0] if single else out

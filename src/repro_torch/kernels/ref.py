@@ -7,12 +7,9 @@ kernel keeps on chip.  ``ops`` runs them for CPU tensors (the tests), and
 """
 from __future__ import annotations
 
-import math
-from typing import Optional
-
 import torch
 
-NEG = -1e30
+from repro_torch.models.layers import attend
 
 
 def verify_argmax(h: torch.Tensor, w: torch.Tensor):
@@ -31,7 +28,7 @@ def lora_logits(h: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tens
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+                     lengths: torch.Tensor) -> torch.Tensor:
     """Decode attention over a contiguous cache.
 
     q (B, H, hd): one query per lane attending slots j < lengths[b].
@@ -39,18 +36,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     AFTER the block's own write, and query t attends j < lengths[b]-(Tq-1-t).
     k/v (B, S, KV, hd).  Returns q's shape in q's dtype."""
     single = q.ndim == 3
-    if single:
-        q = q[:, None]
-    B, Tq, H, hd = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, Tq, KV, G, hd)
-    scores = torch.einsum("btkgh,bskh->bkgts", qg, k).float() * scale
+    q4 = q[:, None] if single else q
+    Tq, S = q4.shape[1], k.shape[1]
     t = torch.arange(Tq, device=q.device)
     lim = lengths.long()[:, None] - (Tq - 1 - t)[None, :]              # (B, Tq)
     mask = torch.arange(S, device=q.device)[None, None, :] < lim[:, :, None]
-    scores = torch.where(mask[:, None, None], scores, NEG)
-    p = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgts,bskh->btkgh", p, v).reshape(B, Tq, H, v.shape[-1])
+    out = attend(q4, k, v, mask)
     return out[:, 0] if single else out

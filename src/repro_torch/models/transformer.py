@@ -29,6 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (MaskSpec, apply_rope, attend_full, dense_init,
@@ -243,6 +244,7 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
     (n, B, max_len, KV, hd) in the model dtype, plus per-lane committed
     ``lengths`` (B,)."""
     check_supported(cfg)
+    device = resolve_device(device)
     dtype = cfg.torch_dtype
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     segs = {seg.name: {"k": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype, device=device),

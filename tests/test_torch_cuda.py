@@ -73,7 +73,8 @@ def test_lora_logits(ops, dtype, T, d, V, r):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Tq,H,KV,hd,S", [(8, 5, 32, 32, 128, 294), (3, 1, 32, 8, 128, 300),
+@pytest.mark.parametrize("B,Tq,H,KV,hd,S", [(8, 5, 32, 32, 128, 294), (8, 1, 32, 32, 128, 294),
+                                            (3, 1, 32, 8, 128, 300),
                                             (3, 5, 32, 8, 128, 300), (2, 3, 16, 2, 64, 40),
                                             (4, 2, 4, 1, 32, 33)])
 def test_decode_attention(ops, dtype, B, Tq, H, KV, hd, S):

@@ -18,6 +18,7 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models.model import build_model as jax_build_model  # noqa: E402
 from repro_torch import weights  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import buffer as tbuffer  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
@@ -79,6 +80,12 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(cfg)
     assert build_model(cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbuffer.init_buffer(cfg, 4)
+    assert tbuffer.init_buffer(cfg, 4, device="cpu")["h_k"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tfm.init_cache(cfg, 2, 16)
+    assert tfm.init_cache(cfg, 2, 16, device="cpu")["lengths"].device.type == "cpu"
 
 
 def test_weight_bridge(pair):

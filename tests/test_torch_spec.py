@@ -199,7 +199,7 @@ def test_add_block_ring_matches_jax(ptr, slots):
                 prev=rng.integers(0, 500, N).astype(np.int32))
     valid = rng.random(N) < 0.6
     buf_j = dict(jbuffer.init_buffer(cfg, slots), ptr=jnp.int32(ptr), gen=jnp.int32(3))
-    buf_t = dict(tbuffer.init_buffer(cfg, slots), ptr=torch.tensor(ptr, dtype=torch.int32),
+    buf_t = dict(tbuffer.init_buffer(cfg, slots, device="cpu"), ptr=torch.tensor(ptr, dtype=torch.int32),
                  gen=torch.tensor(3, dtype=torch.int32))
     order = ("h_k", "h_L", "action", "reward", "pos", "prev")
     for _ in range(3):                               # three appends, ring wraps
