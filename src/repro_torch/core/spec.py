@@ -13,8 +13,13 @@ One speculative block at committed length t:
    Drafted positions 1..K up to the first reject go to the replay buffer.
 
 ``k_spec=0`` is plain autoregressive decoding through the same code
-(``ar_generate``).  Temperature sampling (``rejection_commit``), per-lane
-depth (``k_lane``) and ``spec_superstep`` are later slices and raise.
+(``ar_generate``).  ``spec_superstep`` fuses up to ``steps`` blocks into one
+dispatch for the continuous serving engine.  Temperature sampling
+(``rejection_commit``), per-lane depth (``k_lane``) and the adaptive-depth
+controller are later slices and raise.
+
+The cache may be contiguous or paged (its block table rides in
+``cache["tbl"]``): the block code is layout-agnostic.
 """
 from __future__ import annotations
 
@@ -39,6 +44,26 @@ class GenResult(NamedTuple):
     drafted: torch.Tensor          # scalar: drafted tokens (live blocks * K)
     buffer: Optional[dict]
     steps: int                     # loop iterations (batch block-steps)
+
+
+class SuperstepResult(NamedTuple):
+    """Result of a fused run of ``iters`` speculative blocks (one dispatch,
+    one host sync).  ``gen_buf[:, :gen_count]`` holds the tokens committed
+    THIS superstep per lane, already EOS/budget-capped; the per-lane
+    counters summarise what a per-block host loop would have accumulated."""
+    pending: torch.Tensor          # (B,) next pending token
+    done: torch.Tensor             # (B,) bool, in-graph EOS/budget exits included
+    gen_buf: torch.Tensor          # (B, steps*(K+1)) committed tokens, capped
+    gen_count: torch.Tensor        # (B,) valid prefix length of gen_buf
+    lane_blocks: torch.Tensor      # (B,) blocks the lane was live for
+    lane_committed: torch.Tensor   # (B,) cache advance (sum of accepts)
+    lane_accepted: torch.Tensor    # (B,) accepted drafted tokens (sum of m)
+    lane_drafted: torch.Tensor     # (B,) drafted tokens (K per live block)
+    accept_hist: torch.Tensor      # (K+1,) live blocks by accepted drafts m
+    depth_hist: torch.Tensor       # (K+1,) live blocks by the depth they ran at
+    cache: dict                    # advanced decode cache
+    buffer: Optional[dict]         # replay buffer with this superstep's tuples
+    iters: int                     # blocks run (the loop's iterations)
 
 
 class BlockStep(NamedTuple):
@@ -148,6 +173,95 @@ def log_block_tuples(cfg, buf: dict, step: BlockStep, prev_pending: torch.Tensor
         i_idx[None].expand(B, K).reshape(B * K),
         prev.reshape(B * K),
         valid.reshape(B * K))
+
+
+def spec_superstep(model: Model, params: dict, dvi_params: dict,
+                   pending: torch.Tensor, cache: dict, *, steps: int,
+                   done: Optional[torch.Tensor] = None,
+                   budget: Optional[torch.Tensor] = None,
+                   eos_id: int = 1,
+                   buf: Optional[dict] = None,
+                   collect: bool = False,
+                   k_spec: Optional[int] = None,
+                   temperature: float = 0.0,
+                   k_lane: Optional[torch.Tensor] = None,
+                   depth_cfg=None) -> SuperstepResult:
+    """Fused multi-block tick: run ``steps`` speculative blocks with no host
+    check in between, so the serving engine syncs with the device once per
+    superstep instead of once per block.
+
+    Everything a per-block host loop did between blocks happens on the
+    device: committed tokens are appended to a per-lane buffer with the
+    loop's sequential semantics (stop at the lane's remaining ``budget``;
+    stop just after the first EOS), lanes flip ``done`` the block they
+    exhaust their budget or emit EOS (masking them out of every later
+    block: accept = 0, cache length and pending unchanged, no tuples), and
+    per-lane counters and the accept/depth histograms accumulate.
+
+    The reference's device loop exits once every lane is done.  Here the
+    loop always runs ``steps`` blocks, since testing ``done.all()`` would
+    sync; blocks after the last lane finished ride along fully masked and
+    change nothing (the replay buffer's write generation advances only on
+    a block with a live lane, as in the reference).  A caller may pass the
+    largest remaining budget of a live lane as ``steps`` without a sync:
+    every live block commits at least one token.
+
+    ``budget``: (B,) int32 REMAINING generation budget per lane."""
+    _greedy_only(temperature, k_lane)
+    if depth_cfg is not None:
+        raise NotImplementedError("the adaptive-depth controller is a later slice "
+                                  "of the port (ROADMAP item 10)")
+    if steps < 1:
+        raise ValueError("spec_superstep needs steps >= 1")
+    cfg = model.cfg
+    K = cfg.dvi.k_spec if k_spec is None else k_spec
+    B = pending.shape[0]
+    dev = pending.device
+    done = torch.zeros((B,), dtype=torch.bool, device=dev) if done is None else done
+    budget = (torch.full((B,), torch.iinfo(torch.int32).max // 2, dtype=torch.int32,
+                         device=dev)
+              if budget is None else budget.to(torch.int32))
+    if collect and buf is None:
+        buf = buffer_mod.init_buffer(cfg, device=dev)
+    cap = steps * (K + 1)
+    ar = torch.arange(K + 1, device=dev)
+    base = torch.arange(B, device=dev)[:, None] * cap
+    # one spare slot past the buffer takes the writes the reference drops
+    gen_flat = torch.zeros((B * cap + 1,), dtype=torch.int32, device=dev)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    gen_count, blocks, committed, accepted, drafted = (zeros(B) for _ in range(5))
+    a_hist, d_hist = zeros(K + 1), zeros(K + 1)
+    depth = torch.full((B,), K, dtype=torch.long, device=dev)
+    for _ in range(steps):
+        live = (~done).to(torch.int32)
+        blk = spec_block_step(model, params, dvi_params, pending, cache,
+                              k_spec=K, done=done)
+        can = ((ar[None, :] < blk.accept[:, None])
+               & (gen_count[:, None] + ar[None, :] < budget[:, None]))
+        hit_eos = can & (blk.commit_vec == eos_id)
+        eos_before = torch.cumsum(hit_eos.to(torch.int32), dim=1) - hit_eos.to(torch.int32)
+        written = can & (eos_before == 0)
+        dest = torch.where(written, base + gen_count[:, None] + ar[None, :], B * cap)
+        gen_flat.index_put_((dest.reshape(-1),), blk.commit_vec.reshape(-1))
+        new_count = (gen_count + written.sum(dim=1)).to(torch.int32)
+        new_done = done | hit_eos.any(dim=1) | (new_count >= budget)
+        if collect:
+            gen0 = buf["gen"]
+            buf = log_block_tuples(cfg, buf, blk, pending, done, k_spec=K)
+            buf["gen"] = torch.where(live.any(), buf["gen"], gen0)
+        drafted = drafted + K * live
+        a_hist.scatter_add_(0, blk.m.long(), live)
+        d_hist.scatter_add_(0, depth, live)
+        blocks = blocks + live
+        committed = committed + blk.accept
+        accepted = accepted + blk.m * live
+        pending, done, gen_count, cache = blk.pending, new_done, new_count, blk.cache
+    return SuperstepResult(pending, done, gen_flat[:B * cap].view(B, cap), gen_count,
+                           blocks, committed, accepted, drafted, a_hist, d_hist,
+                           cache, buf, steps)
 
 
 def speculative_generate(model: Model, params: dict, dvi_params: dict,

@@ -32,6 +32,10 @@ _ARGTYPES = {
     # q, k, v, lengths, out, B, Tq, H, KV, hd, S, scale, is_bf16, stream
     "decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
                          _INT, _INT, _INT, _FLOAT, _INT, _VOID],
+    # q, k_pages, v_pages, lengths, block_tables, out, B, Tq, H, KV, hd, ps,
+    # MPS, scale, is_bf16, stream
+    "paged_decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
+                               _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT, _VOID],
 }
 # vocab columns per block of the two vocab-streaming kernels, and the number
 # of d-slices of the LoRA down-projection pre-pass (both fixed in csrc/)
@@ -40,6 +44,7 @@ LORA_KSPLIT = 16
 LORA_MAX_RANK = 512       # u rows of a pass must fit in shared memory
 ATTN_MAX_ROWS = 64        # Tq * G query rows one attention block holds
 ATTN_MAX_HD = 256
+PAGED_MAX_PAGES = 8192    # block-table row one paged attention block holds
 
 
 def reset_launches() -> None:
@@ -178,4 +183,48 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch("decode_attention", q4.data_ptr(), k.data_ptr(), v.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd, S, 1.0 / math.sqrt(hd),
             is_bf16, _stream(q.device))
+    return out[:, 0] if single else out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           lengths: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """Flash-decode GQA over pooled pages read through per-lane block tables,
+    visiting only each lane's live mapped slots.
+
+    q (B, H, hd) or a block (B, Tq, H, hd), masked as in ``decode_attention``
+    (``lengths`` counts the block's own write); k_pages/v_pages (P, ps, KV,
+    hd) with physical page 0 the null page; block_tables (B, MPS) int32,
+    -1 = unmapped; lengths (B,) int32.  Returns q's shape and dtype.  A
+    query with no live slot (an idle lane) is not defined: the kernel gives
+    0, the plain version the reference's uniform average."""
+    if _device(q, k_pages, v_pages, lengths, block_tables).type == "cpu":
+        return ref.paged_decode_attention(q, k_pages, v_pages, lengths, block_tables)
+    single = q.ndim == 3
+    q4 = q[:, None] if single else q
+    _need(q4.ndim == 4 and k_pages.ndim == 4 and k_pages.shape == v_pages.shape,
+          f"paged_decode_attention: q {tuple(q.shape)}, k_pages {tuple(k_pages.shape)}, "
+          f"v_pages {tuple(v_pages.shape)}")
+    B, Tq, H, hd = q4.shape
+    _, ps, KV, _ = k_pages.shape
+    _need(k_pages.shape[3] == hd and H % KV == 0,
+          "paged_decode_attention: pages must be (P, ps, KV, hd) with H a multiple of KV")
+    _need(Tq * (H // KV) <= ATTN_MAX_ROWS and hd <= ATTN_MAX_HD and hd % 4 == 0,
+          f"paged_decode_attention: needs Tq*G <= {ATTN_MAX_ROWS}, hd <= {ATTN_MAX_HD}, "
+          f"hd % 4 == 0")
+    _need(q.dtype == k_pages.dtype == v_pages.dtype,
+          "paged_decode_attention: q and the pages must share a dtype")
+    _need(lengths.dtype == torch.int32 and lengths.shape == (B,),
+          "paged_decode_attention: lengths must be (B,) int32")
+    _need(block_tables.dtype == torch.int32 and block_tables.ndim == 2
+          and block_tables.shape[0] == B and 0 < block_tables.shape[1] <= PAGED_MAX_PAGES,
+          f"paged_decode_attention: block_tables must be (B, MPS) int32, "
+          f"MPS <= {PAGED_MAX_PAGES}")
+    is_bf16 = _check_dtype(q.dtype)
+    q4 = q4.contiguous() if single else q4
+    _contig(q=q4, k_pages=k_pages, v_pages=v_pages, lengths=lengths,
+            block_tables=block_tables)
+    out = torch.empty_like(q4)
+    _launch("paged_decode_attention", q4.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd,
+            ps, block_tables.shape[1], 1.0 / math.sqrt(hd), is_bf16, _stream(q.device))
     return out[:, 0] if single else out

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.layers import attend
+from repro_torch.serving.kv_pool import logical_to_physical
 
 
 def verify_argmax(h: torch.Tensor, w: torch.Tensor):
@@ -38,8 +39,37 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     single = q.ndim == 3
     q4 = q[:, None] if single else q
     Tq, S = q4.shape[1], k.shape[1]
-    t = torch.arange(Tq, device=q.device)
-    lim = lengths.long()[:, None] - (Tq - 1 - t)[None, :]              # (B, Tq)
-    mask = torch.arange(S, device=q.device)[None, None, :] < lim[:, :, None]
+    mask = torch.arange(S, device=q.device)[None, None, :] < _block_limits(lengths, Tq)
     out = attend(q4, k, v, mask)
+    return out[:, 0] if single else out
+
+
+def _block_limits(lengths: torch.Tensor, Tq: int) -> torch.Tensor:
+    """(B, Tq, 1): query t of a block sees slots j < lengths - (Tq-1-t)."""
+    t = torch.arange(Tq, device=lengths.device)
+    return (lengths.long()[:, None] - (Tq - 1 - t)[None, :])[:, :, None]
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           lengths: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """Decode attention over pooled pages read through per-lane block tables.
+
+    k_pages/v_pages (P, ps, KV, hd), physical page 0 the null page;
+    block_tables (B, MPS) int32, -1 = unmapped.  Gathers each lane's
+    logical view (MPS * ps slots) through ``logical_to_physical`` and
+    attends the mapped slots below the block limits of ``decode_attention``
+    (q (B, H, hd) or (B, Tq, H, hd), ``lengths`` counting the block's own
+    write).  A query with no live slot gets the reference's uniform average
+    over the masked view (the kernel gives 0); only idle lanes have one."""
+    single = q.ndim == 3
+    q4 = q[:, None] if single else q
+    B, Tq = q4.shape[:2]
+    P, ps, KV, hd = k_pages.shape
+    L = block_tables.shape[1] * ps
+    j = torch.arange(L, device=q.device)
+    page, phys = logical_to_physical(block_tables, j[None, :].expand(B, L), ps)
+    kf = k_pages.reshape(P * ps, KV, hd)[phys]                         # (B, L, KV, hd)
+    vf = v_pages.reshape(P * ps, KV, hd)[phys]
+    mask = (page >= 0)[:, None, :] & (j[None, None, :] < _block_limits(lengths, Tq))
+    out = attend(q4, kf, vf, mask)
     return out[:, 0] if single else out

@@ -90,6 +90,12 @@ class Model:
     def init_cache(self, B: int, max_len: int) -> dict:
         return tfm.init_cache(self.cfg, B, max_len, device=self.device)
 
+    def init_paged_cache(self, B: int, num_pages: int, page_size: int,
+                         max_pages_per_slot: int) -> dict:
+        """Pooled paged cache (see ``transformer.init_paged_cache``)."""
+        return tfm.init_paged_cache(self.cfg, B, num_pages, page_size,
+                                    max_pages_per_slot, device=self.device)
+
     def prefill(self, params, tokens, cache=None, max_len: Optional[int] = None):
         """Process the prompt and build a decode cache.  Returns (h, cache)."""
         T = tokens.shape[1]

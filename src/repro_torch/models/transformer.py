@@ -20,12 +20,30 @@ Two execution modes:
   ``pos <= qpos`` (every slot below the length is filled, stale speculative
   slots lie above ``qpos``); the port therefore keeps no ``pos`` array.
 
+Two cache layouts (``forward_step`` reads which from the cache):
+
+* contiguous (``init_cache``): per-lane K/V (n, B, C, KV, hd);
+* paged (``init_paged_cache``): K/V pooled into shared pages
+  (n, P+1, ps, KV, hd), physical page 0 the null page, read and written
+  through the per-lane block table ``cache["tbl"]`` (B, MPS) with the
+  addressing rule ``serving.kv_pool.logical_to_physical``; attention goes
+  through the ``paged_decode_attention`` kernel.  Page ownership lives on
+  the host (``serving.kv_pool.KVPool``).
+
+Continuous batching edits one lane of a live cache in place:
+``insert_slot`` splices a prefilled lane in, ``reset_slot`` empties one,
+``map_slot_pages``/``set_block_tables`` edit the block table.  All of it
+runs on PyTorch's current stream, so it is ordered after any step still
+running on the device.
+
 Not in this slice (they raise ``NotImplementedError``): MoE, MLA, SSM,
-RG-LRU, local/ring caches, cross-attention, ``kv_quant``, paged caches.
+RG-LRU, local/ring caches, cross-attention, ``kv_quant``, the prefix
+cache's table-only splice (``insert_slot(src=None)``, ``copy_page``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -34,6 +52,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (MaskSpec, apply_rope, attend_full, dense_init,
                                        head_rms_norm, mlp, rms_norm)
+from repro_torch.serving.kv_pool import logical_to_physical
 
 # Spare capacity the reference reserves past a generation's worst case; kept
 # so caches are sized the same on both sides.
@@ -209,6 +228,44 @@ def attn_layer_step(p, x, kcache, vcache, lengths, cfg: ModelConfig):
     return _ffn(p, x, cfg)
 
 
+def paged_write(pages: torch.Tensor, blk: torch.Tensor, phys: torch.Tensor) -> None:
+    """Write blk (B, T, KV, hd) into pages (P, ps, KV, hd) at flat physical
+    slots phys (B, T), IN PLACE.  Lanes own disjoint pages, so indices
+    collide only on the null page (unmapped or past-the-table positions),
+    whose contents are never read."""
+    P, ps = pages.shape[:2]
+    pages.view(P * ps, *pages.shape[2:]).index_put_(
+        (phys.reshape(-1),), blk.reshape(-1, *blk.shape[2:]).to(pages.dtype))
+
+
+def attn_layer_step_paged(p, x, kpages, vpages, tbl, lengths, cfg: ModelConfig):
+    """Block-decode attention layer against the pooled paged cache.
+
+    kpages/vpages: (P, ps, KV, hd) physical pages shared by every lane
+    (page 0 = null page).  tbl: (B, MPS) int32 block table; logical
+    position t of lane b lives at physical slot
+    ``tbl[b, t // ps] * ps + t % ps``, and -1 entries clamp onto the null
+    page, so eager writes from idle lanes are harmless.  The block's K/V
+    are written in place at positions ``lengths + i`` before the
+    ``paged_decode_attention`` kernel reads them with the post-write
+    lengths.  Rollback is the contiguous path's: lengths do not advance
+    past the accepted prefix and the stale slots are overwritten later."""
+    B, T = x.shape[:2]
+    ps = kpages.shape[1]
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    qpos = lengths[:, None].long() + torch.arange(T, device=x.device)[None, :]
+    q, k, v = _qkv(p, xn, cfg)
+    q = apply_rope(q, qpos, cfg.rope_theta)
+    k = apply_rope(k, qpos, cfg.rope_theta)
+    _, wphys = logical_to_physical(tbl, qpos, ps)
+    paged_write(kpages, k, wphys)
+    paged_write(vpages, v, wphys)
+    out = ops.paged_decode_attention(q.contiguous(), kpages, vpages,
+                                     (lengths + T).to(torch.int32), tbl)
+    x = x + out.reshape(B, T, -1) @ p["wo"]
+    return _ffn(p, x, cfg)
+
+
 # ---------------------------------------------------------------------------
 # Segment execution (loop over stacked layers)
 # ---------------------------------------------------------------------------
@@ -227,8 +284,16 @@ def run_segment_full(sp, x, cfg: ModelConfig, seg: Segment, positions,
     return x, ({"k": torch.stack(ks), "v": torch.stack(vs)} if collect else {})
 
 
-def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment):
-    """Returns x; the segment's K/V cache is updated in place."""
+def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
+                     tbl=None):
+    """Returns x; the segment's K/V cache is updated in place.  `tbl` is the
+    block table (B, MPS) when the cache is paged (seg_cache then holds
+    pooled "kp"/"vp" pages instead of per-lane "k"/"v")."""
+    if "kp" in seg_cache:
+        for i in range(seg.n):
+            x = attn_layer_step_paged(_layer(sp, i), x, seg_cache["kp"][i],
+                                      seg_cache["vp"][i], tbl, lengths, cfg)
+        return x
     for i in range(seg.n):
         x = attn_layer_step(_layer(sp, i), x, seg_cache["k"][i], seg_cache["v"][i],
                             lengths, cfg)
@@ -253,6 +318,96 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
     return {"lengths": torch.zeros((B,), dtype=torch.int32, device=device), "segs": segs}
 
 
+def init_paged_cache(cfg: ModelConfig, B: int, num_pages: int, page_size: int,
+                     max_pages_per_slot: int, device=None) -> dict:
+    """Paged cache: per segment K and V pooled into ``num_pages`` shared pages
+    plus the physical null page 0, (n, num_pages + 1, page_size, KV, hd) in
+    the model dtype; per-lane ``lengths`` (B,) and the block table ``tbl``
+    (B, max_pages_per_slot) int32, all -1 (unmapped)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    dtype = cfg.torch_dtype
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (num_pages + 1, page_size, KV, hd)
+    segs = {seg.name: {"kp": torch.zeros((seg.n, *shape), dtype=dtype, device=device),
+                       "vp": torch.zeros((seg.n, *shape), dtype=dtype, device=device)}
+            for seg in model_segments(cfg)}
+    return {"lengths": torch.zeros((B,), dtype=torch.int32, device=device),
+            "tbl": torch.full((B, max_pages_per_slot), -1, dtype=torch.int32, device=device),
+            "segs": segs}
+
+
+def map_slot_pages(cache: dict, slot: int, row: torch.Tensor) -> dict:
+    """Point lane `slot`'s block-table row at physical pages `row` (MPS,)
+    int32, -1-padded, in place.  Pure table write: no KV moves."""
+    cache["tbl"][slot] = row.to(torch.int32)
+    return cache
+
+
+def set_block_tables(cache: dict, tbl: torch.Tensor) -> dict:
+    """Replace the whole block table (B, MPS) with `tbl`, one device op for
+    every row the engine's host mirror changed in a tick.  No KV moves."""
+    return dict(cache, tbl=tbl.to(torch.int32))
+
+
+def _insert_paged_seg(seg_c: dict, src_c: dict, tbl: torch.Tensor, slot: int,
+                      src_slot: int = 0) -> None:
+    """Splice a contiguous prefill lane into the slot's mapped pages, in
+    place: a block-table-indexed scatter of the source K/V into the pool.
+    Source positions past the mapped region land on the null page."""
+    n, Pp, ps = seg_c["kp"].shape[:3]
+    C_src = src_c["k"].shape[2]
+    pos = torch.arange(C_src, device=tbl.device)[None, :]
+    _, phys = logical_to_physical(tbl[slot:slot + 1], pos, ps)
+    for pooled, src in ((seg_c["kp"], src_c["k"]), (seg_c["vp"], src_c["v"])):
+        flat = pooled.view(n, Pp * ps, *pooled.shape[3:])
+        flat[:, phys[0]] = src[:, src_slot].to(pooled.dtype)
+
+
+def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
+                src_slot: int = 0) -> dict:
+    """Continuous-batching cache surgery, in place: copy lane `src_slot` of
+    `src` (a freshly prefilled B = 1 contiguous cache, which may be sized to
+    the prompt alone) into lane `slot` of the live cache, and set its
+    length.  Contiguous segments take the source K/V in the lane's prefix;
+    paged segments scatter it through the slot's block-table row (map the
+    pages with ``map_slot_pages`` first).  The destination lane must have
+    been reset.  ``src=None``, the prefix cache's table-only splice, is not
+    ported yet."""
+    if src is None:
+        raise NotImplementedError("insert_slot(src=None), the prefix cache's table "
+                                  "splice, is a later slice of the port")
+    tbl = cache.get("tbl")
+    for name, seg_c in cache["segs"].items():
+        src_c = src["segs"][name]
+        if "kp" in seg_c:
+            _insert_paged_seg(seg_c, src_c, tbl, slot, src_slot)
+            continue
+        C_src = src_c["k"].shape[2]
+        for key in ("k", "v"):
+            seg_c[key][:, slot, :C_src] = src_c[key][:, src_slot].to(seg_c[key].dtype)
+    cache["lengths"][slot] = src["lengths"][src_slot]
+    return cache
+
+
+def reset_slot(cfg: ModelConfig, cache: dict, slot: int) -> dict:
+    """Evict lane `slot`, in place: length 0 and, for contiguous segments,
+    its K/V zeroed.  Paged segments need no KV work: the lane's block-table
+    row is unmapped (-1) and its pages go back to the host-side pool.
+    Other lanes are untouched."""
+    # fill_ on views: item assignment of a Python number would stage it
+    # through a host tensor and block the host on the copy
+    for seg_c in cache["segs"].values():
+        if "kp" in seg_c:
+            continue
+        seg_c["k"][:, slot].zero_()
+        seg_c["v"][:, slot].zero_()
+    cache["lengths"][slot].zero_()
+    if "tbl" in cache:
+        cache["tbl"][slot].fill_(-1)
+    return cache
+
+
 def fill_cache_from_full(cfg: ModelConfig, cache: dict, contribs: dict, T: int) -> dict:
     """Copy prefill contributions (stacked (n,B,T,...)) into slots [0, T) of
     the cache, in place.  All sequences are fully packed (length T)."""
@@ -274,8 +429,7 @@ def commit_cache(cfg: ModelConfig, cache: dict, accept: torch.Tensor) -> dict:
     unaccepted tail is pure length truncation: its eager writes lie past
     the new length, outside every later query's mask, and are overwritten
     by the next block."""
-    return {"lengths": (cache["lengths"] + accept).to(torch.int32),
-            "segs": cache["segs"]}
+    return dict(cache, lengths=(cache["lengths"] + accept).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -302,5 +456,5 @@ def forward_step(params_segs: dict, x: torch.Tensor, cfg: ModelConfig, cache: di
     (``commit_cache`` advances them)."""
     for seg in segments_in_range(cfg, lo, hi):
         x = run_segment_step(params_segs[seg.name], x, cache["segs"][seg.name],
-                             cache["lengths"], cfg, seg)
+                             cache["lengths"], cfg, seg, cache.get("tbl"))
     return x, cache

@@ -1,30 +1,65 @@
-"""Serving engine, batch-synchronous scheduler: port of the ``scheduler="sync"``
-path of ``repro.serving.engine``.
+"""Serving engine: port of ``repro.serving.engine``, greedy, fixed depth,
+without online learning.
 
-Requests are queued in prompt-length buckets; each ``step`` takes up to
-``batch_size`` requests from the fullest bucket, pads their prompts to the
-bucket length (left, by repeating the first token), pads the batch with
-replays that are masked out of generation, logging and statistics, and
-decodes it to completion with ``speculative_generate``, logging accept/reject
-tuples to the replay buffer.
+Two schedulers:
+
+* ``scheduler="sync"``: requests are queued in prompt-length buckets; each
+  ``step`` takes up to ``batch_size`` requests from the fullest bucket,
+  pads their prompts to the bucket length (left, by repeating the first
+  token), pads the batch with replays that are masked out of generation,
+  logging and statistics, and decodes it to completion with
+  ``speculative_generate``.
+* ``scheduler="continuous"``: a fixed set of ``num_slots`` lanes over one
+  persistent cache, each lane holding a request at its own committed
+  length.  Arrivals are prefilled one by one (exact prompt) and spliced
+  into a free lane (``transformer.insert_slot``).  Every tick dispatches
+  ONE superstep of up to ``sync_every`` blocks (``spec_superstep``) with
+  EOS detection, budget capping and tuple logging on the device, and
+  harvests the previous one with a single packed device-to-host copy: the
+  host syncs with the device once per superstep.  ``step()`` admits into
+  already-free lanes first (those ops queue behind the in-flight
+  superstep), then harvests, retires finished lanes, grows pages and
+  dispatches.  Admission, retirement, preemption and cancellation happen
+  only at superstep boundaries, and the committed streams are those of
+  per-block ticking.
+
+With ``kv_pages > 0`` the continuous scheduler runs over a paged KV pool
+(``serving.kv_pool``): lanes hold block-table rows instead of worst-case
+contiguous regions; admission checks the free-page watermark; before every
+superstep each live lane is topped up to the pages that superstep can
+touch; when the pool runs dry the newest other lane is preempted (its pages
+return to the pool, its prompt plus generated prefix is re-queued at the
+front and replayed through prefill on re-admission, which is lossless for
+greedy decoding); retirement frees the lane's pages.
+
+Host-to-device uploads (prompts, block-table rows, the per-dispatch done
+mask and budgets) are staged through pinned host memory and copied with
+``non_blocking=True``, so no dispatch blocks the host; PyTorch's pinned
+memory cache keeps each staging buffer until its copy has run.  Every
+device op runs on PyTorch's current stream, which orders the in-place lane
+edits of a tick after the superstep still running.
 
 Where the reference engine takes an ``OnlineTrainerState``, this one takes
-the drafter's ``dvi_params`` and an optional replay buffer until the Improve
-loop is ported.  The continuous scheduler, request handles, telemetry, the
-paged pool and online learning are later slices and raise.
+the drafter's ``dvi_params`` and an optional replay buffer until the
+Improve loop is ported.  Online learning, chunked prefill, the prefix
+cache and adaptive depth are later slices and raise.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import buffer as buffer_mod
 from repro_torch.core import spec as spec_mod
+from repro_torch.models import transformer as tfm
 from repro_torch.models.model import Model
+from repro_torch.serving.handles import QueueFull, RequestHandle, TenantQueue
+from repro_torch.serving.kv_pool import KVPool
+from repro_torch.serving.telemetry import ServingTelemetry
 
 
 @dataclass
@@ -32,6 +67,8 @@ class Request:
     uid: int
     prompt: np.ndarray            # (Tp,) int32
     max_new: int = 64
+    tenant: str = "default"       # weighted-fair queue bucket
+    priority: int = 0             # within-tenant ordering (higher first)
 
 
 @dataclass
@@ -39,9 +76,23 @@ class Completion:
     uid: int
     tokens: np.ndarray            # full stream (prompt + generated)
     gen_tokens: np.ndarray        # generated tokens only
-    mat: float                    # mean accepted tokens per block of its batch
+    mat: float                    # mean accepted tokens per block
     wall_s: float                 # engine time attributed to this request
     latency_s: float = 0.0        # submit -> completion
+
+
+@dataclass
+class _Slot:
+    """Host-side bookkeeping for one live lane of the decode batch."""
+    uid: int
+    prompt: np.ndarray
+    max_new: int
+    gen: List[int] = field(default_factory=list)
+    blocks: int = 0
+    wall_s: float = 0.0
+    cache_len: int = 0            # committed cache length (paged growth)
+    admit_seq: int = 0            # admission order (paged preemption picks max)
+    handle: Optional[RequestHandle] = None
 
 
 @dataclass
@@ -50,29 +101,92 @@ class ServingEngine:
     params: dict
     dvi_params: dict
     buf: Optional[dict] = None    # replay buffer (made on first use if None)
-    scheduler: str = "sync"
-    batch_size: int = 8           # requests per batch
+    scheduler: str = "sync"       # "sync" | "continuous"
+    num_slots: int = 8            # continuous: lanes in the decode batch
+    batch_size: int = 8           # sync: requests per batch
     max_new: int = 64             # default / cap for generation length
     buckets: tuple = (16, 32, 64, 128)
+    sync_every: int = 1           # continuous: blocks fused per device sync
+    latency_window: int = 4096    # rolling window of completion latencies
     learn: bool = False
-    stats: Dict[str, object] = field(default_factory=dict, init=False)
+    eos_id: int = 1               # continuous path (the sync path stops at 1)
+    cache_len: int = 0            # continuous cache capacity (0 = derive)
+    kv_pages: int = 0             # >0: paged KV pool with this many pages
+    kv_page_size: int = 16        # tokens per page (paged mode)
+    kv_watermark: int = 0         # pages kept free at admission (paged mode)
+    prefix_cache: bool = False
+    prefill_chunk: int = 0
+    adaptive_k: bool = False
+    clock: Callable[[], float] = time.monotonic
+    telemetry: bool = False       # lifecycle tracer on (metrics always on)
+    trace_limit: int = 200_000
+    max_queue: int = 0            # admission queue bound (0 = unbounded)
+    tenant_weights: Optional[Dict[str, float]] = None
+    stats: object = field(default=None, init=False)
 
     def __post_init__(self):
-        if self.scheduler != "sync":
-            raise NotImplementedError("the continuous scheduler is a later slice "
-                                      "of the port (ROADMAP item 12)")
+        cfg = self.model.cfg
+        K = cfg.dvi.k_spec
+        if self.scheduler not in ("sync", "continuous"):
+            raise ValueError(f"unknown scheduler {self.scheduler!r}")
         if self.learn:
             raise NotImplementedError("online drafter updates (the Improve loop) "
                                       "are a later slice of the port (ROADMAP item 7)")
+        for name, on in (("prefill_chunk", self.prefill_chunk > 0),
+                         ("prefix_cache", self.prefix_cache),
+                         ("adaptive_k", self.adaptive_k)):
+            if on:
+                raise NotImplementedError(f"{name} is a later slice of the port "
+                                          f"(ROADMAP item 12)")
+        self._k_worst = K
+        self._cap = self.cache_len or (max(self.buckets) + self.max_new + K + 2
+                                       + tfm.RING_SLACK)
         if self.buf is None:
-            self.buf = buffer_mod.init_buffer(self.model.cfg, device=self.model.device)
-        self._queue: Dict[int, List[Request]] = {}
-        self._submit_t: Dict[int, float] = {}
-        self.reset_stats()
+            self.buf = buffer_mod.init_buffer(cfg, device=self.model.device)
+        self.sync_every = max(1, int(self.sync_every))
 
-    def reset_stats(self) -> None:
-        self.stats.update(requests=0, blocks=0, steps=0, committed=0, accepted=0,
-                          drafted=0, latencies=[])
+        # sync state: prompt-length buckets
+        self._queue: Dict[int, List[Request]] = {}
+        # continuous state: one persistent cache, host-side slot table
+        self._slots: List[Optional[_Slot]] = [None] * self.num_slots
+        self._done = np.ones((self.num_slots,), bool)
+        self._pending = torch.zeros((self.num_slots,), dtype=torch.int32,
+                                    device=self.model.device)
+        self._cache: Optional[dict] = None
+        self._submit_t: Dict[int, float] = {}
+        self._tq = TenantQueue(max_queue=self.max_queue, weights=self.tenant_weights)
+        self._handles: Dict[int, RequestHandle] = {}
+        # metrics registry (and the legacy `stats` facade over it) always on;
+        # the lifecycle tracer only with telemetry=True
+        self.telem = ServingTelemetry(
+            num_slots=self.num_slots, k_max=self._k_worst,
+            latency_window=self.latency_window, clock=self.clock,
+            trace=self.telemetry, trace_limit=self.trace_limit)
+        self.stats = self.telem.stats
+        # (SuperstepResult, engine-clock mark, occupied lanes, dispatch time)
+        self._inflight: Optional[tuple] = None
+        # engine-resident clock: time spent inside _step_continuous; per-request
+        # wall_s is attributed from it, so caller time is never billed
+        self._clock = 0.0
+        self._tick_t0: Optional[float] = None
+
+        self.paged = self.kv_pages > 0
+        self._pool: Optional[KVPool] = None
+        self._admit_seq = 0
+        self._preempted: Dict[int, tuple] = {}   # uid -> (prompt, gen, blocks, wall, seq)
+        if self.paged:
+            if self.scheduler != "continuous":
+                raise ValueError("paged KV requires scheduler='continuous'")
+            self._pool = KVPool(self.kv_pages, self.kv_page_size)
+            self._mps = self._pool.pages_for(self._cap)      # block-table width
+            # host mirror of cache["tbl"]: a tick's row updates go to the
+            # device in ONE push (set_block_tables)
+            self._tbl_host = np.full((self.num_slots, self._mps), -1, np.int32)
+            if self.kv_pages - self.kv_watermark < self._mps:
+                raise ValueError(
+                    f"kv_pages={self.kv_pages} minus watermark={self.kv_watermark} "
+                    f"cannot hold one worst-case request ({self._mps} pages of "
+                    f"{self.kv_page_size}): admission would livelock")
 
     # ------------------------------------------------------------------
     # submission
@@ -84,11 +198,39 @@ class ServingEngine:
                 return b
         return self.buckets[-1]
 
-    def submit_request(self, req: Request) -> None:
-        """Queue `req` in its prompt-length bucket.  (The reference returns
-        a RequestHandle; handles are a later slice.)"""
-        self._queue.setdefault(self._bucket(len(req.prompt)), []).append(req)
-        self._submit_t[req.uid] = time.monotonic()
+    def submit_request(self, req: Request) -> RequestHandle:
+        """Accept `req` into the admission queue and return its handle
+        (``deltas()`` streams tokens at superstep boundaries, ``result()``
+        blocks for the Completion, ``cancel()`` asks for retirement at the
+        next boundary).  A bounded queue (``max_queue``) that is full
+        rejects: the handle finishes "rejected" and ``QueueFull`` is raised
+        carrying it as ``exc.handle``."""
+        now = self.clock()
+        h = RequestHandle(req.uid, req.tenant, int(req.priority), clock=self.clock)
+        h.t_submit = now
+        self.stats["submitted"] += 1
+        self.telem.c_tenant.inc(h.tenant)
+        if self.scheduler == "continuous":
+            try:
+                self._tq.push(req)
+            except QueueFull as e:
+                self.stats["rejected"] += 1
+                h.finish(None, "rejected", t_done=now)
+                e.handle = h
+                raise
+        else:
+            self._queue.setdefault(self._bucket(len(req.prompt)), []).append(req)
+        self._handles[req.uid] = h
+        self._submit_t[req.uid] = now
+        tr = self.telem.tracer
+        if tr is not None and self.scheduler == "continuous":
+            tr.async_begin("request", req.uid, now,
+                           args={"prompt_len": int(len(req.prompt)),
+                                 "max_new": int(req.max_new), "tenant": h.tenant})
+            tr.async_begin("queued", req.uid, now)
+        if self.scheduler == "continuous":
+            self.telem.g_queue.set(len(self._tq))
+        return h
 
     def _pad(self, req: Request, bucket: int) -> np.ndarray:
         p = req.prompt[-bucket:]
@@ -96,12 +238,129 @@ class ServingEngine:
             p = np.concatenate([np.full(bucket - len(p), p[0], p.dtype), p])
         return p
 
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the model's device without blocking the host:
+        copied into pinned memory, then to the card with non_blocking=True.
+        The copy is a snapshot, so the host array may change right away."""
+        t = torch.from_numpy(np.array(arr))
+        dev = self.model.device
+        if dev.type != "cuda":
+            return t.to(dev)
+        return t.pin_memory().to(dev, non_blocking=True)
+
+    # ------------------------------------------------------------------
+    # completion, handles, cancellation (boundary-only)
+    # ------------------------------------------------------------------
+
+    def _complete(self, uid: int, tokens: np.ndarray, gen_tokens: np.ndarray,
+                  mat: float, wall_s: float) -> Completion:
+        now = self.clock()
+        lat = now - self._submit_t.pop(uid, now)
+        self.stats["latencies"].append(lat)
+        self.telem.h_latency.observe(lat)
+        tr = self.telem.tracer
+        if tr is not None and self.scheduler == "continuous":
+            tr.async_end("decode", uid, now, args={"gen_tokens": int(len(gen_tokens))})
+            tr.async_end("request", uid, now, args={"latency_s": lat, "mat": mat})
+        return Completion(uid=uid, tokens=tokens, gen_tokens=gen_tokens, mat=mat,
+                          wall_s=wall_s, latency_s=lat)
+
+    def _finish_handle(self, uid: int, comp: Completion) -> None:
+        """Terminal handle transition: deliver the final tokens, observe TTFT
+        on a first delivery, wake every waiter."""
+        h = self._handles.pop(uid, None)
+        if h is None:
+            return
+        if len(comp.gen_tokens):
+            first = h.t_first_token is None
+            h.feed(comp.gen_tokens)
+            if first and h.t_first_token is not None:
+                self.telem.h_ttft.observe(h.t_first_token - h.t_submit)
+        h.finish(comp, "completed")
+
+    def _finish_cancelled_queued(self, uid: int) -> None:
+        """Cancel honoured while the request sat in the queue (or waited as
+        a preemption replay): no lane, no pages, pure bookkeeping."""
+        orig_prompt, gen0, blocks0, wall0, _ = self._preempted.pop(
+            uid, (None, [], 0, 0.0, None))
+        self._submit_t.pop(uid, None)
+        self.stats["cancelled"] += 1
+        now = self.clock()
+        tr = self.telem.tracer
+        if tr is not None and self.scheduler == "continuous":
+            tr.async_end("queued", uid, now, args={"cancelled": True})
+            tr.async_end("request", uid, now, args={"cancelled": True})
+        h = self._handles.pop(uid, None)
+        if h is not None:
+            gen = np.asarray(gen0, np.int32)
+            prompt = (np.asarray(orig_prompt, np.int32) if orig_prompt is not None
+                      else np.zeros(0, np.int32))
+            h.finish(Completion(uid=uid, tokens=np.concatenate([prompt, gen]),
+                                gen_tokens=gen, mat=len(gen0) / max(blocks0, 1),
+                                wall_s=wall0), "cancelled", t_done=now)
+
+    def _cancel_lane(self, s: int) -> None:
+        """Retire live lane `s` on a cancel request, at a superstep boundary
+        only (no superstep in flight): free its pages, unmap its row, reset
+        the lane, and finish the handle with the committed-so-far stream.
+        Adds no host sync."""
+        st = self._slots[s]
+        uid = st.uid
+        if self.paged:
+            self._pool.free(uid)
+            self._tbl_host[s] = -1
+        self._cache = tfm.reset_slot(self.model.cfg, self._cache, s)
+        self._slots[s] = None
+        self._done[s] = True
+        self._submit_t.pop(uid, None)
+        self.stats["cancelled"] += 1
+        now = self.clock()
+        tr = self.telem.tracer
+        if tr is not None:
+            tr.instant(s, "cancel", now, args={"uid": uid, "gen_len": len(st.gen)})
+            tr.async_end("decode", uid, now, args={"cancelled": True})
+            tr.async_end("request", uid, now, args={"cancelled": True})
+        h = self._handles.pop(uid, None)
+        if h is not None:
+            gen = np.asarray(st.gen, np.int32)
+            h.finish(Completion(uid=uid, tokens=np.concatenate([st.prompt, gen]),
+                                gen_tokens=gen, mat=len(st.gen) / max(st.blocks, 1),
+                                wall_s=st.wall_s), "cancelled", t_done=now)
+
+    def _sweep_cancels(self) -> None:
+        """Honour pending ``handle.cancel()`` flags right after the harvest,
+        the one point of a tick with no superstep in flight.  Queued
+        requests leave the tenant queue; live lanes are retired in place.
+        Other lanes keep their state, so their streams are unchanged."""
+        want = [uid for uid, h in self._handles.items()
+                if h.cancel_requested and not h.finished]
+        if not want:
+            return
+        in_slot = {st.uid: s for s, st in enumerate(self._slots) if st is not None}
+        queued = set(want) - set(in_slot)
+        if queued:
+            for req in self._tq.drop(queued):
+                self._finish_cancelled_queued(req.uid)
+        for uid in want:
+            s = in_slot.get(uid)
+            if s is not None:
+                self._cancel_lane(s)
+
     # ------------------------------------------------------------------
     # the sync scheduler
     # ------------------------------------------------------------------
 
-    def step(self) -> List[Completion]:
+    def _step_sync(self) -> List[Completion]:
         """Serve one batch from the fullest bucket."""
+        for b, lst in list(self._queue.items()):   # cancels leave at batch formation
+            keep = []
+            for r in lst:
+                hc = self._handles.get(r.uid)
+                if hc is not None and hc.cancel_requested:
+                    self._finish_cancelled_queued(r.uid)
+                else:
+                    keep.append(r)
+            self._queue[b] = keep
         if not any(self._queue.values()):
             return []
         bucket = max(self._queue, key=lambda b: len(self._queue[b]))
@@ -115,13 +374,13 @@ class ServingEngine:
         prompts = torch.as_tensor(np.stack([self._pad(r, bucket) for r in reqs]),
                                   dtype=torch.int32, device=dev)
 
-        t0 = time.monotonic()
+        t0 = self.clock()
         res = spec_mod.speculative_generate(
             self.model, self.params, self.dvi_params, prompts, int(self.max_new),
             collect=True, buf=self.buf, live_mask=live)
         toks = res.tokens.cpu().numpy()
         lens = res.lengths.cpu().numpy()
-        wall = time.monotonic() - t0
+        wall = self.clock() - t0
         self.buf = res.buffer
 
         blocks, committed = int(res.blocks), int(res.committed)
@@ -138,17 +397,369 @@ class ServingEngine:
             # the batch decodes to the engine-wide max_new (head-of-line cost
             # of sync scheduling) but the client only gets what it asked for
             gen = toks[i, bucket:lens[i]][:min(r.max_new, self.max_new)]
-            now = time.monotonic()
-            lat = now - self._submit_t.pop(r.uid, now)
-            self.stats["latencies"].append(lat)
-            outs.append(Completion(uid=r.uid, tokens=np.concatenate([toks[i, :bucket], gen]),
-                                   gen_tokens=gen, mat=mat, wall_s=wall / n_real,
-                                   latency_s=lat))
+            comp = self._complete(r.uid, np.concatenate([toks[i, :bucket], gen]), gen,
+                                  mat, wall / n_real)
+            outs.append(comp)
+            self._finish_handle(r.uid, comp)
         return outs
+
+    # ------------------------------------------------------------------
+    # the continuous scheduler
+    # ------------------------------------------------------------------
+
+    @property
+    def active_slots(self) -> int:
+        return sum(s is not None for s in self._slots)
+
+    def _trim_prompt(self, req: Request, remaining_new: int) -> np.ndarray:
+        """`remaining_new`: generation budget still outstanding (max_new, less
+        the tokens a preempted replay already carries in its prompt)."""
+        prompt = np.asarray(req.prompt, np.int32)
+        if len(prompt) < 2:                  # need prefill + pending
+            prompt = np.concatenate([np.full(2 - len(prompt), prompt[0], np.int32),
+                                     prompt])
+        # oversized prompts keep their suffix rather than crash the loop
+        limit = self._cap - remaining_new - self._k_worst - 2
+        if len(prompt) > limit:
+            prompt = prompt[-limit:]
+        return prompt
+
+    def _superstep_horizon(self, remaining: int) -> int:
+        """Cache slots one superstep can touch beyond a lane's committed
+        length: ``sync_every`` blocks of K+1 eager tokens, capped by the
+        lane's remaining budget (r more blocks advance the cache at most
+        r + K slots).  Shared by admission sizing and page growth."""
+        K = self._k_worst
+        return min(self.sync_every * (K + 1), remaining + K)
+
+    def _pages_needed(self, cache_len: int, remaining: int) -> int:
+        """Pages covering `cache_len` committed slots plus one superstep
+        horizon (+1 slack slot)."""
+        return self._pool.pages_for(cache_len + self._superstep_horizon(remaining) + 1)
+
+    def _growth_reserve(self) -> int:
+        """Pages live lanes may still need for their NEXT growth pass,
+        assuming the in-flight superstep commits its full horizon.
+        Pre-admission keeps them free, so a new request never takes pages
+        that older lanes would claw back by preempting it."""
+        reserve = 0
+        for st in self._slots:
+            if st is None:
+                continue
+            remaining = st.max_new - len(st.gen)
+            if remaining <= 0:
+                continue
+            inflight_cap = st.cache_len + self._superstep_horizon(remaining)
+            need = self._pages_needed(inflight_cap, remaining)
+            reserve += max(0, need - len(self._pool.owned(st.uid)))
+        return reserve
+
+    def _admit_waiting(self, reserve: int = 0) -> None:
+        """Prefill-on-arrival: splice queued requests into free lanes.  Paged
+        mode gates admission on the free-page watermark: the pool must cover
+        the prompt plus the lane's first superstep.  `reserve`: pages kept
+        free on top of the watermark."""
+        cfg = self.model.cfg
+        tr = self.telem.tracer
+        while self._tq and not all(s is not None for s in self._slots):
+            t_a0 = self.clock()
+            slot = next(i for i, s in enumerate(self._slots) if s is None)
+            req = self._tq.peek()
+            if req is None:
+                break
+            hq = self._handles.get(req.uid)
+            if hq is not None and hq.cancel_requested:
+                self._tq.take(req)               # cancelled while queued
+                self._finish_cancelled_queued(req.uid)
+                continue
+            max_new = min(req.max_new, self.max_new)
+            gen_carry = len(self._preempted.get(req.uid, (None, ()))[1])
+            prompt = self._trim_prompt(req, max_new - gen_carry)
+            c1 = len(prompt) - 1
+            if self._cache is None:
+                self._cache = (self.model.init_paged_cache(
+                    self.num_slots, self.kv_pages, self.kv_page_size, self._mps)
+                    if self.paged else self.model.init_cache(self.num_slots, self._cap))
+            if self.paged:
+                need = self._pages_needed(c1, max_new - gen_carry)
+                if not self._pool.can_alloc(need, self.kv_watermark + reserve):
+                    self.telem.c_watermark.inc()     # head-of-line wait for pages
+                    if tr is not None:
+                        tr.instant(self.telem.tid_engine, "pool_watermark",
+                                   args={"uid": req.uid, "need": need,
+                                         "free": self._pool.free_pages,
+                                         "reserve": reserve})
+                    break
+                self._tq.take(req)
+                pages = self._pool.alloc(need, owner=req.uid)
+                row = np.full(self._mps, -1, np.int32)
+                row[:len(pages)] = pages
+                self._tbl_host[slot] = row
+                tfm.map_slot_pages(self._cache, slot, self._to_device(row))
+                # prompt-sized scratch: the splice through the table lands it
+                max_len = c1
+            else:
+                self._tq.take(req)
+                max_len = self._cap
+            tokens = self._to_device(prompt)
+            _, pc = self.model.prefill(self.params, tokens[None, :-1], max_len=max_len)
+            self._cache = tfm.insert_slot(cfg, self._cache, pc, slot)
+            self._pending[slot] = tokens[-1]
+            orig_prompt, gen0, blocks0, wall0, seq0 = self._preempted.pop(
+                req.uid, (prompt, [], 0, 0.0, None))
+            if seq0 is None:             # fresh request; replays keep their
+                self._admit_seq += 1     # original admission seniority
+                seq0 = self._admit_seq
+            self._slots[slot] = _Slot(uid=req.uid, prompt=orig_prompt, max_new=max_new,
+                                      gen=list(gen0), blocks=blocks0, wall_s=wall0,
+                                      cache_len=c1, admit_seq=seq0, handle=hq)
+            t_adm = self.clock()
+            if hq is not None:
+                if hq.t_admit is None:   # first admission only: a replay keeps
+                    hq.t_admit = t_adm   # its original wait
+                    self.telem.h_queue_wait.observe(t_adm - hq.t_submit)
+                if hq.t_prefill_done is None:
+                    hq.t_prefill_done = t_adm
+            self._done[slot] = False
+            if tr is not None:
+                now = self.clock()
+                tr.span(slot, f"admit u{req.uid}", t_a0, now,
+                        args={"uid": req.uid, "prefilled": c1})
+                tr.async_end("queued", req.uid, now)
+                tr.async_begin("prefill", req.uid, now, args={"slot": slot})
+                tr.async_end("prefill", req.uid, now)
+                tr.async_begin("decode", req.uid, now, args={"slot": slot})
+
+    def _preempt(self, slot: int) -> None:
+        """Evict lane `slot` mid-decode: free its pages, unmap its row, and
+        re-queue its progress (prompt + generated prefix) at the FRONT of
+        the queue.  Re-admission replays the prefix through prefill, so
+        greedy decoding continues where it stopped.  The victim keeps its
+        admission seniority, so the oldest request always wins and two
+        starved lanes cannot preempt each other forever."""
+        st = self._slots[slot]
+        self._pool.free(st.uid)
+        self._tbl_host[slot] = -1
+        self._preempted[st.uid] = (st.prompt, list(st.gen), st.blocks, st.wall_s,
+                                   st.admit_seq)
+        combined = np.concatenate([st.prompt, np.asarray(st.gen, np.int32)]).astype(np.int32)
+        # replays bypass fairness and the max_queue bound: they won admission once
+        self._tq.push_front(Request(
+            uid=st.uid, prompt=combined, max_new=st.max_new,
+            tenant=st.handle.tenant if st.handle is not None else "default",
+            priority=st.handle.priority if st.handle is not None else 0))
+        self._cache = tfm.reset_slot(self.model.cfg, self._cache, slot)
+        tr = self.telem.tracer
+        if tr is not None:
+            now = self.clock()
+            tr.instant(slot, "preempt", now, args={"uid": st.uid, "gen_len": len(st.gen)})
+            tr.async_end("decode", st.uid, now, args={"preempted": True})
+            tr.async_begin("queued", st.uid, now, args={"replay": True})
+        self._slots[slot] = None
+        self._done[slot] = True
+        self.stats["preemptions"] += 1
+
+    def _grow_pages(self) -> None:
+        """Top every live lane up to the pages its NEXT superstep can touch,
+        oldest first; on pool exhaustion preempt the newest other lane and
+        retry.  All row updates of the tick go to the device in one push."""
+        dirty = False
+        for s in sorted((i for i, st in enumerate(self._slots) if st is not None),
+                        key=lambda i: self._slots[i].admit_seq):
+            st = self._slots[s]
+            if st is None:               # preempted as a victim below
+                continue
+            remaining = st.max_new - len(st.gen)
+            if remaining <= 0:           # retires at the next boundary
+                continue
+            while True:
+                got = self._pool.ensure(st.uid, self._pages_needed(st.cache_len, remaining))
+                if got is None:
+                    victims = [i for i, v in enumerate(self._slots)
+                               if v is not None and i != s]
+                    if not victims:      # lone lane: admission sizing makes
+                        break            # this unreachable
+                    self._preempt(max(victims, key=lambda i: self._slots[i].admit_seq))
+                    dirty = True         # preemption unmapped a row
+                    continue
+                if got:
+                    self._sync_row(s, st.uid)
+                    dirty = True
+                break
+        if dirty:
+            self._cache = tfm.set_block_tables(self._cache, self._to_device(self._tbl_host))
+
+    def _sync_row(self, s: int, uid: int) -> None:
+        """Mirror lane `s`'s pool ownership into the host block table
+        (allocation order == logical order)."""
+        owned = self._pool.owned(uid)
+        self._tbl_host[s] = -1
+        self._tbl_host[s, :len(owned)] = owned
+
+    def _dispatch_superstep(self) -> None:
+        """Dispatch one superstep over the live lanes and return without
+        waiting for it (``_harvest`` does, one tick later).  It runs the
+        largest remaining budget of a live lane in blocks, at most
+        ``sync_every``: after that many every lane is done."""
+        budget = np.ones((self.num_slots,), np.int32)
+        for s, st in enumerate(self._slots):
+            if st is not None:
+                budget[s] = st.max_new - len(st.gen)
+        steps = min(self.sync_every, int(budget[~self._done].max()))
+        res = spec_mod.spec_superstep(
+            self.model, self.params, self.dvi_params, self._pending, self._cache,
+            steps=steps, done=self._to_device(self._done),
+            budget=self._to_device(budget), eos_id=self.eos_id, buf=self.buf,
+            collect=True)
+        # engine state moves to the (not yet computed) outputs; every later
+        # device op of the engine is queued behind them on the same stream
+        self._pending, self._cache, self.buf = res.pending, res.cache, res.buffer
+        lanes = [s for s, st in enumerate(self._slots) if st is not None]
+        now = self.clock()
+        mark = self._clock + (now - self._tick_t0)
+        self._inflight = (res, mark, lanes, now)
+        self.stats["dispatches"] += 1
+        self.stats["peak_live_slots"] = max(self.stats["peak_live_slots"], len(lanes))
+
+    def _harvest(self) -> List[Completion]:
+        """Bring the in-flight superstep's summary to the host in ONE packed
+        device-to-host copy (the only sync of the continuous hot path), fold
+        it into the host bookkeeping and retire finished lanes."""
+        if self._inflight is None:
+            return []
+        res, clock_mark, lanes, t_disp_wall = self._inflight
+        self._inflight = None
+        B, K = self.num_slots, self._k_worst
+        parts = (res.done, res.gen_count, res.lane_blocks, res.lane_committed,
+                 res.lane_accepted, res.lane_drafted, res.accept_hist, res.depth_hist,
+                 res.gen_buf)
+        tr = self.telem.tracer
+        t0 = self.clock()
+        flat = torch.cat([p.reshape(-1).to(torch.int32) for p in parts]).cpu().numpy()
+        now = self.clock()
+        (done_np, cnt_np, blocks_np, committed_np, accepted_np, drafted_np,
+         ahist_np, dhist_np, gen_np) = np.split(
+            flat, np.cumsum([B, B, B, B, B, B, K + 1, K + 1]))
+        gen_np = gen_np.reshape(B, -1)
+        self.stats["host_syncs"] += 1
+        self.stats["sync_wait_s"] += now - t0
+        self.telem.h_sync_wait.observe(now - t0)
+        if tr is not None:
+            tr.span(self.telem.tid_engine, "sync_wait", t0, now)
+        for i, n in enumerate(ahist_np):
+            self.telem.h_block_accept.add(int(i), int(n))
+        for i, n in enumerate(dhist_np):
+            self.telem.h_block_depth.add(int(i), int(n))
+        # blocks with a live lane: the longest-lived lane saw all of them
+        self.stats["steps"] += int(blocks_np.max(initial=0))
+        wall = self._clock + (now - self._tick_t0) - clock_mark
+        wall_share = wall / max(int(blocks_np.sum()), 1)
+
+        outs: List[Completion] = []
+        k_seen: List[int] = []
+        for s in lanes:                  # lanes admitted since the dispatch rode
+            st = self._slots[s]          # along masked and carry no results
+            if st is None:
+                continue
+            nb = int(blocks_np[s])
+            st.blocks += nb
+            st.wall_s += wall_share * nb
+            st.cache_len += int(committed_np[s])
+            st.gen.extend(int(t) for t in gen_np[s, :int(cnt_np[s])])
+            if st.handle is not None and int(cnt_np[s]) > 0:
+                # stream the fresh chunk to the handle at the boundary
+                first = st.handle.t_first_token is None
+                st.handle.feed(st.gen)
+                if first and st.handle.t_first_token is not None:
+                    self.telem.h_ttft.observe(st.handle.t_first_token - st.handle.t_submit)
+            self.stats["blocks"] += nb
+            self.stats["committed"] += int(committed_np[s])
+            self.stats["accepted"] += int(accepted_np[s])
+            self.stats["drafted"] += int(drafted_np[s])
+            k_seen.append(K)
+            if tr is not None:
+                tr.span(s, "superstep", t_disp_wall, now,
+                        args={"uid": st.uid, "blocks": nb,
+                              "committed": int(committed_np[s]),
+                              "accepted": int(accepted_np[s]), "k": K})
+            if done_np[s]:               # EOS or budget, detected on the device
+                gen = np.asarray(st.gen, np.int32)
+                comp = self._complete(st.uid, np.concatenate([st.prompt, gen]), gen,
+                                      len(st.gen) / max(st.blocks, 1), st.wall_s)
+                outs.append(comp)
+                self._finish_handle(st.uid, comp)
+                self.stats["requests"] += 1
+                if self.paged:
+                    self._pool.free(st.uid)   # copy-free eviction: pages
+                    self._tbl_host[s] = -1    # recycle host-side
+                self._cache = tfm.reset_slot(self.model.cfg, self._cache, s)
+                self._slots[s] = None
+                self._done[s] = True
+        if k_seen:
+            km = float(np.mean(k_seen))
+            self.stats["k_mean"].append(km)
+            self.telem.g_depth_mean.set(km)
+        return outs
+
+    def _step_continuous(self) -> List[Completion]:
+        """One tick: pre-admit arrivals into already-free lanes (queued behind
+        the in-flight superstep), harvest it, honour cancels, grow paged
+        lanes (preempting if the pool runs dry), admit into freshly freed
+        lanes, and dispatch the next superstep."""
+        self._tick_t0 = tick0 = self.clock()
+        tr = self.telem.tracer
+        tid_e = self.telem.tid_engine if tr is not None else 0
+
+        def _phase(name, fn, *a):
+            if tr is None:
+                return fn(*a)
+            p0 = self.clock()
+            try:
+                return fn(*a)
+            finally:
+                tr.span(tid_e, name, p0, self.clock())
+
+        try:
+            _phase("pre_admit", self._admit_waiting,
+                   self._growth_reserve() if self.paged else 0)
+            outs = _phase("harvest", self._harvest)
+            _phase("sweep_cancels", self._sweep_cancels)
+            if self.paged:               # grow BEFORE admitting: admission then
+                _phase("grow_pages", self._grow_pages)   # sees the true residue
+            _phase("admit", self._admit_waiting)
+            if self.active_slots:
+                _phase("dispatch", self._dispatch_superstep)
+        finally:
+            dt = self.clock() - self._tick_t0
+            self._clock += dt
+            self.stats["tick_s"].append(dt)
+            self.telem.h_tick.observe(dt)
+            t = self.telem
+            t.g_live.set(self.active_slots)
+            t.g_queue.set(len(self._tq))
+            if self.paged:
+                t.g_kv_used.set(self._pool.used_pages)
+                t.g_kv_free.set(self._pool.available_pages)
+                t.g_kv_cached.set(self._pool.cached_pages)
+            if tr is not None:
+                tr.span(tid_e, "tick", tick0, tick0 + dt,
+                        args={"live": self.active_slots, "queued": len(self._tq)})
+            self._tick_t0 = None
+        return outs
+
+    # ------------------------------------------------------------------
+    # the serving loop
+    # ------------------------------------------------------------------
+
+    def step(self) -> List[Completion]:
+        if self.scheduler == "continuous":
+            return self._step_continuous()
+        return self._step_sync()
 
     @property
     def busy(self) -> bool:
-        return any(self._queue.values())
+        return (bool(self._tq) or self.active_slots > 0 or self._inflight is not None
+                or any(self._queue.values()))
 
     def run(self, max_steps: int = 10**9) -> List[Completion]:
         done: List[Completion] = []
@@ -158,6 +769,56 @@ class ServingEngine:
             done.extend(self.step())
         return done
 
+    # ------------------------------------------------------------------
+    # observability
+    # ------------------------------------------------------------------
+
+    def reset_stats(self) -> None:
+        """Zero every registry metric and rolling window (e.g. after a
+        warm-up run); live lanes are untouched."""
+        self.telem.registry.reset()
+        self.stats.reset()
+
     @property
     def acceptance(self) -> float:
         return self.stats["accepted"] / max(self.stats["drafted"], 1)
+
+    def metrics_snapshot(self) -> dict:
+        """JSON-able snapshot of every registry metric (schema: telemetry.py)."""
+        return self.telem.snapshot()
+
+    def trace_dict(self) -> Optional[dict]:
+        """The Chrome-trace dict (``telemetry=True`` runs only)."""
+        tr = self.telem.tracer
+        return tr.to_dict() if tr is not None else None
+
+    def kv_stats(self) -> dict:
+        """Paged-pool observability: utilization and fragmentation, plus
+        preemption and concurrency counters."""
+        if not self.paged:
+            return {"paged": False}
+        live_tokens = sum(st.cache_len for st in self._slots if st is not None)
+        out = self._pool.utilization(live_tokens)
+        out.update(paged=True, preemptions=self.stats["preemptions"],
+                   peak_live_slots=self.stats["peak_live_slots"])
+        return out
+
+    def latency_percentiles(self) -> dict:
+        """Percentiles over the most recent ``latency_window`` completions."""
+        lats = np.asarray(self.stats["latencies"], np.float64)
+        if lats.size == 0:
+            return {"p50_s": 0.0, "p95_s": 0.0, "mean_s": 0.0, "count": 0}
+        return {"p50_s": float(np.percentile(lats, 50)),
+                "p95_s": float(np.percentile(lats, 95)),
+                "mean_s": float(np.mean(lats)), "count": int(lats.size)}
+
+    def dispatch_stats(self) -> dict:
+        """Host/device interplay on the continuous hot path: host syncs, the
+        host's time blocked on them, and the dispatches that covered the
+        executed block-steps (``steps``: blocks with a live lane)."""
+        steps = max(self.stats["steps"], 1)
+        return {"sync_every": self.sync_every, "steps": self.stats["steps"],
+                "dispatches": self.stats["dispatches"],
+                "host_syncs": self.stats["host_syncs"],
+                "host_syncs_per_100_blocks": 100.0 * self.stats["host_syncs"] / steps,
+                "host_wait_s": self.stats["sync_wait_s"]}

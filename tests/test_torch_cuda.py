@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, over
 shapes the main path does not use (ragged vocab and d, T > 48 rows, r = 1,
-GQA groups, Tq > 1, lengths at and past the cache capacity), in float32 and
-bfloat16, plus the greedy path on the card.
+GQA groups, Tq > 1, lengths at and past the cache capacity, paged tables
+with -1 entries, all -1 lanes and page sizes 16 and 4), in float32 and
+bfloat16, plus the greedy sync path and the continuous paged path on the
+card.
 
 These tests need an NVIDIA GPU and skip without one.  The machine with the
 card has no JAX, so run them there without the suite's conftest:
@@ -93,6 +95,37 @@ def test_decode_attention(ops, dtype, B, Tq, H, KV, hd, S):
                                ref.decode_attention(q_in, k, v, lens), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq", [1, 5])
+@pytest.mark.parametrize("G,ps", [(1, 16), (4, 16), (8, 4), (1, 4)])
+def test_paged_decode_attention(ops, dtype, Tq, G, ps):
+    """Shuffled pages; lane 0 past the table (length > MPS*ps), lane 1 with
+    a -1 entry mid-row, lane 2 at exactly MPS*ps, lane 3 all -1 with a
+    length, lane 4 idle (length 0, all -1).  Lanes with a mapped slot match
+    the plain version; lanes without one give 0."""
+    from repro_torch.kernels import ref
+    B, KV, hd, mps = 5, 4, 64, 6
+    H = KV * G
+    gen = torch.Generator(device="cuda").manual_seed(G * ps + Tq)
+    rng = np.random.default_rng(G * ps)
+    P = B * mps + 3
+    perm = rng.permutation(np.arange(1, P))
+    tbl = perm[:B * mps].reshape(B, mps).astype(np.int32)
+    tbl[1, 2] = -1
+    tbl[3:] = -1
+    lens = np.array([mps * ps + 3, 3 * ps + 2, mps * ps, 2 * ps, 0], np.int32)
+    q = _randn(gen, B, Tq, H, hd, dtype=dtype)
+    kp = _randn(gen, P, ps, KV, hd, dtype=dtype)
+    vp = _randn(gen, P, ps, KV, hd, dtype=dtype)
+    lens_t = torch.as_tensor(lens, device="cuda")
+    tbl_t = torch.as_tensor(tbl, device="cuda")
+    q_in = q[:, 0].contiguous() if Tq == 1 else q
+    out = ops.paged_decode_attention(q_in, kp, vp, lens_t, tbl_t)
+    want = ref.paged_decode_attention(q_in, kp, vp, lens_t, tbl_t)
+    torch.testing.assert_close(out[:3], want[:3], **TOL[dtype])
+    assert bool((out[3:] == 0).all()) and bool(torch.isfinite(want).all())
+
+
 def test_wrappers_check_inputs_and_count_launches(ops):
     gen = torch.Generator(device="cuda").manual_seed(1)
     h = _randn(gen, 4, 64)
@@ -112,7 +145,12 @@ def test_wrappers_check_inputs_and_count_launches(ops):
     kv = _randn(gen, 2, 10, 4, 32)
     with pytest.raises(ValueError, match="int32"):
         ops.decode_attention(q, kv, kv, torch.tensor([3, 4], device="cuda"))
-    assert ops.launches == {"verify_argmax": 2, "lora_logits": 0, "decode_attention": 0}
+    with pytest.raises(ValueError, match="int32"):
+        ops.paged_decode_attention(q, kv, kv, torch.tensor([3, 4], device="cuda",
+                                                           dtype=torch.int32),
+                                   torch.zeros(2, 3, device="cuda", dtype=torch.int64))
+    assert ops.launches == {"verify_argmax": 2, "lora_logits": 0, "decode_attention": 0,
+                            "paged_decode_attention": 0}
 
 
 def test_greedy_path_on_the_card(ops):
@@ -136,4 +174,56 @@ def test_greedy_path_on_the_card(ops):
         assert torch.equal(r_ar.tokens[b, :n], r_sd.tokens[b, :n])
     K, k, L, n = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers, r_sd.steps
     assert ops.launches == {"decode_attention": ((K + 1) * k + L - k) * n,
-                            "lora_logits": (K + 1) * n, "verify_argmax": n}
+                            "lora_logits": (K + 1) * n, "verify_argmax": n,
+                            "paged_decode_attention": 0}
+
+
+def test_continuous_paged_path_on_the_card(ops):
+    """Tiny vicuna in float32 on the card through the continuous engine over
+    a paged pool tight enough to preempt: every stream equals its own
+    ar_generate stream, the pool ends empty, each dispatch runs without a
+    synchronising operation, and every launch is accounted for by the
+    per-block formula (no contiguous decode_attention)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import lora, spec
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = get_config("vicuna-7b", tiny=True).replace(dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    dvi = lora.init_draft_params(gen, cfg)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(2, cfg.vocab_size, size=int(rng.choice([6, 9, 12])))
+                    .astype(np.int32), max_new=int(rng.choice([6, 10, 16]))) for i in range(7)]
+    eng = ServingEngine(model, params, dvi, scheduler="continuous", num_slots=3, max_new=16,
+                        cache_len=40, kv_pages=14, kv_page_size=4, sync_every=3)
+    inner, iters = eng._dispatch_superstep, []
+
+    def dispatch():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inner()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        iters.append(eng._inflight[0].iters)
+
+    eng._dispatch_superstep = dispatch
+    for r in reqs:
+        eng.submit_request(r)
+    ops.reset_launches()
+    outs = {c.uid: c.gen_tokens.tolist() for c in eng.run(max_steps=1000)}
+    launches = dict(ops.launches)
+    K, k, L, n = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers, sum(iters)
+    assert launches == {"paged_decode_attention": ((K + 1) * k + L - k) * n,
+                        "lora_logits": (K + 1) * n, "verify_argmax": n, "decode_attention": 0}
+    kv = eng.kv_stats()
+    assert kv["used_pages"] == 0 and kv["preemptions"] > 0
+    assert eng.stats["host_syncs"] == eng.stats["dispatches"] == len(iters)
+    for r in reqs:
+        res = spec.ar_generate(model, params, torch.as_tensor(r.prompt, device="cuda")[None],
+                               r.max_new)
+        ar = res.tokens[0, len(r.prompt):int(res.lengths[0])].tolist()[:r.max_new]
+        if 1 in ar:
+            ar = ar[:ar.index(1) + 1]
+        assert outs[r.uid] == ar, r.uid

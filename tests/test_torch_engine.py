@@ -75,9 +75,9 @@ def test_later_slices_raise():
     model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     dvi = {"A": torch.zeros(cfg.d_model, 1), "B": torch.zeros(1, cfg.vocab_size)}
-    with pytest.raises(NotImplementedError):
-        ServingEngine(model, params, dvi, scheduler="continuous")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(model, params, dvi, learn=True)
+    for kw in (dict(learn=True), dict(prefill_chunk=8), dict(prefix_cache=True),
+               dict(adaptive_k=True)):
+        with pytest.raises(NotImplementedError):
+            ServingEngine(model, params, dvi, scheduler="continuous", kv_pages=64, **kw)
     eng = ServingEngine(model, params, dvi, batch_size=2, max_new=3)
     assert eng.step() == [] and eng.run() == []

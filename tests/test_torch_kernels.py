@@ -198,7 +198,11 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
     ops.verify_argmax(h, w)
     ops.lora_logits(h, w, a, b, 2.0)
     ops.decode_attention(q, k, k, torch.tensor([5, 10], dtype=torch.int32))
-    assert ops.launches == {"verify_argmax": 0, "lora_logits": 0, "decode_attention": 0}
+    ops.paged_decode_attention(q, k.reshape(5, 4, 2, 8), k.reshape(5, 4, 2, 8),
+                               torch.tensor([5, 7], dtype=torch.int32),
+                               torch.tensor([[1, 2], [3, -1]], dtype=torch.int32))
+    assert ops.launches == {"verify_argmax": 0, "lora_logits": 0, "decode_attention": 0,
+                            "paged_decode_attention": 0}
     assert set(ops.launches) == set(build.KERNELS)
 
 
