@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch port: greedy DVI serving of vicuna-7b on
-one NVIDIA GPU through the port's four hand-written CUDA kernels, on the
+"""On-card smoke run of the PyTorch port: greedy DVI serving on one NVIDIA
+GPU through the port's five hand-written CUDA kernels: vicuna-7b on the
 batch-synchronous path and on the continuous-batching path over a paged KV
-pool.
+pool, and mamba2-370m (attention-free, its prefill on the ``ssd_scan``
+kernel) through both schedulers.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,12 @@ Phases (any failure raises and exits non-zero):
    and the draft feeds' Tq = 1), plus a ragged GQA attention case (Tq = 1
    and 5), an r = 1 LoRA case, an exact argmax tie case, and paged cases
    over a shuffled page assignment (a -1 entry mid-row, an all -1 lane, a
-   lane past the table, GQA G = 4, ps = 4), with each kernel's time, its
+   lane past the table, GQA G = 4, ps = 4); ``ssd_scan`` at the mamba2
+   paths' prefill shapes (B 8, T = Q = 127 from strided views of a conv
+   output; a B = 1 admission, T = Q = 95; a padded T = 256, Q = 128 with
+   dt = 0 on the last 56 rows; a carried h0), checking y and the final
+   state; ``verify_argmax`` and ``lora_logits`` at mamba2-370m's d = 1024
+   and tied V = 50280, tie rule included; with each kernel's time, its
    plain version's, a library call's where one computes the same function,
    and the least time the card could take;
 4. the sync path: vicuna-7b at full width and depth in bf16, random weights
@@ -34,6 +40,20 @@ Phases (any failure raises and exits non-zero):
    pool at the end, the per-block launch formula, and that no dispatch
    synchronises with the device (sync debug mode "error"); it reports the
    synchronising operations per tick;
+9. mamba2-370m at full width and depth (48 layers) in bf16, random weights
+   drawn on the card from a seed: a sync ``ServingEngine`` answering 8
+   requests (prompts of 64-128 tokens, left-padded to their bucket, 32 new
+   tokens each), then a continuous one over the contiguous layout (8
+   lanes, supersteps of 4 blocks) answering 16 requests, each profiled
+   once more for the device's busy share.  It checks every completion
+   against ``ar_generate`` on the prompt the engine decoded (bucket-padded,
+   in one batch, on the sync path; exact and alone on the continuous one);
+   on the continuous path a first difference outside a near-tie passes
+   only if greedy AR decoded at the engine's row counts (``ar_at_engine_rows``)
+   gives the completion bit for bit; then the launch formula (per
+   block 0 attention, 5 ``lora_logits``, 1 ``verify_argmax``, 0
+   ``ssd_scan``; 48 ``ssd_scan`` per prefill call), no synchronising
+   operation inside a continuous dispatch, and all lanes empty at the end;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 It imports torch, numpy and the port; nothing of JAX.  It needs one card and
@@ -41,6 +61,7 @@ exits non-zero without one.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -65,14 +86,19 @@ N_REQUESTS = 8
 MAX_NEW = 32
 # bf16 tolerances (ROADMAP parity rules): logits against a float32 plain
 # version differ only by float32 summation order; attention outputs differ
-# by the plain version's bf16 rounding of the probabilities
+# by the plain version's bf16 rounding of the probabilities; the SSD scan
+# computes in float32 on both sides, so only the order of summation differs
 TOL = {"verify_argmax": (2e-3, 1e-3), "lora_logits": (2e-3, 1e-3),
-       "decode_attention": (2e-2, 2e-2), "paged_decode_attention": (2e-2, 2e-2)}
+       "decode_attention": (2e-2, 2e-2), "paged_decode_attention": (2e-2, 2e-2),
+       "ssd_scan": (1e-4, 1e-4)}
 GAP_RTOL = 2e-2                  # bf16 top-2 logit gap treated as a tie
 # the continuous path (phase 8)
 C_SLOTS, C_PAGE, C_SYNC, C_REQUESTS = 8, 16, 4, 16
 C_PROMPTS, C_NEW = (64, 96, 128), (16, 32)
 C_PAGES_AMPLE, C_PAGES_TIGHT = 152, 48
+# the mamba2 paths (phase 9): the sync path's 8 requests and the continuous
+# path's 16, as for vicuna; the continuous cache is contiguous
+M_NAME = "mamba2-370m"
 
 
 def phase(n: int, msg: str) -> None:
@@ -259,7 +285,59 @@ def check_paged(ops, ref, gen, rng, B, Tq, H, KV, hd, ps, mps, lengths, label,
     return (q_in, kp, vp, lens, tbl_t, tbl), err
 
 
-def kernels_phase(cfg):
+def ssd_inputs(gen, B, T, H, hd, ds, pad_rows=0):
+    """The scan's inputs as ``ssm_forward_full`` hands them over: xh, Bc and
+    Cc bf16 strided views of one (B, T, H*hd + 2*ds) conv output after silu,
+    dt after softplus in float32 (0 on the last `pad_rows` rows, as on
+    padded rows), A = -exp(A_log) with the model's A_log."""
+    xbc = torch.nn.functional.silu(
+        torch.randn((B, T, H * hd + 2 * ds), generator=gen, device=DEV)).to(torch.bfloat16)
+    xh = xbc[..., :H * hd].reshape(B, T, H, hd)
+    Bc = xbc[..., H * hd:H * hd + ds].reshape(B, T, 1, ds)
+    Cc = xbc[..., H * hd + ds:].reshape(B, T, 1, ds)
+    dt = torch.nn.functional.softplus(torch.randn((B, T, H), generator=gen, device=DEV) - 2.0)
+    if pad_rows:
+        dt[:, T - pad_rows:] = 0.0
+    A = -torch.linspace(1.0, 16.0, H, device=DEV)
+    return xh, Bc, Cc, dt, A
+
+
+def check_ssd(ops, ref, gen, B, T, Q, H, hd, ds, label, pad_rows=0, with_h0=False):
+    xh, Bc, Cc, dt, A = ssd_inputs(gen, B, T, H, hd, ds, pad_rows)
+    h0 = torch.randn((B, H, hd, ds), generator=gen, device=DEV) if with_h0 else None
+    y, h = ops.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0)
+    y_r, h_r = ref.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0)
+    err_y, _, ok_y = close("ssd_scan", y, y_r)
+    err_h, _, ok_h = close("ssd_scan", h, h_r)
+    ok = ok_y and ok_h and y.dtype == h.dtype == torch.float32
+    if pad_rows:                   # dt = 0 rows leave the state where it was
+        _, h_np = ref.ssd_scan(xh[:, :T - pad_rows], Bc[:, :T - pad_rows],
+                               Cc[:, :T - pad_rows], dt[:, :T - pad_rows], A, 1, h0=h0)
+        ok = ok and close("ssd_scan", h, h_np)[2]
+    atol, rtol = TOL["ssd_scan"]
+    phase(3, f"ssd_scan {label}: B={B} T={T} Q={Q} H={H} hd={hd} ds={ds} bf16 inputs, "
+             f"max abs err y {err_y:.3e} state {err_h:.3e} (atol {atol} rtol {rtol}), "
+             f"float32 outputs ok={ok}")
+    check(ok, f"ssd_scan {label} disagrees with its plain version")
+    return (xh, Bc, Cc, dt, A, Q, h0), max(err_y, err_h)
+
+
+def ssd_bound(xh, Bc, dt, Q, h0) -> tuple:
+    """The least time of one scan: every input read once, y and the final
+    state written once in float32, against its float32 products (C.B^T on
+    and below the diagonal once per lane and chunk; per head the intra-chunk
+    term, the carried-state term and the state update) at the float32 rate."""
+    B, T, H, hd = xh.shape
+    ds = Bc.shape[3]
+    nbytes = (xh.numel() * xh.element_size() + 2 * Bc.numel() * Bc.element_size()
+              + dt.numel() * 4 + H * 4 + (h0.numel() * 4 if h0 is not None else 0)
+              + B * T * H * hd * 4 + B * H * hd * ds * 4)
+    tri = Q * (Q + 1) // 2 * (T // Q)
+    flops = 2 * B * tri * ds + 2 * B * H * tri * hd + 2 * 2 * B * H * T * ds * hd
+    return bound(nbytes, flops / F32_FLOP_PER_S)
+
+
+def kernels_phase(cfg, mcfg):
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     d, V, H, KV, hd = (cfg.d_model, cfg.vocab_size, cfg.num_heads, cfg.num_kv_heads,
@@ -299,30 +377,56 @@ def kernels_phase(cfg):
                 holes=((1, 2),), unmapped=(2, 3))
     check_paged(ops, ref, gen, rng, 3, 1, H, KV, hd, 4, -(-cap // 4),
                 list(rng.randint(5, cap + 1, size=3)), "ps=4, -1 mid-row", holes=((0, 1),))
+    # the mamba2 paths: the tied vocab (not a multiple of 64 columns) and the
+    # scan at the prefill shapes of both schedulers
+    md, mV, mK = mcfg.d_model, mcfg.vocab_size, mcfg.dvi.k_spec
+    mh, mw, _ = check_verify(ops, ref, gen, B * (mK + 1), md, mV, f"{M_NAME} (V={mV})")
+    m_lora, _ = check_lora(ops, ref, gen, B, md, mV, mcfg.dvi.lora_rank, f"{M_NAME} (V={mV})")
+    mH, mhd, mds = (mcfg.ssm.expand * md) // mcfg.ssm.head_dim, mcfg.ssm.head_dim, mcfg.ssm.d_state
+    ssd_args, err_s = check_ssd(ops, ref, gen, B, 127, 127, mH, mhd, mds,
+                                "sync prefill (bucket 128)")
+    check_ssd(ops, ref, gen, 1, 95, 95, mH, mhd, mds, "continuous admission (96 tokens)")
+    check_ssd(ops, ref, gen, 2, 256, 128, mH, mhd, mds, "padded long prompt", pad_rows=56)
+    check_ssd(ops, ref, gen, 2, 64, 64, mH, mhd, mds, "carried h0", with_h0=True)
+
+    def verify_bound(T, d, V):
+        return bound(T * d * e + d * V * e + T * 8, 2 * T * d * V / BF16_FLOP_PER_S)
+
+    def lora_bound(T, d, V, r):
+        return bound(T * d * e + d * V * e + d * r * 4 + r * V * 4 + T * V * 4,
+                     2 * T * d * V / BF16_FLOP_PER_S
+                     + (2 * T * d * r + 2 * T * r * V) / F32_FLOP_PER_S)
+
+    def timed(fn, plain, b):
+        return dict(ms=time_ms(fn), plain_ms=time_ms(plain), bound_ms=b[0], bound_by=b[1])
 
     rows = []
     # verify_argmax
     T = T_verify
-    b_ms, b_by = bound(T * d * e + d * V * e + T * 8, 2 * T * d * V / BF16_FLOP_PER_S)
+    b_ms, b_by = verify_bound(T, d, V)
     rows.append(dict(name="verify_argmax", route="cuda",
                      source="src/repro_torch/csrc/verify_argmax.cu",
                      replaces="src/repro/kernels/verify_argmax.py:62",
                      max_abs_err=err_v, ms=time_ms(lambda: ops.verify_argmax(h, w)),
                      plain_ms=time_ms(lambda: ref.verify_argmax(h, w)),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     at_mamba2=timed(lambda: ops.verify_argmax(mh, mw),
+                                     lambda: ref.verify_argmax(mh, mw),
+                                     verify_bound(mh.shape[0], md, mV))))
     # lora_logits
     hl, wl, a, b, gamma = lora_args
     r = a.shape[1]
-    b_ms, b_by = bound(B * d * e + d * V * e + d * r * 4 + r * V * 4 + B * V * 4,
-                       2 * B * d * V / BF16_FLOP_PER_S
-                       + (2 * B * d * r + 2 * B * r * V) / F32_FLOP_PER_S)
+    b_ms, b_by = lora_bound(B, d, V, r)
     rows.append(dict(name="lora_logits", route="cuda",
                      source="src/repro_torch/csrc/lora_logits.cu",
                      replaces="src/repro/kernels/lora_logits.py:53",
                      max_abs_err=err_l,
                      ms=time_ms(lambda: ops.lora_logits(hl, wl, a, b, gamma)),
                      plain_ms=time_ms(lambda: ref.lora_logits(hl, wl, a, b, gamma)),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     at_mamba2=timed(lambda: ops.lora_logits(*m_lora),
+                                     lambda: ref.lora_logits(*m_lora),
+                                     lora_bound(B, md, mV, m_lora[2].shape[1]))))
     # decode_attention: live slots of this run's lengths
     q, k, v, lens = att_args
     Tq = q.shape[1]
@@ -366,10 +470,22 @@ def kernels_phase(cfg):
                      bound_ms=b_ms, bound_by=b_by,
                      library_ms=time_ms(lambda: sdpa(sq, sk, sv, attn_mask=smask)),
                      library_note="SDPA over the pre-gathered contiguous view; gather not timed"))
+    # ssd_scan: the sync path's prefill shape; no single PyTorch call scans
+    xh, Bc, Cc, dt, A, Q, h0 = ssd_args
+    b_ms, b_by = ssd_bound(xh, Bc, dt, Q, h0)
+    rows.append(dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+                     replaces="src/repro/kernels/ssd_scan.py:80", max_abs_err=err_s,
+                     ms=time_ms(lambda: ops.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0)),
+                     plain_ms=time_ms(lambda: ref.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0)),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
     for row in rows:
         phase(3, f"{row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                  f"library {row['library_ms']} ms, bound {row['bound_ms']:.4f} ms "
                  f"({row['bound_by']})")
+        if "at_mamba2" in row:
+            m = row["at_mamba2"]
+            phase(3, f"{row['name']} at {M_NAME}'s d and V: kernel {m['ms']:.4f} ms, plain "
+                     f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
     return rows
 
 
@@ -408,7 +524,7 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4) -> float:
         phase(n, "profile: the profiler saw no device time")
         return float("nan")
     ours = sum(ms for name, (ms, _) in by_name.items()
-               if any(k in name for k in ("verify_", "lora_", "decode_attn")))
+               if any(k in name for k in ("verify_", "lora_", "decode_attn", "ssd_")))
     gemm = sum(ms for name, (ms, _) in by_name.items()
                if any(k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass")))
     steps = eng.stats["steps"] - steps0
@@ -475,26 +591,37 @@ def serve_checked(eng, reqs):
             per_tick.append(sum("synchroniz" in str(w.message) for w in caught))
     finally:
         torch.cuda.set_sync_debug_mode("default")
-        eng._dispatch_superstep = inner
+        del eng._dispatch_superstep          # the class's method again; no cycle
     torch.cuda.synchronize()
     return comps, time.perf_counter() - t0, sum(iters), per_tick
 
 
-def check_against_ar(model, params, spec, reqs, comps, label):
+def capped(stream: list, max_new: int) -> list:
+    """A generated stream cut at the budget and just after the first EOS (1)."""
+    stream = stream[:max_new]
+    return stream[:stream.index(1) + 1] if 1 in stream else stream
+
+
+def check_against_ar(model, params, spec, reqs, comps, label, n_phase=8, alone=False,
+                     same_shape=None):
     """Each completion against ar_generate on its exact prompt (one AR run
-    per prompt length), EOS 1 and its budget applied; a first difference
-    passes only at a bf16 near-tie of the AR top-2 logits."""
+    per prompt length, or per request when `alone`, which prefills each
+    prompt by itself as the continuous engine does), EOS 1 and its budget
+    applied; a first difference passes at a bf16 near-tie of the AR top-2
+    logits, or, where `same_shape(request)` is given, when greedy AR decoded
+    at the engine's own row counts gives the completion bit for bit."""
     by_uid = {c.uid: c for c in comps}
     check(sorted(by_uid) == sorted(r.uid for r in reqs), f"{label}: missing completions")
-    equal, tied = 0, 0
-    for n in sorted({len(r.prompt) for r in reqs}):
-        group = [r for r in reqs if len(r.prompt) == n]
+    equal, tied, shaped = 0, 0, 0
+    groups = ([[r] for r in reqs] if alone else
+              [[r for r in reqs if len(r.prompt) == n]
+               for n in sorted({len(r.prompt) for r in reqs})])
+    for group in groups:
+        n = len(group[0].prompt)
         prompts = torch.as_tensor(np.stack([r.prompt for r in group]), device=DEV)
         ar = spec.ar_generate(model, params, prompts, max(r.max_new for r in group))
         for i, r in enumerate(group):
-            stream = ar.tokens[i, n:int(ar.lengths[i])].tolist()[:r.max_new]
-            if 1 in stream:
-                stream = stream[:stream.index(1) + 1]
+            stream = capped(ar.tokens[i, n:int(ar.lengths[i])].tolist(), r.max_new)
             got = by_uid[r.uid].gen_tokens.tolist()
             if got == stream:
                 equal += 1
@@ -506,13 +633,23 @@ def check_against_ar(model, params, spec, reqs, comps, label):
             prefix = torch.as_tensor(np.concatenate([r.prompt, stream[:p]]).astype(np.int64),
                                      device=DEV)[None]
             t1, t2 = top2_gap(model, params, prefix)
-            phase(8, f"{label}: request {r.uid} first differs from AR at generated token "
+            phase(n_phase, f"{label}: request {r.uid} first differs from AR at generated token "
                      f"{p}, AR top-2 logits {t1:.4f} / {t2:.4f}, gap {t1 - t2:.4e}")
-            check(t1 - t2 <= GAP_RTOL * max(abs(t1), 1.0),
+            if t1 - t2 <= GAP_RTOL * max(abs(t1), 1.0):
+                tied += 1
+                continue
+            check(same_shape is not None,
                   f"{label}: request {r.uid} differs from AR outside a bf16 near-tie")
-            tied += 1
-    phase(8, f"{label}: {equal} of {len(reqs)} completions equal their AR stream; {tied} "
-             f"differ only at a bf16 near-tie (rtol {GAP_RTOL})")
+            exact = same_shape(r) == got
+            phase(n_phase, f"{label}: request {r.uid}: greedy AR decoded at the engine's row "
+                           f"counts gives the completion bit for bit: {exact}")
+            check(exact, f"{label}: request {r.uid} differs from AR outside a bf16 near-tie "
+                         f"and from AR at the engine's row counts")
+            shaped += 1
+    phase(n_phase, f"{label}: {equal} of {len(reqs)} completions equal their AR stream; {tied} "
+             f"differ only at a bf16 near-tie (rtol {GAP_RTOL})"
+             + (f"; {shaped} differ beyond one and equal AR at the engine's row counts"
+                if same_shape is not None else ""))
 
 
 def continuous_phase(cfg, model, params, dvi):
@@ -550,7 +687,7 @@ def continuous_phase(cfg, model, params, dvi):
     check(st["host_syncs"] == st["dispatches"], "host syncs != dispatches")
     want = {"paged_decode_attention": ((K + 1) * k + (L - k)) * blocks_run,
             "lora_logits": (K + 1) * blocks_run, "verify_argmax": blocks_run,
-            "decode_attention": 0}
+            "decode_attention": 0, "ssd_scan": 0}
     phase(8, f"launches over {blocks_run} blocks: {launches}; expected {want}")
     check(launches == want, "the continuous path did not run the kernels as the formula says")
     check_against_ar(model, params, spec, reqs, comps, "ample pool")
@@ -580,6 +717,150 @@ def continuous_phase(cfg, model, params, dvi):
     return launches, busy
 
 
+# ---------------------------------------------------------------------------
+# phase 9: mamba2-370m through both schedulers
+# ---------------------------------------------------------------------------
+
+def count_prefills(model) -> list:
+    """Count the model's prefill calls (each runs one ssd_scan per SSM layer)
+    in a one-element list, by wrapping ``model.prefill``."""
+    calls = [0]
+    inner = model.prefill
+
+    def prefill(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    model.prefill = prefill
+    return calls
+
+
+def mamba_want(cfg, blocks: int, prefills: int) -> dict:
+    """The launch formula of the mamba2 paths: per block 5 lora_logits, 1
+    verify_argmax and no attention or scan; one ssd_scan per layer per
+    prefill call."""
+    return {"decode_attention": 0, "paged_decode_attention": 0,
+            "lora_logits": (cfg.dvi.k_spec + 1) * blocks, "verify_argmax": blocks,
+            "ssd_scan": cfg.num_layers * prefills}
+
+
+def ar_at_engine_rows(model, params, req) -> list:
+    """Greedy AR of `req` decoded as the continuous engine decodes it: the
+    prompt prefilled alone (B = 1), spliced into lane 0 of a C_SLOTS-lane
+    contiguous cache, then one-token blocks of ``spec_block_step`` at K = 0
+    with ar_generate's zero draft adapter, the other lanes masked done.
+    Every matrix product then runs at the engine's row counts, so in bf16
+    it rounds as the engine's does; ar_generate on the prompt alone runs
+    its decode products at one row."""
+    from repro_torch.core import spec
+    from repro_torch.models import transformer as tfm
+    cfg = model.cfg
+    dvi0 = {"A": torch.zeros((cfg.d_model, 1), device=DEV),
+            "B": torch.zeros((1, cfg.vocab_size), device=DEV)}
+    prompt = torch.as_tensor(req.prompt, device=DEV)
+    _, pc = model.prefill(params, prompt[None, :-1])
+    cache = tfm.insert_slot(cfg, model.init_cache(C_SLOTS, len(req.prompt) + req.max_new),
+                            pc, 0)
+    pending = torch.zeros((C_SLOTS,), dtype=torch.int32, device=DEV)
+    pending[0] = prompt[-1]
+    done = torch.arange(C_SLOTS, device=DEV) > 0
+    out = []
+    while len(out) < req.max_new and 1 not in out:
+        blk = spec.spec_block_step(model, params, dvi0, pending, cache, k_spec=0, done=done)
+        pending, cache = blk.pending, blk.cache
+        out.append(int(blk.commit_vec[0, 0]))
+    return out
+
+
+def mamba_phase():
+    from repro_torch.configs import get_config
+    from repro_torch.core import lora, spec
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = get_config(M_NAME)
+    model = build_model(cfg, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    dvi = lora.init_draft_params(gen, cfg)
+    dvi["B"] = torch.randn(dvi["B"].shape, generator=gen, device=DEV) * 0.05
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for s in params["segments"].values() for p in s.values())
+    phase(9, f"{M_NAME} bf16 params drawn on the card in {time.perf_counter() - t0:.1f} s "
+             f"({cfg.num_layers} layers, {n_par / 1e6:.1f}M in segments, tied head "
+             f"{tuple(params['lm_head'].shape)})")
+    prefills = count_prefills(model)
+
+    # ---- sync scheduler: bucket-padded prompts ----
+    reqs = make_requests(cfg)
+    eng = ServingEngine(model, params, dvi, batch_size=N_REQUESTS, max_new=MAX_NEW)
+    eng.submit_request(reqs[0])                  # warm-up batch, not counted
+    eng.run()
+    eng.reset_stats()
+    for r in reqs:
+        eng.submit_request(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    prefills[0] = 0
+    t0 = time.perf_counter()
+    comps = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sync_launches, n_pre = dict(ops.launches), prefills[0]
+    st = eng.stats
+    n = st["steps"]
+    check(len(comps) == N_REQUESTS and n > 0, f"{len(comps)} completions in {n} block-steps")
+    phase(9, f"sync: served {len(comps)} requests in {n} block-steps and {n_pre} prefill "
+             f"calls, wall {wall:.3f} s: MAT {st['committed'] / max(st['blocks'], 1):.4f}, "
+             f"{st['committed'] / wall:.1f} committed tokens/s, peak memory "
+             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = mamba_want(cfg, n, n_pre)
+    phase(9, f"sync: launches {sync_launches}; expected {want}")
+    check(sync_launches == want, "the mamba2 sync path did not run the kernels as the "
+                                 "formula says")
+    sync_busy = profile_batch(eng, reqs, wall * 1e3, n=9)
+    padded = [Request(uid=r.uid, prompt=eng._pad(r, eng._bucket(len(r.prompt))),
+                      max_new=r.max_new) for r in reqs]
+    check_against_ar(model, params, spec, padded, comps, f"{M_NAME} sync", n_phase=9)
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- continuous scheduler, contiguous layout: exact prompts ----
+    creqs = continuous_requests(cfg)
+    eng = ServingEngine(model, params, dvi, scheduler="continuous", num_slots=C_SLOTS,
+                        max_new=MAX_NEW, sync_every=C_SYNC)
+    eng.submit_request(creqs[0])                 # warm-up, not counted
+    eng.run()
+    eng.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    prefills[0] = 0
+    comps, wall, blocks_run, per_tick = serve_checked(eng, creqs)
+    cont_launches, n_pre = dict(ops.launches), prefills[0]
+    st = eng.stats
+    check(len(comps) == C_REQUESTS and blocks_run > 0, f"{len(comps)} completions")
+    phase(9, f"continuous (contiguous, {C_SLOTS} lanes, sync_every {C_SYNC}): "
+             f"{len(comps)} requests in {wall:.3f} s, {st['committed'] / wall:.1f} committed "
+             f"tokens/s, MAT {st['committed'] / max(st['blocks'], 1):.4f}, "
+             f"{st['dispatches']} dispatches, {st['host_syncs']} host syncs, {blocks_run} "
+             f"blocks run ({st['steps']} with a live lane), {n_pre} prefill calls, peak "
+             f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase(9, f"continuous: synchronising operations per tick: {per_tick} (0 inside every "
+             f"dispatch: sync debug mode 'error')")
+    check(eng.active_slots == 0 and not eng.busy, "lanes left occupied at the end")
+    check(st["host_syncs"] == st["dispatches"], "host syncs != dispatches")
+    want = mamba_want(cfg, blocks_run, n_pre)
+    phase(9, f"continuous: launches {cont_launches}; expected {want}")
+    check(cont_launches == want, "the mamba2 continuous path did not run the kernels as "
+                                 "the formula says")
+    check_against_ar(model, params, spec, creqs, comps, f"{M_NAME} continuous", n_phase=9,
+                     alone=True, same_shape=lambda r: ar_at_engine_rows(model, params, r))
+    cont_busy = profile_batch(eng, creqs, wall * 1e3, n=9)
+    return sync_launches, cont_launches, (sync_busy, cont_busy)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -593,6 +874,7 @@ def main() -> int:
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import ServingEngine
 
+    t_start = time.perf_counter()
     card = card_line()
     phase(1, f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(card, flush=True)
@@ -608,7 +890,7 @@ def main() -> int:
                  f"registers a thread, {spills} bytes of spill stores")
 
     cfg = get_config("vicuna-7b")
-    rows = kernels_phase(cfg)
+    rows = kernels_phase(cfg, get_config(M_NAME))
 
     # ---- phase 4: the main path ----
     model = build_model(cfg, device=DEV)
@@ -656,7 +938,7 @@ def main() -> int:
     want = {"decode_attention": ((K + 1) * k + (L - k)) * n, "lora_logits": (K + 1) * n,
             "verify_argmax": n}
     phase(5, f"launches over {n} block-steps: {launches}; expected {want}")
-    want["paged_decode_attention"] = 0
+    want.update(paged_decode_attention=0, ssd_scan=0)
     check(launches == want, "the sync path did not run the kernels as the formula says")
 
     # ---- phase 6: greedy losslessness on the card ----
@@ -686,12 +968,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     c_launches, _ = continuous_phase(cfg, model, params, dvi)
 
+    # ---- phase 9: mamba2-370m through both schedulers ----
+    del model, params, dvi
+    gc.collect()                       # engines in reference cycles hold the weights
+    torch.cuda.empty_cache()
+    m_sync, m_cont, _ = mamba_phase()
+
     # ---- phase 7: result lines ----
     for row in rows:
         by_path = {"sync": launches.get(row["name"], 0),
-                   "continuous": c_launches.get(row["name"], 0)}
+                   "continuous": c_launches.get(row["name"], 0),
+                   "mamba2_sync": m_sync.get(row["name"], 0),
+                   "mamba2_continuous": m_cont.get(row["name"], 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+    phase(7, f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

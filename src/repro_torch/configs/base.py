@@ -3,10 +3,11 @@
 The port may not import the JAX package (its config module imports
 ``jax.numpy`` for the dtype), so the dataclasses are copied here with
 ``torch_dtype`` in place of ``jnp_dtype``.  Field names and defaults match
-the reference exactly (``tests/test_torch_model.py`` compares them); the
-sub-configs of the architectures this slice does not run (MoE, MLA, SSM,
-RG-LRU, encoder, vision) are kept as opaque ``Optional`` fields so a config
-that sets one is rejected by ``build_model`` instead of being misread.
+the reference exactly (``tests/test_torch_model.py`` compares them).
+``SSMConfig`` (Mamba-2) is copied too; the sub-configs of the architectures
+the port does not run yet (MoE, MLA, RG-LRU, encoder, vision) are kept as
+opaque ``Optional`` fields so a config that sets one is rejected by
+``build_model`` instead of being misread.
 """
 from __future__ import annotations
 
@@ -15,6 +16,17 @@ from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 import torch
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD block [arXiv:2405.21060]."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 128
+    ngroups: int = 1
 
 
 @dataclass(frozen=True)
@@ -67,7 +79,7 @@ class ModelConfig:
     glu: bool = True
     moe: Optional[Any] = None
     mla: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     rglru: Optional[Any] = None
     encoder: Optional[Any] = None
     vision: Optional[Any] = None

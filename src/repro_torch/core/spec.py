@@ -19,7 +19,11 @@ dispatch for the continuous serving engine.  Temperature sampling
 controller are later slices and raise.
 
 The cache may be contiguous or paged (its block table rides in
-``cache["tbl"]``): the block code is layout-agnostic.
+``cache["tbl"]``): the block code is layout-agnostic.  Stateful (SSM)
+segments return per-token candidate states from every ``model.step``: each
+draft feed commits its shallow candidates with ``draft_accept`` (done lanes
+stay frozen), and the final commit selects both the restacked shallow and
+the deep candidates at each lane's accepted length.
 """
 from __future__ import annotations
 
@@ -87,6 +91,14 @@ def _greedy_only(temperature: float, k_lane=None) -> None:
                                   "the port (ROADMAP item 10)")
 
 
+def _restack_cands(cand_list):
+    """Per-feed shallow candidates [{seg: {leaf: (n, B, 1, ...)}}] * (K+1)
+    -> {seg: {leaf: (n, B, K+1, ...)}}."""
+    return {name: {key: torch.cat([c[name][key] for c in cand_list], dim=2)
+                   for key in leaves}
+            for name, leaves in cand_list[0].items()}
+
+
 def verify_tokens(model: Model, params: dict, h_L: torch.Tensor) -> torch.Tensor:
     """Verifier greedy tokens argmax(final_norm(h_L) @ head) for h_L (B, T, d),
     through the ``verify_argmax`` kernel.  Returns (B, T) int32."""
@@ -105,9 +117,9 @@ def spec_block_step(model: Model, params: dict, dvi_params: dict,
     """ONE greedy speculative block against a live cache.
 
     pending: (B,) the last committed token per lane.  done: (B,) bool —
-    lanes marked done are masked out (accept = 0, cache length unchanged,
-    pending passed through); their eager K/V writes land past their length
-    and are never read."""
+    lanes marked done are masked out (accept = 0, cache length and SSM
+    states unchanged, pending passed through); their eager K/V writes land
+    past their length and are never read."""
     _greedy_only(temperature, k_lane)
     cfg = model.cfg
     K = cfg.dvi.k_spec if k_spec is None else k_spec
@@ -119,26 +131,27 @@ def spec_block_step(model: Model, params: dict, dvi_params: dict,
     draft_accept = (~done).to(torch.int32)
 
     cache_c, pend = cache, pending
-    hks, toks = [], []
+    hks, toks, shallow = [], [], []
     for _ in range(K + 1):
         x = model.embed_block(params, pend[:, None])
-        h_k, cache_c = model.step(params, x, cache_c, 0, k)
+        h_k, cache_c, cands = model.step(params, x, cache_c, 0, k)
         dlog = draft_logits(model, params, dvi_params, h_k[:, 0])
         pend = torch.argmax(dlog, dim=-1).to(torch.int32)
-        cache_c = model.commit(cache_c, draft_accept)
+        cache_c = model.commit(cache_c, cands, draft_accept)
         hks.append(h_k[:, 0])
         toks.append(pend)
+        shallow.append(cands)
     hk_blk = torch.stack(hks, dim=1)                      # (B, K+1, d)
     d_blk = torch.stack(toks, dim=1)                      # (B, K+1)
 
     # ---- verify: one deep pass over the h_k block ----
-    h_L_blk, cache_v = model.step(params, hk_blk, dict(cache_c, lengths=t0), k, L)
+    h_L_blk, cache_v, deep = model.step(params, hk_blk, dict(cache_c, lengths=t0), k, L)
     y_star = verify_tokens(model, params, h_L_blk)        # (B, K+1)
 
     matches = (d_blk[:, :K] == y_star[:, :K]).to(torch.int32)
     m = torch.cumprod(matches, dim=1).sum(dim=1).to(torch.int32)
     accept = torch.where(done, 0, m + 1).to(torch.int32)
-    cache_new = model.commit(cache_v, accept)
+    cache_new = model.commit(cache_v, dict(_restack_cands(shallow), **deep), accept)
 
     ar = torch.arange(K + 1, device=dev)
     y_at_m = y_star.gather(1, m[:, None].long())[:, 0]

@@ -19,7 +19,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("verify_argmax", "lora_logits", "decode_attention", "paged_decode_attention")
+KERNELS = ("verify_argmax", "lora_logits", "decode_attention", "paged_decode_attention",
+           "ssd_scan")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -21,7 +21,7 @@ from repro_torch.kernels import build, ref
 # never count.  chip_smoke.py reads them to show the main path ran the kernels.
 launches: Dict[str, int] = {name: 0 for name in build.KERNELS}
 
-_VOID, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VOID, _INT, _FLOAT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _ARGTYPES = {
     # h, w, T, d, V, is_bf16, part_max, part_arg, nblk, out_arg, out_max, stream
     "verify_argmax": [_VOID, _VOID, _INT, _INT, _INT, _INT, _VOID, _VOID, _INT,
@@ -36,6 +36,10 @@ _ARGTYPES = {
     # MPS, scale, is_bf16, stream
     "paged_decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
                                _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT, _VOID],
+    # xh, Bc, Cc, dt, A, h0, sxb, sxt, sbb, sbt, scb, sct, B, T, H, hd, ds, Q,
+    # is_bf16, cb, y, hout, stream
+    "ssd_scan": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _I64, _I64, _I64, _I64, _I64,
+                 _I64, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOID, _VOID, _VOID, _VOID],
 }
 # vocab columns per block of the two vocab-streaming kernels, and the number
 # of d-slices of the LoRA down-projection pre-pass (both fixed in csrc/)
@@ -45,6 +49,10 @@ LORA_MAX_RANK = 512       # u rows of a pass must fit in shared memory
 ATTN_MAX_ROWS = 64        # Tq * G query rows one attention block holds
 ATTN_MAX_HD = 256
 PAGED_MAX_PAGES = 8192    # block-table row one paged attention block holds
+SSD_MAX_CHUNK = 128       # chunk rows one scan block stages
+SSD_MAX_DIM = 128         # hd and ds bounds of the scan kernel
+SSD_THREADS = 256         # threads of a scan block: ds must divide it
+SSD_MAX_STATE = 8192      # hd * ds state elements a scan block updates
 
 
 def reset_launches() -> None:
@@ -228,3 +236,51 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
             lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd,
             ps, block_tables.shape[1], 1.0 / math.sqrt(hd), is_bf16, _stream(q.device))
     return out[:, 0] if single else out
+
+
+def ssd_scan(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, dt: torch.Tensor,
+             A: torch.Tensor, chunk: int, h0=None):
+    """Mamba-2 chunked SSD scan with a carried float32 state (G = 1 on the
+    card).  xh (B,T,H,hd), Bc/Cc (B,T,1,ds) in one dtype, dt (B,T,H) after
+    softplus and A (H,) < 0 in float32, h0 (B,H,hd,ds) float32 or None;
+    any 1 <= chunk <= 128 with T % chunk == 0.  Returns (y (B,T,H,hd)
+    float32, final state (B,H,hd,ds) float32).
+
+    xh, Bc and Cc may be strided views of the conv output: the kernel takes
+    their batch and time strides, so only their inner dimensions must be
+    packed; dt, A and h0 must be contiguous."""
+    tensors = (xh, Bc, Cc, dt, A) + ((h0,) if h0 is not None else ())
+    if _device(*tensors).type == "cpu":
+        return ref.ssd_scan(xh, Bc, Cc, dt, A, chunk, h0=h0)
+    _need(xh.ndim == 4 and Bc.ndim == 4 and Bc.shape == Cc.shape,
+          f"ssd_scan: xh {tuple(xh.shape)}, Bc {tuple(Bc.shape)}, Cc {tuple(Cc.shape)}")
+    B, T, H, hd = xh.shape
+    ds = Bc.shape[3]
+    _need(Bc.shape[:3] == (B, T, 1), "ssd_scan: the kernel takes G = 1 (Bc/Cc (B,T,1,ds))")
+    _need(dt.shape == (B, T, H) and A.shape == (H,), "ssd_scan: dt must be (B,T,H), A (H,)")
+    _need(1 <= chunk <= SSD_MAX_CHUNK and T % chunk == 0,
+          f"ssd_scan: needs 1 <= chunk <= {SSD_MAX_CHUNK} and T % chunk == 0, "
+          f"got T={T} chunk={chunk}")
+    _need(hd <= SSD_MAX_DIM and ds <= SSD_MAX_DIM and SSD_THREADS % ds == 0
+          and hd * ds <= SSD_MAX_STATE,
+          f"ssd_scan: needs hd, ds <= {SSD_MAX_DIM}, ds dividing {SSD_THREADS} and "
+          f"hd*ds <= {SSD_MAX_STATE}, got hd={hd} ds={ds}")
+    _need(xh.dtype == Bc.dtype == Cc.dtype, "ssd_scan: xh, Bc and Cc must share a dtype")
+    _need(dt.dtype == A.dtype == torch.float32, "ssd_scan: dt and A must be float32")
+    is_bf16 = _check_dtype(xh.dtype)
+    _need(xh.stride(3) == 1 and xh.stride(2) == hd and Bc.stride(3) == 1
+          and Cc.stride(3) == 1, "ssd_scan: xh, Bc and Cc need packed inner dimensions")
+    _contig(dt=dt, A=A)
+    if h0 is not None:
+        _need(h0.shape == (B, H, hd, ds) and h0.dtype == torch.float32,
+              "ssd_scan: h0 must be (B,H,hd,ds) float32")
+        _contig(h0=h0)
+    cb = torch.empty((B, T // chunk, chunk, chunk), dtype=torch.float32, device=xh.device)
+    y = torch.empty((B, T, H, hd), dtype=torch.float32, device=xh.device)
+    hout = torch.empty((B, H, hd, ds), dtype=torch.float32, device=xh.device)
+    _launch("ssd_scan", xh.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), dt.data_ptr(),
+            A.data_ptr(), h0.data_ptr() if h0 is not None else None,
+            xh.stride(0), xh.stride(1), Bc.stride(0), Bc.stride(1), Cc.stride(0),
+            Cc.stride(1), B, T, H, hd, ds, chunk, is_bf16, cb.data_ptr(), y.data_ptr(),
+            hout.data_ptr(), _stream(xh.device))
+    return y, hout

@@ -3,7 +3,8 @@
 Each function computes what its CUDA kernel computes, materialising what the
 kernel keeps on chip.  ``ops`` runs them for CPU tensors (the tests), and
 ``chip_smoke.py`` holds each kernel against them on the card.  They mirror
-``repro.kernels.ref`` (``tests/test_torch_kernels.py`` checks that).
+``repro.kernels.ref`` (``tests/test_torch_kernels.py`` and
+``tests/test_torch_ssm.py`` check that).
 """
 from __future__ import annotations
 
@@ -73,3 +74,47 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     mask = (page >= 0)[:, None, :] & (j[None, None, :] < _block_limits(lengths, Tq))
     out = attend(q4, kf, vf, mask)
     return out[:, 0] if single else out
+
+
+def ssd_scan(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, dt: torch.Tensor,
+             A: torch.Tensor, chunk: int, h0=None):
+    """Mamba-2 chunked SSD scan, a line-for-line copy of
+    ``repro.models.ssm.ssd_chunked`` (one chunk in flight at a time).
+
+    xh (B,T,H,hd), Bc/Cc (B,T,G,ds), dt (B,T,H) after softplus, A (H,) < 0,
+    h0 (B,H,hd,ds) or None; T % chunk == 0.  Returns (y (B,T,H,hd) float32,
+    final state (B,H,hd,ds) float32)."""
+    B_, T, H, hd = xh.shape
+    G, ds = Bc.shape[2], Bc.shape[3]
+    nc = T // chunk
+    rep = H // G
+    f32 = torch.float32
+
+    xc = xh.reshape(B_, nc, chunk, H, hd).movedim(1, 0).to(f32)
+    Bcc = Bc.reshape(B_, nc, chunk, G, ds).repeat_interleave(rep, dim=3).movedim(1, 0).to(f32)
+    Ccc = Cc.reshape(B_, nc, chunk, G, ds).repeat_interleave(rep, dim=3).movedim(1, 0).to(f32)
+    dtc = dt.reshape(B_, nc, chunk, H).movedim(1, 0).to(f32)
+    A = A.to(f32)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device))
+
+    h = (torch.zeros((B_, H, hd, ds), dtype=f32, device=xh.device) if h0 is None
+         else h0.to(f32))
+    ys = []
+    for c in range(nc):
+        x_, B__, C__, dt_ = xc[c], Bcc[c], Ccc[c], dtc[c]            # (B,Q,H,hd) etc.
+        dA = dt_ * A[None, None, :]                                  # (B,Q,H)
+        cum = torch.cumsum(dA, dim=1)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]                # (B,Q,Q,H)
+        # a select, never a product with the mask: exp(seg) overflows above
+        # the diagonal and inf * 0 is NaN
+        decay = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+        cb = torch.einsum("bihs,bjhs->bijh", C__, B__)
+        att = cb * decay * dt_[:, None, :, :]
+        y = torch.einsum("bijh,bjhd->bihd", att, x_)
+        y = y + torch.einsum("bihs,bhds,bih->bihd", C__, h, torch.exp(cum))
+        dec_out = torch.exp(cum[:, -1:, :] - cum) * dt_              # (B,Q,H)
+        chunk_state = torch.einsum("bjh,bjhs,bjhd->bhds", dec_out, B__, x_)
+        h = h * torch.exp(cum[:, -1])[:, :, None, None] + chunk_state
+        ys.append(y)
+    y = torch.stack(ys, dim=0).movedim(0, 1).reshape(B_, T, H, hd)
+    return y, h

@@ -1,4 +1,5 @@
-"""Shared layer primitives: RMSNorm, RoPE, GQA attention, GLU MLPs.
+"""Shared layer primitives: RMSNorm, RoPE, GQA attention, GLU MLPs, the
+causal depthwise convolution of the Mamba-2 block.
 
 Port of ``repro.models.layers`` with the same conventions:
 
@@ -183,6 +184,21 @@ def mlp(p: dict, x: torch.Tensor, act: str, glu: bool) -> torch.Tensor:
     h = x @ p["wi"]
     h = fn(h) * (x @ p["wg"]) if glu else fn(h)
     return h @ p["wo_ff"]
+
+
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x (B, T, C), w (cw, C); ``state`` (B, cw-1, C)
+    holds the trailing inputs of the previous block (zeros if None).  Sums in
+    float32, returns (y in x's dtype, the last cw-1 inputs as the new state)."""
+    cw = w.shape[0]
+    B, T, C = x.shape
+    if state is None:
+        state = torch.zeros((B, cw - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)        # (B, T+cw-1, C)
+    y = torch.zeros((B, T, C), dtype=torch.float32, device=x.device)
+    for i in range(cw):
+        y = y + xp[:, i:i + T].float() * w[i].float()
+    return y.to(x.dtype), xp[:, T:]
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
-"""Public model API (dense slice), the port of ``repro.models.model``.
+"""Public model API, the port of ``repro.models.model`` (dense attention and
+Mamba-2 stacks).
 
     model = build_model(cfg)                  # on the card; device="cpu" for tests
     params = model.init(torch.Generator(model.device).manual_seed(0))
     h, contribs = model.hidden(params, x, lo=0, hi=L)
     logits = model.logits(params, h)          # frozen head
     h, cache = model.prefill(params, tokens, max_len=...)
-    h, cache = model.step(params, x_blk, cache, lo, hi)
-    cache = model.commit(cache, accept)
+    h, cache, cands = model.step(params, x_blk, cache, lo, hi)
+    cache = model.commit(cache, cands, accept)
 
 DVI composes these: the draft path is ``step`` with ``hi = k`` plus the LoRA
 draft head (``repro_torch.core.lora``); the target path is ``lo = k`` and the
@@ -97,7 +98,9 @@ class Model:
                                     max_pages_per_slot, device=self.device)
 
     def prefill(self, params, tokens, cache=None, max_len: Optional[int] = None):
-        """Process the prompt and build a decode cache.  Returns (h, cache)."""
+        """Process the prompt and build a decode cache (K/V of attention
+        segments, conv windows and SSD states of SSM segments).  Returns
+        (h, cache)."""
         T = tokens.shape[1]
         x = self.embed(params, tokens)
         if cache is None:
@@ -107,12 +110,15 @@ class Model:
 
     def step(self, params, x, cache, lo: int = 0, hi: Optional[int] = None):
         """Block-decode layers [lo, hi) on an embedded block x (B, T, d).
-        Returns (h, cache); the cache's K/V are written in place."""
+        Returns (h, cache, cands): the cache's K/V are written in place, and
+        SSM segments return their per-token candidate states in `cands`."""
         hi = self.cfg.num_layers if hi is None else hi
         return tfm.forward_step(params["segments"], x, self.cfg, cache, lo, hi)
 
-    def commit(self, cache, accept):
-        return tfm.commit_cache(self.cfg, cache, accept)
+    def commit(self, cache, cands, accept):
+        """Advance by `accept` (B,) tokens; SSM states take the candidates
+        at index accept-1 (unchanged where accept == 0)."""
+        return tfm.commit_cache(self.cfg, cache, cands, accept)
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -1,7 +1,8 @@
-"""Segmented decoder stack with a speculative-decoding KV cache (dense slice).
+"""Segmented decoder stack with a speculative-decoding cache.
 
-Port of ``repro.models.transformer`` for dense attention + dense FFN stacks.
-Layers are grouped into *segments* (runs of layers of one kind), each with
+Port of ``repro.models.transformer`` for two kinds of stack: dense attention
++ dense FFN, and attention-free Mamba-2 (``models.ssm``, SSD blocks with no
+FFN).  Layers are grouped into *segments* (runs of layers of one kind), each with
 its parameters stacked on a leading layer axis, and segments are cut at
 ``cfg.dvi.split_layer`` so the draft path (layers [0, k)) and the target path
 ([k, L)) run as separate segment ranges over one parameter tree.
@@ -14,7 +15,10 @@ Two execution modes:
   against the cache.  K/V are written into the cache in place at slots
   ``lengths + i`` before attention reads it; rollback is length truncation
   (``commit_cache``), so a rejected token's slot is simply overwritten by
-  the next block.  Attention over the cache goes through the
+  the next block.  SSM segments return *candidates* instead: the conv
+  window and SSD state after every token of the block, leaving the cache's
+  state untouched; ``commit_cache`` selects each lane's candidate at its
+  accepted length.  Attention over the cache goes through the
   ``decode_attention`` kernel with the cache length after the block's write,
   which on a contiguous full cache is the reference's step mask
   ``pos <= qpos`` (every slot below the length is filled, stale speculative
@@ -22,7 +26,9 @@ Two execution modes:
 
 Two cache layouts (``forward_step`` reads which from the cache):
 
-* contiguous (``init_cache``): per-lane K/V (n, B, C, KV, hd);
+* contiguous (``init_cache``): per-lane K/V (n, B, C, KV, hd); SSM
+  segments hold per-lane constant-size state, the conv window (n, B, cw-1,
+  conv_dim) and the SSD state (n, B, H, hd, ds) float32, in both layouts;
 * paged (``init_paged_cache``): K/V pooled into shared pages
   (n, P+1, ps, KV, hd), physical page 0 the null page, read and written
   through the per-lane block table ``cache["tbl"]`` (B, MPS) with the
@@ -36,9 +42,9 @@ Continuous batching edits one lane of a live cache in place:
 runs on PyTorch's current stream, so it is ordered after any step still
 running on the device.
 
-Not in this slice (they raise ``NotImplementedError``): MoE, MLA, SSM,
-RG-LRU, local/ring caches, cross-attention, ``kv_quant``, the prefix
-cache's table-only splice (``insert_slot(src=None)``, ``copy_page``).
+Not ported yet (they raise ``NotImplementedError``): MoE, MLA, RG-LRU,
+local/ring caches, cross-attention, ``kv_quant``, the prefix cache's
+table-only splice (``insert_slot(src=None)``, ``copy_page``).
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (MaskSpec, apply_rope, attend_full, dense_init,
                                        head_rms_norm, mlp, rms_norm)
 from repro_torch.serving.kv_pool import logical_to_physical
@@ -62,8 +69,8 @@ RING_SLACK = 128
 @dataclass(frozen=True)
 class Segment:
     idx: int
-    kind: str          # attn (the only kind this slice runs)
-    ffn: str           # dense
+    kind: str          # attn | ssm
+    ffn: str           # dense | none
     start: int
     n: int
     d_ff: int
@@ -74,10 +81,9 @@ class Segment:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run."""
+    """Raise for what the port does not run yet."""
     missing = [name for name, on in (
         ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
-        ("ssm", cfg.ssm is not None or cfg.arch_type == "ssm"),
         ("rglru", cfg.rglru is not None),
         ("local/ring caches", bool(cfg.sliding_window)),
         ("cross-attention", cfg.encoder is not None),
@@ -88,10 +94,12 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def layer_kinds(cfg: ModelConfig):
-    """(mixer kind, ffn kind) per layer.  Configs with other kinds (MoE,
-    SSM, RG-LRU, local attention) are rejected by ``check_supported``."""
+    """(mixer kind, ffn kind) per layer: Mamba-2 blocks have no FFN.
+    Configs with other kinds (MoE, RG-LRU, local attention) are rejected by
+    ``check_supported``."""
     pat = cfg.layer_pattern
-    return [(pat[layer % len(pat)], "dense") for layer in range(cfg.num_layers)]
+    ffn = "none" if cfg.ssm is not None else "dense"
+    return [(pat[layer % len(pat)], ffn) for layer in range(cfg.num_layers)]
 
 
 def build_segments(cfg: ModelConfig, boundaries=()):
@@ -121,7 +129,10 @@ def segments_in_range(cfg: ModelConfig, lo: int, hi: int):
 
 def init_segment(gen: torch.Generator, cfg: ModelConfig, seg: Segment,
                  dtype: torch.dtype) -> dict:
-    """Dense attention + dense FFN segment, stacked on a leading layer axis."""
+    """A segment's parameters stacked on a leading layer axis: Mamba-2
+    blocks, or dense attention + dense FFN."""
+    if seg.kind == "ssm":
+        return ssm_mod.init_ssm(gen, seg.n, cfg.d_model, cfg.ssm, dtype)
     if seg.kind != "attn" or seg.ffn != "dense":
         raise NotImplementedError(f"segment kind {seg.kind}/{seg.ffn} not ported yet")
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -272,8 +283,19 @@ def attn_layer_step_paged(p, x, kpages, vpages, tbl, lengths, cfg: ModelConfig):
 
 def run_segment_full(sp, x, cfg: ModelConfig, seg: Segment, positions,
                      collect: bool = False):
-    """Causal attention over the whole sequence.  Returns (x, contribs) with
-    contribs {"k", "v"} stacked (n, B, T, KV, hd) when `collect`, else {}."""
+    """The segment over the whole sequence.  Returns (x, contribs) with
+    contribs, when `collect` (else {}), stacked on the layer axis: {"k", "v"}
+    (n, B, T, KV, hd) for attention, {"conv", "state"} (n, B, cw-1,
+    conv_dim) / (n, B, H, hd, ds) float32 for SSM segments."""
+    if seg.kind == "ssm":
+        convs, states = [], []
+        for i in range(seg.n):
+            x, con = ssm_mod.ssm_forward_full(_layer(sp, i), x, cfg.ssm, cfg.norm_eps)
+            if collect:
+                convs.append(con["conv"])
+                states.append(con["state"])
+        return x, ({"conv": torch.stack(convs), "state": torch.stack(states)}
+                   if collect else {})
     spec = MaskSpec()
     ks, vs = [], []
     for i in range(seg.n):
@@ -286,51 +308,74 @@ def run_segment_full(sp, x, cfg: ModelConfig, seg: Segment, positions,
 
 def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
                      tbl=None):
-    """Returns x; the segment's K/V cache is updated in place.  `tbl` is the
-    block table (B, MPS) when the cache is paged (seg_cache then holds
-    pooled "kp"/"vp" pages instead of per-lane "k"/"v")."""
+    """Returns (x, cands).  Attention segments write their K/V cache in
+    place and have no candidates ({}); `tbl` is the block table (B, MPS)
+    when the cache is paged (seg_cache then holds pooled "kp"/"vp" pages
+    instead of per-lane "k"/"v").  SSM segments leave their state untouched
+    and return the candidates {"conv", "state"} stacked (n, B, T, ...)."""
+    if seg.kind == "ssm":
+        convs, states = [], []
+        for i in range(seg.n):
+            x, cand = ssm_mod.ssm_step(_layer(sp, i), x,
+                                       {"conv": seg_cache["conv"][i],
+                                        "state": seg_cache["state"][i]},
+                                       cfg.ssm, cfg.norm_eps)
+            convs.append(cand["conv"])
+            states.append(cand["state"])
+        return x, {"conv": torch.stack(convs), "state": torch.stack(states)}
     if "kp" in seg_cache:
         for i in range(seg.n):
             x = attn_layer_step_paged(_layer(sp, i), x, seg_cache["kp"][i],
                                       seg_cache["vp"][i], tbl, lengths, cfg)
-        return x
+        return x, {}
     for i in range(seg.n):
         x = attn_layer_step(_layer(sp, i), x, seg_cache["k"][i], seg_cache["v"][i],
                             lengths, cfg)
-    return x
+    return x, {}
 
 
 # ---------------------------------------------------------------------------
 # Cache construction / commit
 # ---------------------------------------------------------------------------
 
+def _ssm_cache(cfg: ModelConfig, seg: Segment, B: int, device) -> dict:
+    return ssm_mod.init_ssm_cache(seg.n, B, cfg.d_model, cfg.ssm, cfg.torch_dtype, device)
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
-    """Contiguous cache for the full stack: per segment K and V of shape
-    (n, B, max_len, KV, hd) in the model dtype, plus per-lane committed
-    ``lengths`` (B,)."""
+    """Contiguous cache for the full stack: per attention segment K and V of
+    shape (n, B, max_len, KV, hd) in the model dtype, per SSM segment the
+    conv window and SSD state (``ssm.init_ssm_cache``), plus per-lane
+    committed ``lengths`` (B,)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = cfg.torch_dtype
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    segs = {seg.name: {"k": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype, device=device),
-                       "v": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype, device=device)}
+    segs = {seg.name: (_ssm_cache(cfg, seg, B, device) if seg.kind == "ssm" else
+                       {"k": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype,
+                                         device=device),
+                        "v": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype,
+                                         device=device)})
             for seg in model_segments(cfg)}
     return {"lengths": torch.zeros((B,), dtype=torch.int32, device=device), "segs": segs}
 
 
 def init_paged_cache(cfg: ModelConfig, B: int, num_pages: int, page_size: int,
                      max_pages_per_slot: int, device=None) -> dict:
-    """Paged cache: per segment K and V pooled into ``num_pages`` shared pages
-    plus the physical null page 0, (n, num_pages + 1, page_size, KV, hd) in
-    the model dtype; per-lane ``lengths`` (B,) and the block table ``tbl``
-    (B, max_pages_per_slot) int32, all -1 (unmapped)."""
+    """Paged cache: per attention segment K and V pooled into ``num_pages``
+    shared pages plus the physical null page 0, (n, num_pages + 1,
+    page_size, KV, hd) in the model dtype; SSM segments keep their per-lane
+    constant-size state, as in ``init_cache``; per-lane ``lengths`` (B,) and
+    the block table ``tbl`` (B, max_pages_per_slot) int32, all -1
+    (unmapped)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = cfg.torch_dtype
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (num_pages + 1, page_size, KV, hd)
-    segs = {seg.name: {"kp": torch.zeros((seg.n, *shape), dtype=dtype, device=device),
-                       "vp": torch.zeros((seg.n, *shape), dtype=dtype, device=device)}
+    segs = {seg.name: (_ssm_cache(cfg, seg, B, device) if seg.kind == "ssm" else
+                       {"kp": torch.zeros((seg.n, *shape), dtype=dtype, device=device),
+                        "vp": torch.zeros((seg.n, *shape), dtype=dtype, device=device)})
             for seg in model_segments(cfg)}
     return {"lengths": torch.zeros((B,), dtype=torch.int32, device=device),
             "tbl": torch.full((B, max_pages_per_slot), -1, dtype=torch.int32, device=device),
@@ -371,9 +416,10 @@ def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
     the prompt alone) into lane `slot` of the live cache, and set its
     length.  Contiguous segments take the source K/V in the lane's prefix;
     paged segments scatter it through the slot's block-table row (map the
-    pages with ``map_slot_pages`` first).  The destination lane must have
-    been reset.  ``src=None``, the prefix cache's table-only splice, is not
-    ported yet."""
+    pages with ``map_slot_pages`` first); SSM segments copy the lane's
+    constant-size conv window and state whole.  The destination lane must
+    have been reset.  ``src=None``, the prefix cache's table-only splice, is
+    not ported yet."""
     if src is None:
         raise NotImplementedError("insert_slot(src=None), the prefix cache's table "
                                   "splice, is a later slice of the port")
@@ -383,25 +429,28 @@ def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
         if "kp" in seg_c:
             _insert_paged_seg(seg_c, src_c, tbl, slot, src_slot)
             continue
-        C_src = src_c["k"].shape[2]
-        for key in ("k", "v"):
-            seg_c[key][:, slot, :C_src] = src_c[key][:, src_slot].to(seg_c[key].dtype)
+        for key, leaf in seg_c.items():
+            piece = src_c[key][:, src_slot]
+            if key in ("k", "v"):
+                leaf[:, slot, :piece.shape[1]] = piece.to(leaf.dtype)
+            else:
+                leaf[:, slot] = piece.to(leaf.dtype)
     cache["lengths"][slot] = src["lengths"][src_slot]
     return cache
 
 
 def reset_slot(cfg: ModelConfig, cache: dict, slot: int) -> dict:
-    """Evict lane `slot`, in place: length 0 and, for contiguous segments,
-    its K/V zeroed.  Paged segments need no KV work: the lane's block-table
-    row is unmapped (-1) and its pages go back to the host-side pool.
-    Other lanes are untouched."""
+    """Evict lane `slot`, in place: length 0 and, for contiguous and SSM
+    segments, its K/V or its conv window and state zeroed.  Paged segments
+    need no KV work: the lane's block-table row is unmapped (-1) and its
+    pages go back to the host-side pool.  Other lanes are untouched."""
     # fill_ on views: item assignment of a Python number would stage it
     # through a host tensor and block the host on the copy
     for seg_c in cache["segs"].values():
         if "kp" in seg_c:
             continue
-        seg_c["k"][:, slot].zero_()
-        seg_c["v"][:, slot].zero_()
+        for leaf in seg_c.values():
+            leaf[:, slot].zero_()
     cache["lengths"][slot].zero_()
     if "tbl" in cache:
         cache["tbl"][slot].fill_(-1)
@@ -409,13 +458,18 @@ def reset_slot(cfg: ModelConfig, cache: dict, slot: int) -> dict:
 
 
 def fill_cache_from_full(cfg: ModelConfig, cache: dict, contribs: dict, T: int) -> dict:
-    """Copy prefill contributions (stacked (n,B,T,...)) into slots [0, T) of
-    the cache, in place.  All sequences are fully packed (length T)."""
+    """Copy prefill contributions into the cache, in place: K/V (stacked
+    (n,B,T,...)) into slots [0, T), SSM conv windows and states whole.  All
+    sequences are fully packed (length T)."""
     for seg in model_segments(cfg):
         con = contribs.get(seg.name)
         if not con:
             continue
         c = cache["segs"][seg.name]
+        if seg.kind == "ssm":
+            c["conv"].copy_(con["conv"])
+            c["state"].copy_(con["state"])
+            continue
         c["k"][:, :, :T] = con["k"].to(c["k"].dtype)
         c["v"][:, :, :T] = con["v"].to(c["v"].dtype)
     B = cache["lengths"].shape[0]
@@ -424,11 +478,24 @@ def fill_cache_from_full(cfg: ModelConfig, cache: dict, contribs: dict, T: int) 
             "segs": cache["segs"]}
 
 
-def commit_cache(cfg: ModelConfig, cache: dict, accept: torch.Tensor) -> dict:
+def commit_cache(cfg: ModelConfig, cache: dict, cands: dict, accept: torch.Tensor) -> dict:
     """Advance the cache by `accept` (B,) committed tokens.  Rollback of the
-    unaccepted tail is pure length truncation: its eager writes lie past
-    the new length, outside every later query's mask, and are overwritten
-    by the next block."""
+    unaccepted tail of attention K/V is pure length truncation: its eager
+    writes lie past the new length, outside every later query's mask, and
+    are overwritten by the next block.  Each SSM segment in `cands` takes,
+    in place, its candidate at index accept-1 per lane ((n, B, T, ...) ->
+    (n, B, ...)), and keeps its state where accept == 0.  The selection is
+    a gather and a select on the device: no host sync."""
+    B = accept.shape[0]
+    idx = torch.clamp(accept.long() - 1, min=0)
+    keep_old = accept == 0
+    lanes = torch.arange(B, device=accept.device)
+    for name, cand in cands.items():
+        c = cache["segs"][name]
+        for key in ("conv", "state"):
+            sel = cand[key][:, lanes, idx]                       # (n, B, ...)
+            keep = keep_old.reshape((1, B) + (1,) * (sel.ndim - 2))
+            c[key].copy_(torch.where(keep, c[key], sel.to(c[key].dtype)))
     return dict(cache, lengths=(cache["lengths"] + accept).to(torch.int32))
 
 
@@ -452,9 +519,13 @@ def forward_full(params_segs: dict, x: torch.Tensor, cfg: ModelConfig, lo: int,
 def forward_step(params_segs: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
                  lo: int, hi: int):
     """Run layers [lo, hi) on a T-token block against the cache.  Returns
-    (x, cache): the same cache, its K/V written in place, lengths unchanged
-    (``commit_cache`` advances them)."""
+    (x, cache, cands): the same cache, its K/V written in place, lengths and
+    SSM states unchanged, and the SSM segments' candidates by segment name
+    (``commit_cache`` advances the lengths and selects the states)."""
+    cands = {}
     for seg in segments_in_range(cfg, lo, hi):
-        x = run_segment_step(params_segs[seg.name], x, cache["segs"][seg.name],
-                             cache["lengths"], cfg, seg, cache.get("tbl"))
-    return x, cache
+        x, cand = run_segment_step(params_segs[seg.name], x, cache["segs"][seg.name],
+                                   cache["lengths"], cfg, seg, cache.get("tbl"))
+        if cand:
+            cands[seg.name] = cand
+    return x, cache, cands

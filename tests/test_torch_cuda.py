@@ -2,8 +2,9 @@
 shapes the main path does not use (ragged vocab and d, T > 48 rows, r = 1,
 GQA groups, Tq > 1, lengths at and past the cache capacity, paged tables
 with -1 entries, all -1 lanes and page sizes 16 and 4), in float32 and
-bfloat16, plus the greedy sync path and the continuous paged path on the
-card.
+bfloat16, the SSD scan at odd chunk lengths, with padded rows, a carried
+h0 and strided inputs, plus the greedy sync path and the continuous paged
+path on the card, and mamba2-370m-tiny's greedy path in bfloat16.
 
 These tests need an NVIDIA GPU and skip without one.  The machine with the
 card has no JAX, so run them there without the suite's conftest:
@@ -150,7 +151,7 @@ def test_wrappers_check_inputs_and_count_launches(ops):
                                                            dtype=torch.int32),
                                    torch.zeros(2, 3, device="cuda", dtype=torch.int64))
     assert ops.launches == {"verify_argmax": 2, "lora_logits": 0, "decode_attention": 0,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0, "ssd_scan": 0}
 
 
 def test_greedy_path_on_the_card(ops):
@@ -175,7 +176,7 @@ def test_greedy_path_on_the_card(ops):
     K, k, L, n = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers, r_sd.steps
     assert ops.launches == {"decode_attention": ((K + 1) * k + L - k) * n,
                             "lora_logits": (K + 1) * n, "verify_argmax": n,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0, "ssd_scan": 0}
 
 
 def test_continuous_paged_path_on_the_card(ops):
@@ -216,7 +217,8 @@ def test_continuous_paged_path_on_the_card(ops):
     launches = dict(ops.launches)
     K, k, L, n = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers, sum(iters)
     assert launches == {"paged_decode_attention": ((K + 1) * k + L - k) * n,
-                        "lora_logits": (K + 1) * n, "verify_argmax": n, "decode_attention": 0}
+                        "lora_logits": (K + 1) * n, "verify_argmax": n, "decode_attention": 0,
+                        "ssd_scan": 0}
     kv = eng.kv_stats()
     assert kv["used_pages"] == 0 and kv["preemptions"] > 0
     assert eng.stats["host_syncs"] == eng.stats["dispatches"] == len(iters)
@@ -227,3 +229,86 @@ def test_continuous_paged_path_on_the_card(ops):
         if 1 in ar:
             ar = ar[:ar.index(1) + 1]
         assert outs[r.uid] == ar, r.uid
+
+
+def _ssd_inputs(gen, B, T, H, hd, ds, dtype, pad_rows=0):
+    """The scan's inputs as the model gives them: xh, Bc and Cc strided views
+    of one conv output (B, T, H*hd + 2*ds), dt after softplus with dt = 0 on
+    the last `pad_rows` rows, A < 0."""
+    xbc = _randn(gen, B, T, H * hd + 2 * ds, dtype=dtype)
+    xh = xbc[..., :H * hd].reshape(B, T, H, hd)
+    Bc = (xbc[..., H * hd:H * hd + ds] * 0.5).to(dtype).reshape(B, T, 1, ds)
+    Cc = xbc[..., H * hd + ds:].reshape(B, T, 1, ds)
+    dt = torch.nn.functional.softplus(_randn(gen, B, T, H))
+    if pad_rows:
+        dt[:, T - pad_rows:] = 0.0
+    A = -torch.exp(_randn(gen, H, scale=0.3))
+    return xh, Bc, Cc, dt, A
+
+
+# both sides compute in float32: only the order of summation differs
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,Q,H,hd,ds,pad,with_h0", [
+    (8, 127, 127, 32, 64, 128, 0, False),      # the sync path's bucket-128 prefill
+    (1, 95, 95, 32, 64, 128, 0, False),        # a continuous admission of 96 tokens
+    (2, 256, 128, 32, 64, 128, 56, False),     # a padded long prompt, dt = 0 rows
+    (2, 64, 32, 8, 64, 128, 0, True),          # a carried state
+    (3, 40, 8, 8, 64, 32, 3, True),            # the tiny config's widths
+    (1, 1, 1, 4, 16, 16, 0, True)])            # one row
+def test_ssd_scan(ops, dtype, B, T, Q, H, hd, ds, pad, with_h0):
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(B * T + Q)
+    xh, Bc, Cc, dt, A = _ssd_inputs(gen, B, T, H, hd, ds, dtype, pad)
+    h0 = _randn(gen, B, H, hd, ds) if with_h0 else None
+    ops.reset_launches()
+    y, h = ops.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0)
+    assert ops.launches["ssd_scan"] == 1
+    y_r, h_r = ref.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0)
+    assert y.dtype == h.dtype == torch.float32
+    torch.testing.assert_close(y, y_r, **SSD_TOL)
+    torch.testing.assert_close(h, h_r, **SSD_TOL)
+    if pad:                                   # dt = 0 rows leave the state as it was
+        _, h_np = ref.ssd_scan(xh[:, :T - pad], Bc[:, :T - pad], Cc[:, :T - pad],
+                               dt[:, :T - pad], A, 1, h0=h0)
+        torch.testing.assert_close(h, h_np, **SSD_TOL)
+
+
+def test_ssd_scan_rejects_what_it_does_not_take(ops):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    xh, Bc, Cc, dt, A = _ssd_inputs(gen, 1, 130, 4, 16, 16, torch.float32)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(xh, Bc, Cc, dt, A, 130)        # a chunk above 128
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(xh, Bc, Cc, dt, A, 100)        # T % chunk != 0
+    with pytest.raises(ValueError, match="float32"):
+        ops.ssd_scan(xh, Bc, Cc, dt.to(torch.bfloat16), A, 10)
+
+
+def test_mamba2_greedy_path_on_the_card(ops):
+    """mamba2-370m-tiny in bfloat16 on the card: the speculative stream
+    equals the AR stream bit for bit (the SSM block runs token by token, so
+    the verify pass rounds as one-token AR steps do), and every launch is
+    accounted for: 5 lora_logits and 1 verify_argmax per block, no
+    attention, and one ssd_scan per SSM layer per prefill call."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import lora, spec
+    from repro_torch.models.model import build_model
+    cfg = get_config("mamba2-370m", tiny=True)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    dvi = lora.init_draft_params(gen, cfg)
+    prompts = torch.randint(2, cfg.vocab_size, (3, 40), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    r_ar = spec.ar_generate(model, params, prompts, 16)
+    ops.reset_launches()
+    r_sd = spec.speculative_generate(model, params, dvi, prompts, 16, collect=True)
+    K, L, n = cfg.dvi.k_spec, cfg.num_layers, r_sd.steps
+    assert ops.launches == {"decode_attention": 0, "paged_decode_attention": 0,
+                            "lora_logits": (K + 1) * n, "verify_argmax": n, "ssd_scan": L}
+    for b in range(3):
+        n_b = min(int(r_ar.lengths[b]), int(r_sd.lengths[b]), 40 + 16)
+        assert torch.equal(r_ar.tokens[b, :n_b], r_sd.tokens[b, :n_b]), b

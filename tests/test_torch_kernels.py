@@ -201,8 +201,10 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
     ops.paged_decode_attention(q, k.reshape(5, 4, 2, 8), k.reshape(5, 4, 2, 8),
                                torch.tensor([5, 7], dtype=torch.int32),
                                torch.tensor([[1, 2], [3, -1]], dtype=torch.int32))
+    ops.ssd_scan(torch.randn(1, 4, 2, 8), torch.randn(1, 4, 1, 4), torch.randn(1, 4, 1, 4),
+                 torch.rand(1, 4, 2), -torch.rand(2), 2)
     assert ops.launches == {"verify_argmax": 0, "lora_logits": 0, "decode_attention": 0,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0, "ssd_scan": 0}
     assert set(ops.launches) == set(build.KERNELS)
 
 

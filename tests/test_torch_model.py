@@ -1,7 +1,8 @@
 """The port's config copy, weight bridge and model (prefill, a draft step and
-a verify step) against the JAX Model, for vicuna-7b-tiny (MHA) and
-qwen3-0.6b-tiny (GQA, qk_norm, tied head), in float32.  Hiddens and logits
-within rtol 1e-5 / atol 2e-5, caches likewise."""
+a verify step) against the JAX Model, for vicuna-7b-tiny (MHA),
+qwen3-0.6b-tiny (GQA, qk_norm, tied head) and mamba2-370m-tiny (Mamba-2
+SSD blocks, tied head), in float32.  Hiddens and logits within rtol 1e-5 /
+atol 2e-5, caches and SSM candidate states likewise."""
 import dataclasses
 
 import numpy as np
@@ -22,9 +23,9 @@ from repro_torch.core import buffer as tbuffer  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
-NAMES = ["vicuna-7b", "qwen3-0.6b"]
+NAMES = ["vicuna-7b", "qwen3-0.6b", "mamba2-370m"]
 RTOL, ATOL = 1e-5, 2e-5
-NORMS = ("ln1", "ln2", "final_norm", "qn", "kn")
+NORMS = ("ln1", "ln2", "final_norm", "qn", "kn", "norm_w")
 
 
 def _perturb_norms(tree, rng):
@@ -57,8 +58,8 @@ def test_config_copy_matches_reference(name, tiny):
     cj, ct = jax_get_config(name, tiny=tiny), get_config(name, tiny=tiny)
     for f in dataclasses.fields(ct):
         vj, vt = getattr(cj, f.name), getattr(ct, f.name)
-        if f.name == "dvi":
-            assert dataclasses.asdict(vj) == dataclasses.asdict(vt)
+        if f.name == "dvi" or (f.name == "ssm" and vj is not None):
+            assert dataclasses.asdict(vj) == dataclasses.asdict(vt), f.name
         else:
             assert vj == vt, f.name
     assert {f.name for f in dataclasses.fields(cj)} == {f.name for f in dataclasses.fields(ct)}
@@ -137,12 +138,22 @@ def _prefill(pair, B=2, T=7, C=40, seed=3):
 
 
 def _close_cache(cache_j, cache_t, names=None):
+    """Lengths equal; every K/V, conv-window and SSD-state leaf close (the
+    reference's attention "pos" array has no counterpart in the port)."""
     np.testing.assert_array_equal(cache_t["lengths"].numpy(), np.asarray(cache_j["lengths"]))
     for name, seg in cache_t["segs"].items():
         if names is not None and name not in names:
             continue
-        _close(cache_j["segs"][name]["k"], seg["k"])
-        _close(cache_j["segs"][name]["v"], seg["v"])
+        assert set(seg) == set(cache_j["segs"][name]) - {"pos"}, name
+        for key, leaf in seg.items():
+            _close(cache_j["segs"][name][key], leaf)
+
+
+def _close_cands(cands_j, cands_t):
+    assert set(cands_t) == {n for n, c in cands_j.items() if c}
+    for name, cand in cands_t.items():
+        for key, leaf in cand.items():
+            _close(cands_j[name][key], leaf)
 
 
 def test_prefill_hidden_logits_and_cache(pair):
@@ -160,24 +171,34 @@ def test_draft_step_and_verify_step(pair):
     shallow = [s.name for s in tfm.segments_in_range(cfg_t, 0, k)]
     # one draft feed: the pending token through layers [0, k)
     pend = tokens[:, -1:]
-    h_j, cache_j, _, _ = model_j.step(params_j, model_j.embed_block(params_j, jnp.asarray(pend)),
-                                      cache_j, 0, k)
-    h_t, cache_t = model_t.step(params_t, model_t.embed_block(params_t, torch.from_numpy(pend)),
-                                cache_t, 0, k)
+    h_j, cache_j, cands_j, _ = model_j.step(
+        params_j, model_j.embed_block(params_j, jnp.asarray(pend)), cache_j, 0, k)
+    h_t, cache_t, cands_t = model_t.step(
+        params_t, model_t.embed_block(params_t, torch.from_numpy(pend)), cache_t, 0, k)
     _close(h_j, h_t)
+    _close_cands(cands_j, cands_t)
+    _close_cache(cache_j, cache_t, shallow)
+    # as spec_block_step does: the feed's SSM states are committed, and the
+    # verify pass starts again from the block's first length
+    one = np.ones(2, np.int32)
+    cache_j = dict(model_j.commit(cache_j, cands_j, jnp.asarray(one)),
+                   lengths=cache_j["lengths"])
+    cache_t = dict(model_t.commit(cache_t, cands_t, torch.from_numpy(one)),
+                   lengths=cache_t["lengths"])
     _close_cache(cache_j, cache_t, shallow)
     # a verify block: K+1 hiddens through layers [k, L), then the head
     x = np.random.default_rng(4).standard_normal((2, K + 1, cfg_t.d_model)).astype(np.float32)
-    hL_j, cache_j, _, _ = model_j.step(params_j, jnp.asarray(x), cache_j, k, L)
-    hL_t, cache_t = model_t.step(params_t, torch.from_numpy(x), cache_t, k, L)
+    hL_j, cache_j, cands_j, _ = model_j.step(params_j, jnp.asarray(x), cache_j, k, L)
+    hL_t, cache_t, cands_t = model_t.step(params_t, torch.from_numpy(x), cache_t, k, L)
     _close(hL_j, hL_t)
     _close(model_j.logits(params_j, hL_j), model_t.logits(params_t, hL_t))
+    _close_cands(cands_j, cands_t)
     _close_cache(cache_j, cache_t)
-    # commit advances lengths only
-    acc = np.array([1, 3], np.int32)
-    np.testing.assert_array_equal(
-        model_t.commit(cache_t, torch.from_numpy(acc))["lengths"].numpy(),
-        np.asarray(model_j.commit(cache_j, {}, jnp.asarray(acc))["lengths"]))
+    # commit advances the lengths and selects each lane's SSM candidate at
+    # accept-1 (lane 1 commits nothing and keeps its state)
+    acc = np.array([3, 0], np.int32)
+    _close_cache(model_j.commit(cache_j, cands_j, jnp.asarray(acc)),
+                 model_t.commit(cache_t, cands_t, torch.from_numpy(acc)))
 
 
 def test_step_past_capacity_drops_writes(pair):
@@ -189,6 +210,6 @@ def test_step_past_capacity_drops_writes(pair):
     _, _, cache_j, _, cache_t = _prefill(pair, T=T, C=C)
     x = np.random.default_rng(5).standard_normal((2, K + 1, cfg_t.d_model)).astype(np.float32)
     h_j, cache_j, _, _ = model_j.step(params_j, jnp.asarray(x), cache_j)
-    h_t, cache_t = model_t.step(params_t, torch.from_numpy(x), cache_t)
+    h_t, cache_t, _ = model_t.step(params_t, torch.from_numpy(x), cache_t)
     _close(h_j, h_t)
     _close_cache(cache_j, cache_t)

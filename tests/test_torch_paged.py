@@ -300,18 +300,18 @@ def test_paged_steps_match_jax(pair):
     live = [0, 1]
     tok = np.array([[5], [7], [9]], np.int32)
     hj, cj, _, _ = model_j.step(params_j, model_j.embed_block(params_j, jnp.asarray(tok)), cj, 0, k)
-    ht, ct = model_t.step(params_t, model_t.embed_block(params_t, torch.from_numpy(tok)), ct, 0, k)
+    ht, ct, _ = model_t.step(params_t, model_t.embed_block(params_t, torch.from_numpy(tok)), ct, 0, k)
     np.testing.assert_allclose(ht.numpy()[live], np.asarray(hj)[live], rtol=RTOL, atol=ATOL)
     acc = np.array([1, 1, 0], np.int32)
     cj = model_j.commit(cj, {}, jnp.asarray(acc))
-    ct = model_t.commit(ct, torch.from_numpy(acc))
+    ct = model_t.commit(ct, {}, torch.from_numpy(acc))
     x = np.random.default_rng(4).standard_normal((B, K + 1, cfg_t.d_model)).astype(np.float32)
     hj, cj, _, _ = model_j.step(params_j, jnp.asarray(x), cj, k, L)
-    ht, ct = model_t.step(params_t, torch.from_numpy(x), ct, k, L)
+    ht, ct, _ = model_t.step(params_t, torch.from_numpy(x), ct, k, L)
     np.testing.assert_allclose(ht.numpy()[live], np.asarray(hj)[live], rtol=RTOL, atol=ATOL)
     acc = np.array([3, 5, 0], np.int32)
     cj = model_j.commit(cj, {}, jnp.asarray(acc))
-    ct = model_t.commit(ct, torch.from_numpy(acc))
+    ct = model_t.commit(ct, {}, torch.from_numpy(acc))
     assert "tbl" in ct
     _mapped_kv_equal(cj, ct, live)
     cj = jtfm.reset_slot(cfg_j, cj, jnp.int32(0))

@@ -1,9 +1,10 @@
 """The port's greedy speculative decoding against repro.core.spec, and its
-losslessness against its own ar_generate, for vicuna-7b-tiny and
-qwen3-0.6b-tiny in float32.  Tokens, block statistics and replay-buffer
+losslessness against its own ar_generate, for vicuna-7b-tiny,
+qwen3-0.6b-tiny and mamba2-370m-tiny in float32.  Tokens, block statistics and replay-buffer
 tuples must be equal; hiddens within rtol 1e-5 / atol 2e-5.
 
-The deep layers' residual branches are scaled down (x0.1) so the drafter
+The deep layers' residual branches (``wo``/``wo_ff``, or the SSM block's
+``out_proj``) are scaled down (x0.1) so the drafter
 agrees with the verifier often enough that accepted prefixes, bonus tokens
 and rejections all occur; the LoRA B is perturbed as in tests/test_spec.py."""
 import numpy as np
@@ -26,7 +27,8 @@ from repro_torch.core import buffer as tbuffer  # noqa: E402
 from repro_torch.core import spec as tspec  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
-NAMES = ["vicuna-7b", "qwen3-0.6b"]
+NAMES = ["vicuna-7b", "qwen3-0.6b", "mamba2-370m"]
+RESIDUAL_OUT = ("wo", "wo_ff", "out_proj")
 RTOL, ATOL = 1e-5, 2e-5
 B, TP, NEW = 3, 8, 20
 LIVE = np.array([True, True, False])
@@ -44,8 +46,8 @@ def setup(request):
     params_j = model_j.init(jax.random.PRNGKey(0))
     segs = dict(params_j["segments"])
     for s in jtfm.segments_in_range(cfg_j, cfg_j.dvi.split_layer, cfg_j.num_layers):
-        segs[s.name] = dict(segs[s.name], wo=segs[s.name]["wo"] * 0.1,
-                            wo_ff=segs[s.name]["wo_ff"] * 0.1)
+        segs[s.name] = {key: w * 0.1 if key in RESIDUAL_OUT else w
+                        for key, w in segs[s.name].items()}
     params_j = dict(params_j, segments=segs)
     dvi_j = jlora.init_draft_params(jax.random.PRNGKey(5), cfg_j)
     dvi_j = dict(dvi_j, B=jax.random.normal(jax.random.PRNGKey(11), dvi_j["B"].shape) * 0.01)
@@ -115,8 +117,8 @@ def test_block_steps_match_jax(setup):
         np.testing.assert_array_equal(bt.cache["lengths"].numpy(),
                                       np.asarray(bj.cache["lengths"]))
         for name, seg in bt.cache["segs"].items():
-            _close(bj.cache["segs"][name]["k"], seg["k"])
-            _close(bj.cache["segs"][name]["v"], seg["v"])
+            for key, leaf in seg.items():             # K/V, or conv window and state
+                _close(bj.cache["segs"][name][key], leaf)
         assert int(bt.accept[1]) == 0
         pend_j, cache_j, pend_t, cache_t = bj.pending, bj.cache, bt.pending, bt.cache
 
@@ -164,11 +166,13 @@ def test_port_speculative_equals_port_ar(setup, k_spec):
 def test_serve_step_wraps_block_step(setup):
     s = setup
     _, cache = s["model_t"].prefill(s["params_t"], _t(s["prompts"][:, :-1]), max_len=64)
+    # caches are updated in place (SSM states too): the block runs on a
+    # second prefill of the same prompts
+    _, cache2 = s["model_t"].prefill(s["params_t"], _t(s["prompts"][:, :-1]), max_len=64)
     pend = _t(s["prompts"][:, -1])
     start = cache["lengths"].clone()
     p1, cv1, acc1, c1 = tspec.serve_step(s["model_t"], s["params_t"], s["dvi_t"], pend, cache)
-    blk = tspec.spec_block_step(s["model_t"], s["params_t"], s["dvi_t"], pend,
-                                dict(cache, lengths=start))
+    blk = tspec.spec_block_step(s["model_t"], s["params_t"], s["dvi_t"], pend, cache2)
     assert torch.equal(p1, blk.pending) and torch.equal(cv1, blk.commit_vec)
     assert torch.equal(acc1, blk.accept) and torch.equal(c1["lengths"], start + acc1)
 
