@@ -16,18 +16,27 @@ Phases (any failure raises and exits non-zero):
    and the draft feeds' Tq = 1), plus a ragged GQA attention case (Tq = 1
    and 5), an r = 1 LoRA case, an exact argmax tie case, and paged cases
    over a shuffled page assignment (a -1 entry mid-row, an all -1 lane, a
-   lane past the table, GQA G = 4, ps = 4); ``ssd_scan`` at the mamba2
-   paths' prefill shapes (B 8, T = Q = 127 from strided views of a conv
-   output; a B = 1 admission, T = Q = 95; a padded T = 256, Q = 128 with
-   dt = 0 on the last 56 rows; a carried h0), checking y and the final
+   lane past the table, GQA G = 4, ps = 4); the attention kernels' split
+   of a lane over C CTAs at its edges, at the main shapes and both Tq (a
+   lane of length 1, one shorter than a CTA's share, lanes at the capacity
+   and one past it, an idle lane, -1 entries on both sides of a share
+   border), every query that sees no slot exactly 0; ``ssd_scan`` at the
+   mamba2 paths' prefill shapes (B 8, T = Q = 127 from strided views of a
+   conv output; a B = 1 admission, T = Q = 95; a padded T = 256, Q = 128
+   with dt = 0 on the last 56 rows; a carried h0), checking y and the final
    state; ``verify_argmax`` and ``lora_logits`` at mamba2-370m's d = 1024
-   and tied V = 50280, tie rule included; with each kernel's time, its
-   plain version's, a library call's where one computes the same function,
-   and the least time the card could take;
+   and tied V = 50280, tie rule included.  Then each kernel's device time
+   (``time_ms``: L2 flushed, the host's enqueue hidden behind a spin kernel
+   and checked on every call) and per-call time, its plain version's, a
+   library call's where one computes the same function, and the least
+   time the card could take, at the main shapes and at the draft feed
+   (attention), mamba2's d and V (vocab kernels) and the B = 1 admission
+   (``ssd_scan``);
 4. the sync path: vicuna-7b at full width and depth in bf16, random weights
    drawn on the card from a seed, a sync ``ServingEngine`` answering 8
    requests (prompts of 64-128 tokens, 32 new tokens each), then the same
-   requests once more under torch.profiler for the device's busy share;
+   requests once more under torch.profiler for the device's busy share
+   and the attention kernel's device time a launch, beside phase 3's;
 5. the kernels' launch counts over phase 4 against the per-block formula;
 6. greedy losslessness on the card: speculative streams against
    ``ar_generate`` streams;
@@ -39,7 +48,8 @@ Phases (any failure raises and exits non-zero):
    every completion against ``ar_generate`` on its exact prompt, an empty
    pool at the end, the per-block launch formula, and that no dispatch
    synchronises with the device (sync debug mode "error"); it reports the
-   synchronising operations per tick;
+   synchronising operations per tick; the profile gives the paged
+   kernel's device time a launch beside phase 3's;
 9. mamba2-370m at full width and depth (48 layers) in bf16, random weights
    drawn on the card from a seed: a sync ``ServingEngine`` answering 8
    requests (prompts of 64-128 tokens, left-padded to their bucket, 32 new
@@ -117,22 +127,85 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, with the 50 MB L2 flushed before each
-    call (the model path finds these operands cold)."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
+_SPIN: dict = {}
+
+
+def spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond, measured once."""
+    if not _SPIN:
+        n = 1 << 21
+        torch.cuda._sleep(n)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        torch.cuda._sleep(n)
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+        _SPIN["cycles_per_ms"] = n / a.elapsed_time(b)
+    return _SPIN["cycles_per_ms"]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> tuple:
+    """(device ms, call ms): medians over `iters` calls of `fn`, with the
+    50 MB L2 flushed before each call (the model path finds these operands
+    cold).
+
+    Device ms: after the flush a spin kernel (``torch.cuda._sleep``) holds
+    the device while the host enqueues event a, the call and event b, so
+    the events time the call's kernels back to back and none of the host's
+    work (the wrapper's checks, ctypes, PyTorch's dispatch).  The spin is 10
+    times the slowest warm enqueue, at least 10 ms, so that a stall of the
+    shared host hides behind it too; the host's enqueue time
+    is measured on every call, from before the spin's launch, and the
+    timing fails if it ever reaches the spin.  Call ms: the same events
+    without the spin, so they also hold any wait for the host, as an idle
+    device sees the call."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    enqueue = []
+    for _ in range(warmup):
+        t0 = time.perf_counter()
+        fn()
+        enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    spin_ms = max(10.0, 10e3 * max(enqueue[1:]))
+    cycles = int(spin_ms * spin_cycles_per_ms())
+    dev, call, worst = [], [], 0.0
+    gc.disable()
+    try:
+        for _ in range(iters):
+            flush.zero_()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            torch.cuda._sleep(cycles)
+            a.record()
+            fn()
+            b.record()
+            worst = max(worst, time.perf_counter() - t0)
+            b.synchronize()
+            dev.append(a.elapsed_time(b))
+            flush.zero_()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            call.append(a.elapsed_time(b))
+    finally:
+        gc.enable()
+    check(worst * 1e3 < spin_ms, f"timing: the host took {worst * 1e3:.3f} ms to enqueue a "
+                                 f"call, not hidden by the {spin_ms:.3f} ms spin")
+    return float(np.median(dev)), float(np.median(call))
+
+
+def timing(kernel, plain, b: tuple, library=None) -> dict:
+    """The timing keys of a row: the kernel's, its plain version's and the
+    library call's device and call ms (``time_ms``), the bound and the
+    share of it the kernel reaches."""
+    ms, call_ms = time_ms(kernel)
+    plain_ms, plain_call_ms = time_ms(plain)
+    lib_ms, lib_call_ms = time_ms(library) if library is not None else (None, None)
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+                library_ms=lib_ms, library_call_ms=lib_call_ms, bound_ms=b[0],
+                bound_by=b[1], bound_share=b[0] / ms)
 
 
 def bound(nbytes: float, op_seconds: float) -> tuple:
@@ -199,20 +272,51 @@ def check_lora(ops, ref, gen, T, d, V, r, label):
     return (h, w, a, b, gamma), err
 
 
+def close_visible(name, out, plain, visible):
+    """Kernel output against its plain version on the (lane, query) rows
+    that see a slot; the other rows must be exactly 0 (the plain version
+    gives them the reference's uniform average).  visible (B, Tq) bool.
+    Returns (max abs err, ok)."""
+    B, Tq = visible.shape
+    out4, plain4 = out.reshape(B, Tq, *out.shape[-2:]), plain.reshape(B, Tq, *out.shape[-2:])
+    vis = torch.as_tensor(visible, device=out.device)
+    err, ok = 0.0, True
+    if bool(vis.any()):
+        err, _, ok = close(name, out4[vis], plain4[vis])
+    return err, ok and bool((out4[~vis] == 0).all()) and bool(torch.isfinite(plain4).all())
+
+
 def check_attention(ops, ref, gen, B, Tq, H, KV, hd, S, lengths, label):
     q = torch.randn((B, Tq, H, hd), generator=gen, device=DEV).to(torch.bfloat16)
     k = torch.randn((B, S, KV, hd), generator=gen, device=DEV).to(torch.bfloat16)
     v = torch.randn((B, S, KV, hd), generator=gen, device=DEV).to(torch.bfloat16)
-    lens = torch.as_tensor(lengths, dtype=torch.int32, device=DEV)
+    lens = torch.as_tensor(np.asarray(lengths), dtype=torch.int32, device=DEV)
     q_in = q[:, 0].contiguous() if Tq == 1 else q
     out = ops.decode_attention(q_in, k, v, lens)
-    err, rel, ok = close("decode_attention", out, ref.decode_attention(q_in, k, v, lens))
+    visible = np.array([[min(int(n) - (Tq - 1 - t), S) > 0 for t in range(Tq)]
+                        for n in lengths])
+    err, ok = close_visible("decode_attention", out, ref.decode_attention(q_in, k, v, lens),
+                            visible)
     atol, rtol = TOL["decode_attention"]
     phase(3, f"decode_attention {label}: B={B} Tq={Tq} H={H} KV={KV} hd={hd} S={S} "
-             f"lengths {min(lengths)}..{max(lengths)} max abs err {err:.3e} "
-             f"(atol {atol} rtol {rtol}) ok={ok}")
+             f"C={ops.attn_splits(S, B * KV)} lengths {list(map(int, lengths))} max abs err "
+             f"{err:.3e} on {int(visible.sum())} of {visible.size} queries that see a slot "
+             f"(atol {atol} rtol {rtol}), the others exactly 0: ok={ok}")
     check(ok, f"decode_attention {label} disagrees with its plain version")
     return (q_in, k, v, lens), err
+
+
+def attn_bound(q, lengths, cap, KV, hd) -> tuple:
+    """The least time of one contiguous attention call: q read and the
+    output written once, each lane's live K and V rows read once, the
+    lengths; QK^T and P.V over the slots each query sees, at the bf16 rate."""
+    B, H = q.shape[0], q.shape[-2]
+    Tq = q.shape[1] if q.ndim == 4 else 1
+    live = sum(min(int(n), cap) for n in lengths)
+    row_live = sum(max(0, min(int(n) - (Tq - 1 - t), cap)) for n in lengths
+                   for t in range(Tq)) * H
+    return bound(q.numel() * 2 * 2 + live * KV * hd * 2 * 2 + B * 4,
+                 4 * hd * row_live / BF16_FLOP_PER_S)
 
 
 def sdpa_inputs(q, k, v, lens):
@@ -272,17 +376,43 @@ def check_paged(ops, ref, gen, rng, B, Tq, H, KV, hd, ps, mps, lengths, label,
     q_in = q[:, 0].contiguous() if Tq == 1 else q
     out = ops.paged_decode_attention(q_in, kp, vp, lens, tbl_t)
     plain = ref.paged_decode_attention(q_in, kp, vp, lens, tbl_t)
-    live = [b for b in range(B) if b not in unmapped and int(lengths[b]) > 0]
-    err, rel, ok = close("paged_decode_attention", out[live], plain[live])
-    idle_ok = all(bool((out[b] == 0).all()) and bool(torch.isfinite(plain[b]).all())
-                  for b in range(B) if b not in live)
+    visible = np.array(paged_live_slots(tbl, lengths, ps, Tq)) > 0
+    err, ok = close_visible("paged_decode_attention", out, plain, visible)
     atol, rtol = TOL["paged_decode_attention"]
     phase(3, f"paged_decode_attention {label}: B={B} Tq={Tq} H={H} KV={KV} hd={hd} ps={ps} "
-             f"MPS={mps} P={P} lengths {list(map(int, lengths))} max abs err {err:.3e} on "
-             f"{len(live)} live lanes (atol {atol} rtol {rtol}) ok={ok}; lanes with no "
-             f"mapped slot give 0 (plain: finite): {idle_ok}")
-    check(ok and idle_ok, f"paged_decode_attention {label} disagrees with its plain version")
+             f"MPS={mps} C={ops.attn_splits(mps * ps, B * KV)} P={P} lengths "
+             f"{list(map(int, lengths))} holes {list(holes)} max abs err {err:.3e} on "
+             f"{int(visible.sum())} of {visible.size} queries that see a mapped slot (atol "
+             f"{atol} rtol {rtol}), the others exactly 0 (plain: finite): ok={ok}")
+    check(ok, f"paged_decode_attention {label} disagrees with its plain version")
     return (q_in, kp, vp, lens, tbl_t, tbl), err
+
+
+def paged_bound(q, tbl, lengths, ps, KV, hd) -> tuple:
+    """The least time of one paged attention call: q and the output once,
+    each lane's live mapped K and V rows once, the lengths and the table
+    entries of its live pages; QK^T and P.V over the mapped slots each query
+    sees, at the bf16 rate."""
+    B, H = q.shape[0], q.shape[-2]
+    Tq = q.shape[1] if q.ndim == 4 else 1
+    mps = tbl.shape[1]
+    seen = paged_live_slots(tbl, lengths, ps, Tq)
+    n_pages = sum(min(-(-int(n) // ps), mps) for n in lengths)
+    return bound(q.numel() * 2 * 2 + sum(max(row) for row in seen) * KV * hd * 2 * 2 + B * 4
+                 + n_pages * 4, 4 * hd * H * sum(sum(row) for row in seen) / BF16_FLOP_PER_S)
+
+
+def paged_sdpa_inputs(q, kp, vp, lens, tbl_t):
+    """SDPA's inputs for a paged call: each lane's logical view gathered
+    into a contiguous (B, MPS * ps, KV, hd) copy (before the clock starts;
+    the gather is not timed), unmapped slots masked."""
+    P, ps, KV, hd = kp.shape
+    jj = torch.arange(tbl_t.shape[1] * ps, device=DEV)
+    phys = tbl_t.long().clamp(min=0)[:, jj // ps] * ps + jj % ps
+    q4 = q if q.ndim == 4 else q[:, None]
+    sq, sk, sv, smask = sdpa_inputs(q4, kp.reshape(P * ps, KV, hd)[phys],
+                                    vp.reshape(P * ps, KV, hd)[phys], lens)
+    return sq, sk, sv, smask & (tbl_t[:, jj // ps] >= 0)[:, None, None, :]
 
 
 def ssd_inputs(gen, B, T, H, hd, ds, pad_rows=0):
@@ -357,8 +487,9 @@ def kernels_phase(cfg, mcfg):
                                       main_lens, "main (verify pass)")
     # a draft feed: one query per lane; its post-write length is the
     # committed length + 1, K below the verify pass's
-    check_attention(ops, ref, gen, B, 1, H, KV, hd, cap, [n - K for n in main_lens],
-                    "draft feed")
+    feed_lens = [n - K for n in main_lens]
+    feed_args, _ = check_attention(ops, ref, gen, B, 1, H, KV, hd, cap, feed_lens,
+                                   "draft feed")
     ragged = list(rng.randint(5, 301, size=3))
     check_attention(ops, ref, gen, 3, 1, 32, 8, 128, 300, ragged, "GQA G=4 Tq=1")
     check_attention(ops, ref, gen, 3, 5, 32, 8, 128, 300, ragged, "GQA G=4 Tq=5")
@@ -369,14 +500,37 @@ def kernels_phase(cfg, mcfg):
                                   size=B))
     paged_args, err_p = check_paged(ops, ref, gen, rng, B, K + 1, H, KV, hd, C_PAGE, mps,
                                     paged_lens, "main (verify pass)")
-    check_paged(ops, ref, gen, rng, B, 1, H, KV, hd, C_PAGE, mps,
-                [n - K for n in paged_lens], "draft feed")
+    paged_feed_lens = [n - K for n in paged_lens]
+    paged_feed_args, _ = check_paged(ops, ref, gen, rng, B, 1, H, KV, hd, C_PAGE, mps,
+                                     paged_feed_lens, "draft feed")
     check_paged(ops, ref, gen, rng, 4, K + 1, 32, 8, 128, C_PAGE, mps,
                 [mps * C_PAGE + 3, 100, 60, 0],
                 "GQA G=4, lane past the table, -1 mid-row, all -1 lanes",
                 holes=((1, 2),), unmapped=(2, 3))
     check_paged(ops, ref, gen, rng, 3, 1, H, KV, hd, 4, -(-cap // 4),
                 list(rng.randint(5, cap + 1, size=3)), "ps=4, -1 mid-row", holes=((0, 1),))
+    # the split's edge cases at the main widths, for the paths' 8 lanes (one
+    # CTA a lane and kv head) and in pairs of lanes (each lane split over a
+    # cluster), with their own generators so the cases above keep their
+    # inputs: a lane of length 1; one shorter than a CTA's share (the other
+    # CTAs of its cluster empty); lanes at the capacity and one past it; an
+    # idle lane; a paged lane with -1 entries on both sides of a share border
+    egen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    erng = np.random.RandomState(SEED + 3)
+    pcap = mps * C_PAGE
+    edges = [1, 10, cap, cap + 1, 0, 40, 150, cap - 1]
+    pedges = [1, 10, pcap, pcap + 1, 0, 200, 150, 40]
+    for lanes in (list(range(B)), [1, 5], [3, 0], [4, 2]):
+        nb = len(lanes)
+        sh = ops.attn_share(pedges[5], ops.attn_splits(pcap, nb * KV))
+        border = sh // C_PAGE if sh < pedges[5] else 1
+        holes = ((lanes.index(5), border - 1), (lanes.index(5), border)) if 5 in lanes else ()
+        for Tq in (K + 1, 1):
+            check_attention(ops, ref, egen, nb, Tq, H, KV, hd, cap, [edges[i] for i in lanes],
+                            f"split edges, {nb} lanes, Tq={Tq}")
+            check_paged(ops, ref, egen, erng, nb, Tq, H, KV, hd, C_PAGE, mps,
+                        [pedges[i] for i in lanes], f"split edges, {nb} lanes, Tq={Tq}",
+                        holes=holes, unmapped=(lanes.index(4),) if 4 in lanes else ())
     # the mamba2 paths: the tied vocab (not a multiple of 64 columns) and the
     # scan at the prefill shapes of both schedulers
     md, mV, mK = mcfg.d_model, mcfg.vocab_size, mcfg.dvi.k_spec
@@ -385,7 +539,8 @@ def kernels_phase(cfg, mcfg):
     mH, mhd, mds = (mcfg.ssm.expand * md) // mcfg.ssm.head_dim, mcfg.ssm.head_dim, mcfg.ssm.d_state
     ssd_args, err_s = check_ssd(ops, ref, gen, B, 127, 127, mH, mhd, mds,
                                 "sync prefill (bucket 128)")
-    check_ssd(ops, ref, gen, 1, 95, 95, mH, mhd, mds, "continuous admission (96 tokens)")
+    ssd_one, _ = check_ssd(ops, ref, gen, 1, 95, 95, mH, mhd, mds,
+                           "continuous admission (96 tokens)")
     check_ssd(ops, ref, gen, 2, 256, 128, mH, mhd, mds, "padded long prompt", pad_rows=56)
     check_ssd(ops, ref, gen, 2, 64, 64, mH, mhd, mds, "carried h0", with_h0=True)
 
@@ -397,95 +552,79 @@ def kernels_phase(cfg, mcfg):
                      2 * T * d * V / BF16_FLOP_PER_S
                      + (2 * T * d * r + 2 * T * r * V) / F32_FLOP_PER_S)
 
-    def timed(fn, plain, b):
-        return dict(ms=time_ms(fn), plain_ms=time_ms(plain), bound_ms=b[0], bound_by=b[1])
-
-    rows = []
-    # verify_argmax
-    T = T_verify
-    b_ms, b_by = verify_bound(T, d, V)
-    rows.append(dict(name="verify_argmax", route="cuda",
-                     source="src/repro_torch/csrc/verify_argmax.cu",
-                     replaces="src/repro/kernels/verify_argmax.py:62",
-                     max_abs_err=err_v, ms=time_ms(lambda: ops.verify_argmax(h, w)),
-                     plain_ms=time_ms(lambda: ref.verify_argmax(h, w)),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     at_mamba2=timed(lambda: ops.verify_argmax(mh, mw),
-                                     lambda: ref.verify_argmax(mh, mw),
-                                     verify_bound(mh.shape[0], md, mV))))
-    # lora_logits
-    hl, wl, a, b, gamma = lora_args
-    r = a.shape[1]
-    b_ms, b_by = lora_bound(B, d, V, r)
-    rows.append(dict(name="lora_logits", route="cuda",
-                     source="src/repro_torch/csrc/lora_logits.cu",
-                     replaces="src/repro/kernels/lora_logits.py:53",
-                     max_abs_err=err_l,
-                     ms=time_ms(lambda: ops.lora_logits(hl, wl, a, b, gamma)),
-                     plain_ms=time_ms(lambda: ref.lora_logits(hl, wl, a, b, gamma)),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     at_mamba2=timed(lambda: ops.lora_logits(*m_lora),
-                                     lambda: ref.lora_logits(*m_lora),
-                                     lora_bound(B, md, mV, m_lora[2].shape[1]))))
-    # decode_attention: live slots of this run's lengths
-    q, k, v, lens = att_args
-    Tq = q.shape[1]
-    live = np.minimum(np.asarray(main_lens), cap)
-    row_live = sum(max(0, min(int(n) - (Tq - 1 - t), cap)) for n in main_lens
-                   for t in range(Tq)) * H
-    b_ms, b_by = bound(q.numel() * e * 2 + int(live.sum()) * KV * hd * e * 2 + B * 4,
-                       4 * hd * row_live / BF16_FLOP_PER_S)
-    sq, sk, sv, smask = sdpa_inputs(q, k, v, lens)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows.append(dict(name="decode_attention", route="cuda",
-                     source="src/repro_torch/csrc/decode_attention.cu",
-                     replaces="src/repro/kernels/decode_attention.py:83",
-                     max_abs_err=err_a,
-                     ms=time_ms(lambda: ops.decode_attention(q, k, v, lens)),
-                     plain_ms=time_ms(lambda: ref.decode_attention(q, k, v, lens)),
-                     bound_ms=b_ms, bound_by=b_by,
-                     library_ms=time_ms(lambda: sdpa(sq, sk, sv, attn_mask=smask))))
-    # paged_decode_attention: the live mapped slots of this run's tables
-    q, kp, vp, lens, tbl_t, tbl = paged_args
-    Tq, P = q.shape[1], kp.shape[0]
-    seen = paged_live_slots(tbl, paged_lens, C_PAGE, Tq)
-    kv_bytes = sum(max(row) for row in seen) * KV * hd * e * 2
-    n_pages = sum(min(-(-int(n) // C_PAGE), mps) for n in paged_lens)
-    b_ms, b_by = bound(q.numel() * e * 2 + kv_bytes + B * 4 + n_pages * 4,
-                       4 * hd * H * sum(sum(row) for row in seen) / BF16_FLOP_PER_S)
-    L = mps * C_PAGE
-    jj = torch.arange(L, device=DEV)
-    phys = (tbl_t.long().clamp(min=0)[:, jj // C_PAGE] * C_PAGE + jj % C_PAGE)
-    kf = kp.reshape(P * C_PAGE, KV, hd)[phys]
-    vf = vp.reshape(P * C_PAGE, KV, hd)[phys]
-    sq, sk, sv, smask = sdpa_inputs(q, kf, vf, lens)
-    smask = smask & (tbl_t[:, jj // C_PAGE] >= 0)[:, None, None, :]
-    rows.append(dict(name="paged_decode_attention", route="cuda",
-                     source="src/repro_torch/csrc/paged_decode_attention.cu",
-                     replaces="src/repro/kernels/paged_decode_attention.py:127",
-                     max_abs_err=err_p,
-                     ms=time_ms(lambda: ops.paged_decode_attention(q, kp, vp, lens, tbl_t)),
-                     plain_ms=time_ms(lambda: ref.paged_decode_attention(q, kp, vp, lens,
-                                                                         tbl_t)),
-                     bound_ms=b_ms, bound_by=b_by,
-                     library_ms=time_ms(lambda: sdpa(sq, sk, sv, attn_mask=smask)),
-                     library_note="SDPA over the pre-gathered contiguous view; gather not timed"))
-    # ssd_scan: the sync path's prefill shape; no single PyTorch call scans
-    xh, Bc, Cc, dt, A, Q, h0 = ssd_args
-    b_ms, b_by = ssd_bound(xh, Bc, dt, Q, h0)
-    rows.append(dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
-                     replaces="src/repro/kernels/ssd_scan.py:80", max_abs_err=err_s,
-                     ms=time_ms(lambda: ops.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0)),
-                     plain_ms=time_ms(lambda: ref.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0)),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    def attn_timing(args, lengths):
+        q, k, v, lens = args
+        sq, sk, sv, smask = sdpa_inputs(q if q.ndim == 4 else q[:, None], k, v, lens)
+        return timing(lambda: ops.decode_attention(q, k, v, lens),
+                      lambda: ref.decode_attention(q, k, v, lens),
+                      attn_bound(q, lengths, cap, KV, hd),
+                      library=lambda: sdpa(sq, sk, sv, attn_mask=smask))
+
+    def paged_timing(args, lengths):
+        q, kp, vp, lens, tbl_t, tbl = args
+        sq, sk, sv, smask = paged_sdpa_inputs(q, kp, vp, lens, tbl_t)
+        return timing(lambda: ops.paged_decode_attention(q, kp, vp, lens, tbl_t),
+                      lambda: ref.paged_decode_attention(q, kp, vp, lens, tbl_t),
+                      paged_bound(q, tbl, lengths, C_PAGE, KV, hd),
+                      library=lambda: sdpa(sq, sk, sv, attn_mask=smask))
+
+    def ssd_timing(args):
+        xh, Bc, Cc, dt, A, Q, h0 = args
+        return timing(lambda: ops.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0),
+                      lambda: ref.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0),
+                      ssd_bound(xh, Bc, dt, Q, h0))
+
+    # what the timer shows for a kernel that does nothing: the launch and
+    # the two events around it
+    floor_ms, _ = time_ms(lambda: torch.cuda._sleep(1))
+    phase(3, f"timer floor: an empty kernel between the events takes {floor_ms:.4f} ms")
+    hl, wl, a, b, gamma = lora_args
+    rows = [
+        dict(name="verify_argmax", route="cuda", source="src/repro_torch/csrc/verify_argmax.cu",
+             replaces="src/repro/kernels/verify_argmax.py:62", max_abs_err=err_v,
+             **timing(lambda: ops.verify_argmax(h, w), lambda: ref.verify_argmax(h, w),
+                      verify_bound(T_verify, d, V)),
+             at_mamba2=timing(lambda: ops.verify_argmax(mh, mw),
+                              lambda: ref.verify_argmax(mh, mw),
+                              verify_bound(mh.shape[0], md, mV))),
+        dict(name="lora_logits", route="cuda", source="src/repro_torch/csrc/lora_logits.cu",
+             replaces="src/repro/kernels/lora_logits.py:53", max_abs_err=err_l,
+             **timing(lambda: ops.lora_logits(hl, wl, a, b, gamma),
+                      lambda: ref.lora_logits(hl, wl, a, b, gamma),
+                      lora_bound(B, d, V, a.shape[1])),
+             at_mamba2=timing(lambda: ops.lora_logits(*m_lora),
+                              lambda: ref.lora_logits(*m_lora),
+                              lora_bound(B, md, mV, m_lora[2].shape[1]))),
+        # attention at the verify pass (Tq = K+1), with the draft feed
+        # (Tq = 1) beside it: 30 and 10 of the 40 launches of a block
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:83", max_abs_err=err_a,
+             **attn_timing(att_args, main_lens),
+             at_draft_feed=attn_timing(feed_args, feed_lens)),
+        dict(name="paged_decode_attention", route="cuda",
+             source="src/repro_torch/csrc/paged_decode_attention.cu",
+             replaces="src/repro/kernels/paged_decode_attention.py:127", max_abs_err=err_p,
+             **paged_timing(paged_args, paged_lens),
+             at_draft_feed=paged_timing(paged_feed_args, paged_feed_lens),
+             library_note="SDPA over the pre-gathered contiguous view; gather not timed"),
+        # the scan at the sync path's prefill, with a B = 1 admission of the
+        # continuous path beside it; no single PyTorch call scans
+        dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:80", max_abs_err=err_s,
+             **ssd_timing(ssd_args), at_admission=ssd_timing(ssd_one)),
+    ]
     for row in rows:
-        phase(3, f"{row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                 f"library {row['library_ms']} ms, bound {row['bound_ms']:.4f} ms "
-                 f"({row['bound_by']})")
-        if "at_mamba2" in row:
-            m = row["at_mamba2"]
-            phase(3, f"{row['name']} at {M_NAME}'s d and V: kernel {m['ms']:.4f} ms, plain "
-                     f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
+        for label, t in [("main", row)] + [(k, v) for k, v in row.items()
+                                          if k.startswith("at_")]:
+            lib = ("-" if t["library_ms"] is None else
+                   f"{t['library_ms']:.4f} (call {t['library_call_ms']:.4f})")
+            phase(3, f"{row['name']} {label}: kernel {t['ms']:.4f} ms (call "
+                     f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f} (call "
+                     f"{t['plain_call_ms']:.4f}), library {lib}, bound {t['bound_ms']:.4f} "
+                     f"({t['bound_by']}), bound/kernel {t['bound_share']:.3f}")
     return rows
 
 
@@ -501,11 +640,21 @@ def make_requests(cfg):
                     max_new=MAX_NEW) for i in range(N_REQUESTS)]
 
 
-def profile_batch(eng, reqs, wall_ms: float, n: int = 4) -> float:
+# the port's kernels in a profile, by the names of their __global__ functions
+PORT_KERNELS = ("verify_partial", "verify_reduce", "lora_down", "lora_main", "decode_attn",
+                "ssd_cb", "ssd_chunks")
+ATTN_NAMES = {"decode_attention": re.compile(r"(?<![A-Za-z_])decode_attn\b"),
+              "paged_decode_attention": re.compile(r"(?<![A-Za-z_])paged_decode_attn\b")}
+
+
+def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None) -> float:
     """The same requests once more under torch.profiler (device activity
     only): device time by kernel and in all.  The run repeats the timed
     run's work, so the device's busy share is its device time over the
-    timed run's (unprofiled) wall time `wall_ms`.  Returns the share."""
+    timed run's (unprofiled) wall time `wall_ms`.  `expect` maps an
+    attention kernel's name to the per-launch device ms that phase 3
+    predicts for this path; the profile's per-launch time is printed beside
+    it.  Returns the share."""
     from torch.profiler import ProfilerActivity, profile
     for r in reqs:
         eng.submit_request(r)
@@ -523,8 +672,7 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4) -> float:
     if busy == 0.0:
         phase(n, "profile: the profiler saw no device time")
         return float("nan")
-    ours = sum(ms for name, (ms, _) in by_name.items()
-               if any(k in name for k in ("verify_", "lora_", "decode_attn", "ssd_")))
+    ours = sum(ms for name, (ms, _) in by_name.items() if any(k in name for k in PORT_KERNELS))
     gemm = sum(ms for name, (ms, _) in by_name.items()
                if any(k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass")))
     steps = eng.stats["steps"] - steps0
@@ -536,7 +684,23 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4) -> float:
              f"({launches / max(steps, 1):.0f} per block-step)")
     for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         phase(n, f"  {ms:9.3f} ms {k:6d}x  {name[:90]}")
+    for kernel, want in (expect or {}).items():
+        hits = [(ms, k) for name, (ms, k) in by_name.items() if ATTN_NAMES[kernel].search(name)]
+        ms, k = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        per = ms / k if k else float("nan")
+        phase(n, f"  {kernel}: {k} launches, {ms:.3f} ms, {per * 1e3:.2f} us a launch on the "
+                 f"path; phase 3 device time at this path's mix {want * 1e3:.2f} us "
+                 f"(profile / phase 3 = {per / want:.2f}), "
+                 f"{ms / max(steps, 1):.3f} ms per block-step")
     return busy / wall_ms
+
+
+def path_attention_ms(row, K: int, k: int, L: int) -> float:
+    """Phase 3's device ms of one attention launch at a vicuna path's mix:
+    per block (K+1) * k draft-feed launches (Tq = 1) and L - k verify
+    launches (Tq = K+1)."""
+    n_feed, n_verify = (K + 1) * k, L - k
+    return (n_feed * row["at_draft_feed"]["ms"] + n_verify * row["ms"]) / (n_feed + n_verify)
 
 
 def top2_gap(model, params, prefix: torch.Tensor) -> tuple:
@@ -652,7 +816,7 @@ def check_against_ar(model, params, spec, reqs, comps, label, n_phase=8, alone=F
                 if same_shape is not None else ""))
 
 
-def continuous_phase(cfg, model, params, dvi):
+def continuous_phase(cfg, model, params, dvi, paged_row):
     from repro_torch.core import spec
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
@@ -691,7 +855,8 @@ def continuous_phase(cfg, model, params, dvi):
     phase(8, f"launches over {blocks_run} blocks: {launches}; expected {want}")
     check(launches == want, "the continuous path did not run the kernels as the formula says")
     check_against_ar(model, params, spec, reqs, comps, "ample pool")
-    busy = profile_batch(eng, reqs, wall * 1e3, n=8)
+    busy = profile_batch(eng, reqs, wall * 1e3, n=8, expect={
+        "paged_decode_attention": path_attention_ms(paged_row, K, k, L)})
     del eng
 
     pages = C_PAGES_TIGHT
@@ -931,10 +1096,12 @@ def main() -> int:
              f"{st['committed'] / wall:.1f} committed tokens/s, "
              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    profile_batch(eng, reqs, wall * 1e3)
+    K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
+    by_row = {row["name"]: row for row in rows}
+    profile_batch(eng, reqs, wall * 1e3, expect={
+        "decode_attention": path_attention_ms(by_row["decode_attention"], K, k, L)})
 
     # ---- phase 5: launch counts ----
-    K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
     want = {"decode_attention": ((K + 1) * k + (L - k)) * n, "lora_logits": (K + 1) * n,
             "verify_argmax": n}
     phase(5, f"launches over {n} block-steps: {launches}; expected {want}")
@@ -966,7 +1133,7 @@ def main() -> int:
     # ---- phase 8: the continuous path over a paged pool ----
     del eng, r_sd, r_ar
     torch.cuda.empty_cache()
-    c_launches, _ = continuous_phase(cfg, model, params, dvi)
+    c_launches, _ = continuous_phase(cfg, model, params, dvi, by_row["paged_decode_attention"])
 
     # ---- phase 9: mamba2-370m through both schedulers ----
     del model, params, dvi

@@ -37,16 +37,59 @@ __device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a, float& b
   b = v.y;
 }
 
-// Four consecutive elements as float32; p must be aligned to four elements.
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+// ---- Hopper data movement and tensor-core products (sm_80 and later) ----
+
+// The shared-memory address of a generic pointer, for the PTX below.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  uint2 raw = *reinterpret_cast<const uint2*>(p);
-  float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  o[0] = lo.x; o[1] = lo.y; o[2] = hi.x; o[3] = hi.y;
+
+// 16 bytes from device to shared memory, bypassing L1 (cp.async.cg).  With
+// `fill` false nothing is read and the 16 bytes are zeroed (src-size 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(fill ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices from shared memory: lane l gives the address of row
+// l % 8 of matrix l / 8; register i of every lane gets its part of matrix i
+// (lane l holds row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// The same, each matrix transposed (lane l holds column l / 4, rows
+// 2 (l % 4) and 2 (l % 4) + 1).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row-major) . b (16x8, column-major), bf16 in, float32
+// accumulate.  Lane l (g = l / 4, t = l % 4) holds a as {A[g][2t..], A[g+8][2t..],
+// A[g][2t+8..], A[g+8][2t+8..]}, b as {B[2t..][g], B[2t+8..][g]} and d as
+// {D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair in one register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when needed.

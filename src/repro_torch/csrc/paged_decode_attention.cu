@@ -9,86 +9,86 @@
 // the lane's page count onto its last one and skips their update, and masks
 // unmapped (-1, clamped onto null page 0) pages and slots past the length.
 //
-// Here one CUDA block owns one (lane, kv head) and holds all Tq * G query
-// rows, as decode_attention.cu does.  It copies the live part of its own
-// block-table row into shared memory (the counterpart of the scalar
-// prefetch) and walks only the lane's first min(ceil(len/ps), MPS) logical
-// pages, in tiles of 32 logical slots, whatever the page size (ps >= 1).
-// Slot j of the lane is K/V row tbl[j / ps] * ps + j % ps of the pages viewed
-// as (P * ps, KV, hd).  A slot on an unmapped page (-1, mid-row or a wholly
-// unmapped row) loads nothing and is masked, and a tile with no mapped slot
-// is skipped; the null page is never read.  Query t sees mapped slots
-// j < min(lengths[b] - (Tq-1-t), MPS * ps), where lengths[b] counts the
+// Here the C CTAs of one thread block cluster own one (lane, kv head) and
+// hold all Tq * G query rows, as decode_attention.cu does.  They split the
+// lane's first min(ceil(len/ps), MPS) logical pages, slot by slot, between
+// them; each copies the table entries of its own share into shared memory
+// (the counterpart of the scalar prefetch) and computes each slot's address
+// from it: slot j of the lane is K/V row tbl[j / ps] * ps + j % ps of the
+// pages viewed as (P * ps, KV, hd), whatever the page size (ps >= 1).  A
+// slot on an unmapped page (-1, mid-row or a wholly unmapped row) copies
+// nothing and is masked; the null page is never read.  Query t sees mapped
+// slots j < min(lengths[b] - (Tq-1-t), MPS * ps), where lengths[b] counts the
 // block's own writes: the reference's paged step mask (mapped, j < len + T,
-// pos <= qpos).  The online softmax stays in float32 (attn_tile.cuh, shared
-// with decode_attention.cu); a query with no live slot, as on an idle lane of
-// length 0 with an all -1 row, gets 0.
+// pos <= qpos).  A query with no live slot, as on an idle lane of length 0
+// with an all -1 row, gets 0.  The body is attn_tile.cuh.
 //
-// Bound on H100: the live mapped K and V bytes of the call (at B = 8, 32 kv
-// heads of 128 in bf16 and about 150 live slots a lane, some 20 MB, about
-// 6 us at 3.35 TB/s); the table row and q are small beside them.  The design
-// reads each live mapped K/V byte once for all Tq * G rows that need it and
-// no byte past the lane's length, so it moves what the bound counts; this
-// first version stages tiles synchronously (no cp.async/TMA pipelining) and
-// uses CUDA-core FMAs, which is where it stands off that bound.
+// Bound on H100: the live mapped K and V bytes of the call (at the verify
+// pass of the continuous path, B = 8, 32 kv heads of 128 in bf16 and about
+// 135 live slots a lane, some 18 MB: 0.0054 ms at 3.35 TB/s; 0.0051 ms at a
+// draft feed); the table and q are small beside them.  The design is
+// decode_attention.cu's: every copy in flight while earlier tiles are
+// folded, each live mapped byte read once, a split over C CTAs only where
+// pairs are too few (C = 1 on the continuous path).  Measured by
+// chip_smoke.py phase 3 on an NVIDIA H100 80GB HBM3 at 700 W: 0.0201 ms at
+// the verify pass and 0.0196 ms at a draft feed, device time that includes
+// the timer's floor of about 0.005 ms; 12.8 us a launch on the continuous
+// path's profile.
 #include "attn_tile.cuh"
 
 namespace {
 
-using attn::BS;
-using attn::THREADS;
+// slot j of the lane lives on physical page tbl[j / ps - p0]: the share's
+// table entries, from logical page p0 on, copied into shared memory by
+// prepare(); nowhere when that entry is -1
+struct PagedMap {
+  const int* row_tbl;   // the lane's block-table row in device memory
+  int* tbl;             // its share's entries in shared memory
+  int p0, ps, mps, cap;
+  __device__ int live(int len) const { return min(len, min((len + ps - 1) / ps, mps) * ps); }
+  __device__ void prepare(int lo, int hi) {
+    p0 = lo / ps;
+    const int np = hi > lo ? (hi - 1) / ps - p0 + 1 : 0;
+    for (int i = threadIdx.x; i < np; i += attn::THREADS) tbl[i] = row_tbl[p0 + i];
+  }
+  __device__ long long row(int j) const {
+    const int page = tbl[j / ps - p0];
+    return page >= 0 ? (long long)page * ps + j % ps : -1;
+  }
+};
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int HD>
+__global__ void __launch_bounds__(attn::THREADS)
 paged_decode_attn(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
                   const int* __restrict__ lengths, const int* __restrict__ tables,
-                  T* __restrict__ out, int Tq, int H, int KV, int hd, int ps, int mps,
-                  float scale) {
-  extern __shared__ float smem[];
-  __shared__ long long rows[BS];     // K/V row of each tile slot, -1 = absent
-  const int G = H / KV, R = Tq * G;
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const attn::Smem s = attn::carve(smem, R, hd);
-  int* tbl = reinterpret_cast<int*>(smem + attn::smem_floats(R, hd));
-
-  const int len = max(lengths[b], 0);
-  const int pages = min((len + ps - 1) / ps, mps);
-  const int n_live = min(len, pages * ps);
-  for (int p = threadIdx.x; p < pages; p += THREADS) tbl[p] = tables[(size_t)b * mps + p];
-  attn::load_queries(s, q, b, kvh, Tq, H, G, hd, scale);   // syncs
-
-  for (int s0 = 0; s0 < n_live; s0 += BS) {
-    int mapped = 0;
-    if (threadIdx.x < BS) {
-      const int j = s0 + threadIdx.x;
-      long long row = -1;
-      if (j < n_live) {
-        const int page = tbl[j / ps];
-        if (page >= 0) row = (long long)page * ps + j % ps;
-      }
-      rows[threadIdx.x] = row;
-      mapped = row >= 0;
-    }
-    if (!__syncthreads_or(mapped)) continue;   // no mapped slot: nothing to read
-    attn::stage_tile(s, kp, vp, rows, KV, kvh, hd);
-    __syncthreads();
-    attn::fold_tile(s, rows, s0, len, mps * ps, Tq, G, hd);
-  }
-  attn::store_out(s, out, b, kvh, Tq, H, G, hd);
+                  T* __restrict__ out, attn::Args a, int ps, int mps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.z;
+  const attn::Layout L =
+      attn::layout(a.Tq * (a.H / a.KV), a.hd, sizeof(T), a.bs, a.stages, a.splits, 0);
+  const PagedMap map{tables + (size_t)b * mps, reinterpret_cast<int*>(smem + L.extra), 0, ps,
+                     mps, mps * ps};
+  attn::flash_decode<T, HD>(q, kp, vp, lengths, out, a, map, b, blockIdx.y, smem);
 }
 
 template <typename T>
 cudaError_t run(const void* q, const void* kp, const void* vp, const int* lengths,
-                const int* tables, void* out, int B, int Tq, int H, int KV, int hd, int ps,
-                int mps, float scale, cudaStream_t s) {
-  const size_t smem = attn::smem_floats(Tq * (H / KV), hd) * sizeof(float) +
-                      (size_t)mps * sizeof(int);
-  cudaError_t e = allow_smem(paged_decode_attn<T>, smem);
-  if (e != cudaSuccess) return e;
-  paged_decode_attn<T><<<dim3(B, KV), THREADS, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), lengths,
-      tables, static_cast<T*>(out), Tq, H, KV, hd, ps, mps, scale);
-  return cudaGetLastError();
+                const int* tables, void* out, int B, attn::Args a, int ps, int mps,
+                cudaStream_t s) {
+  const size_t smem = attn::plan(a, mps * ps, sizeof(T), ps);
+  if (smem == 0) return cudaErrorInvalidValue;
+  const T* qp = static_cast<const T*>(q);
+  const T* k = static_cast<const T*>(kp);
+  const T* v = static_cast<const T*>(vp);
+  T* op = static_cast<T*>(out);
+  if (a.hd <= 64)
+    return attn::launch<paged_decode_attn<T, 64>>(a, B, smem, s, qp, k, v, lengths, tables, op,
+                                                  a, ps, mps);
+  if (a.hd <= 128)
+    return attn::launch<paged_decode_attn<T, 128>>(a, B, smem, s, qp, k, v, lengths, tables,
+                                                   op, a, ps, mps);
+  return attn::launch<paged_decode_attn<T, 256>>(a, B, smem, s, qp, k, v, lengths, tables, op,
+                                                 a, ps, mps);
 }
 
 }  // namespace
@@ -97,14 +97,12 @@ DVI_EXPORT int dvi_paged_decode_attention(const void* q, const void* k_pages,
                                           const void* v_pages, const void* lengths,
                                           const void* block_tables, void* out, int B, int Tq,
                                           int H, int KV, int hd, int ps, int mps, float scale,
-                                          int is_bf16, void* stream) {
-  if (B <= 0 || Tq <= 0 || KV <= 0 || H % KV != 0 || hd % 4 != 0 || ps <= 0 || mps <= 0)
-    return cudaErrorInvalidValue;
+                                          int splits, int is_bf16, void* stream) {
+  const attn::Args a{Tq, H, KV, hd, 0, 0, splits, scale};
+  if (!attn::valid(a, B, is_bf16) || ps <= 0 || mps <= 0) return cudaErrorInvalidValue;
   const int* lp = static_cast<const int*>(lengths);
   const int* tp = static_cast<const int*>(block_tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16
-             ? run<__nv_bfloat16>(q, k_pages, v_pages, lp, tp, out, B, Tq, H, KV, hd, ps, mps,
-                                  scale, s)
-             : run<float>(q, k_pages, v_pages, lp, tp, out, B, Tq, H, KV, hd, ps, mps, scale, s);
+  return is_bf16 ? run<__nv_bfloat16>(q, k_pages, v_pages, lp, tp, out, B, a, ps, mps, s)
+                 : run<float>(q, k_pages, v_pages, lp, tp, out, B, a, ps, mps, s);
 }

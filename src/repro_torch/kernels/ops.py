@@ -29,13 +29,13 @@ _ARGTYPES = {
     # h, w, a, b, gamma, T, d, V, r, is_bf16, u_part, ksplit, out, stream
     "lora_logits": [_VOID, _VOID, _VOID, _VOID, _FLOAT, _INT, _INT, _INT, _INT,
                     _INT, _VOID, _INT, _VOID, _VOID],
-    # q, k, v, lengths, out, B, Tq, H, KV, hd, S, scale, is_bf16, stream
+    # q, k, v, lengths, out, B, Tq, H, KV, hd, S, scale, splits, is_bf16, stream
     "decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
-                         _INT, _INT, _INT, _FLOAT, _INT, _VOID],
+                         _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID],
     # q, k_pages, v_pages, lengths, block_tables, out, B, Tq, H, KV, hd, ps,
-    # MPS, scale, is_bf16, stream
+    # MPS, scale, splits, is_bf16, stream
     "paged_decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
-                               _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT, _VOID],
+                               _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID],
     # xh, Bc, Cc, dt, A, h0, sxb, sxt, sbb, sbt, scb, sct, B, T, H, hd, ds, Q,
     # is_bf16, cb, y, hout, stream
     "ssd_scan": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _I64, _I64, _I64, _I64, _I64,
@@ -46,13 +46,18 @@ _ARGTYPES = {
 VOCAB_COLS = 64
 LORA_KSPLIT = 16
 LORA_MAX_RANK = 512       # u rows of a pass must fit in shared memory
-ATTN_MAX_ROWS = 64        # Tq * G query rows one attention block holds
+ATTN_MAX_ROWS = 64        # Tq * G query rows one attention CTA holds
 ATTN_MAX_HD = 256
-PAGED_MAX_PAGES = 8192    # block-table row one paged attention block holds
+PAGED_MAX_PAGES = 8192    # block-table row of a paged attention call
 SSD_MAX_CHUNK = 128       # chunk rows one scan block stages
 SSD_MAX_DIM = 128         # hd and ds bounds of the scan kernel
 SSD_THREADS = 256         # threads of a scan block: ds must divide it
 SSD_MAX_STATE = 8192      # hd * ds state elements a scan block updates
+# the attention kernels split a lane's live slots over a cluster of C CTAs
+ATTN_SPLITS = (1, 2, 4, 8)
+ATTN_SMS = 132            # SMs of an H100: a split stops at one CTA per SM
+ATTN_SPLIT_SLOTS = 128    # fewest capacity slots a CTA of a split lane takes
+ATTN_SUBTILE = 16         # slots of one warp's sub-tile; shares are multiples
 
 
 def reset_launches() -> None:
@@ -102,6 +107,48 @@ def _check_dtype(dtype: torch.dtype) -> int:
 def _contig(**ts: torch.Tensor) -> None:
     for n, t in ts.items():
         _need(t.is_contiguous(), f"{n} must be contiguous")
+
+
+def _check_attn_shape(name: str, rows: int, hd: int, dtype: torch.dtype) -> None:
+    """What the attention kernels take: at most ATTN_MAX_ROWS query rows a
+    kv head, and hd up to ATTN_MAX_HD in whole mma k-steps (16) for bf16 or
+    16-byte float32 copies (4)."""
+    step = 16 if dtype == torch.bfloat16 else 4
+    _need(rows <= ATTN_MAX_ROWS and hd <= ATTN_MAX_HD and hd % step == 0,
+          f"{name}: needs Tq*G <= {ATTN_MAX_ROWS}, hd <= {ATTN_MAX_HD} and hd % {step} == 0 "
+          f"for {dtype}, got Tq*G={rows}, hd={hd}")
+
+
+def _aligned(name: str, **ts: torch.Tensor) -> None:
+    for n, t in ts.items():
+        _need(t.data_ptr() % 16 == 0, f"{name}: {n} must start on 16 bytes (cp.async)")
+
+
+def attn_splits(capacity: int, pairs: int) -> int:
+    """C, the CTAs of one cluster that share a (lane, kv head) of the
+    attention kernels, from host integers alone: the lane's capacity (S, or
+    MPS * ps) and the number of (lane, kv head) pairs B * KV.  The host never
+    reads ``lengths``, so the choice costs no sync.  The largest C that keeps
+    the grid within one CTA per SM and gives each CTA at least
+    ATTN_SPLIT_SLOTS slots of capacity; non-decreasing in the capacity.  The
+    thresholds come from ``scripts/torch_attn_splits.py`` on an H100 (PERF.md):
+    with the paths' 8 lanes of 32 kv heads (256 pairs) C = 1 is fastest at
+    every capacity; with 2 lanes (64 pairs) C = 2 wins from about 256 slots
+    and C = 4 never does."""
+    splits = 1
+    for c in ATTN_SPLITS[1:]:
+        if pairs * c > ATTN_SMS or capacity < c * ATTN_SPLIT_SLOTS:
+            break
+        splits = c
+    return splits
+
+
+def attn_share(n_live: int, splits: int) -> int:
+    """Slots of each CTA's share of a lane with `n_live` live slots, as the
+    kernels compute it on the card: whole sub-tiles, split evenly; CTA c
+    takes slots [c * share, min((c+1) * share, n_live))."""
+    tiles = -(-n_live // ATTN_SUBTILE)
+    return ATTN_SUBTILE * -(-tiles // splits)
 
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
@@ -178,19 +225,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S, KV = k.shape[1], k.shape[2]
     _need(k.shape[0] == B and k.shape[3] == hd and H % KV == 0,
           "decode_attention: k/v must be (B, S, KV, hd) with H a multiple of KV")
-    _need(Tq * (H // KV) <= ATTN_MAX_ROWS and hd <= ATTN_MAX_HD and hd % 4 == 0,
-          f"decode_attention: needs Tq*G <= {ATTN_MAX_ROWS}, hd <= {ATTN_MAX_HD}, "
-          f"hd % 4 == 0")
     _need(q.dtype == k.dtype == v.dtype, "decode_attention: q, k, v must share a dtype")
     _need(lengths.dtype == torch.int32 and lengths.shape == (B,),
           "decode_attention: lengths must be (B,) int32")
     is_bf16 = _check_dtype(q.dtype)
+    _check_attn_shape("decode_attention", Tq * (H // KV), hd, q.dtype)
     q4 = q4.contiguous() if single else q4
     _contig(q=q4, k=k, v=v, lengths=lengths)
+    _aligned("decode_attention", q=q4, k=k, v=v)
     out = torch.empty_like(q4)
     _launch("decode_attention", q4.data_ptr(), k.data_ptr(), v.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd, S, 1.0 / math.sqrt(hd),
-            is_bf16, _stream(q.device))
+            attn_splits(S, B * KV), is_bf16, _stream(q.device))
     return out[:, 0] if single else out
 
 
@@ -216,9 +262,6 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     _, ps, KV, _ = k_pages.shape
     _need(k_pages.shape[3] == hd and H % KV == 0,
           "paged_decode_attention: pages must be (P, ps, KV, hd) with H a multiple of KV")
-    _need(Tq * (H // KV) <= ATTN_MAX_ROWS and hd <= ATTN_MAX_HD and hd % 4 == 0,
-          f"paged_decode_attention: needs Tq*G <= {ATTN_MAX_ROWS}, hd <= {ATTN_MAX_HD}, "
-          f"hd % 4 == 0")
     _need(q.dtype == k_pages.dtype == v_pages.dtype,
           "paged_decode_attention: q and the pages must share a dtype")
     _need(lengths.dtype == torch.int32 and lengths.shape == (B,),
@@ -228,13 +271,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
           f"paged_decode_attention: block_tables must be (B, MPS) int32, "
           f"MPS <= {PAGED_MAX_PAGES}")
     is_bf16 = _check_dtype(q.dtype)
+    _check_attn_shape("paged_decode_attention", Tq * (H // KV), hd, q.dtype)
     q4 = q4.contiguous() if single else q4
     _contig(q=q4, k_pages=k_pages, v_pages=v_pages, lengths=lengths,
             block_tables=block_tables)
+    _aligned("paged_decode_attention", q=q4, k_pages=k_pages, v_pages=v_pages)
+    mps = block_tables.shape[1]
     out = torch.empty_like(q4)
     _launch("paged_decode_attention", q4.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd,
-            ps, block_tables.shape[1], 1.0 / math.sqrt(hd), is_bf16, _stream(q.device))
+            ps, mps, 1.0 / math.sqrt(hd), attn_splits(mps * ps, B * KV), is_bf16,
+            _stream(q.device))
     return out[:, 0] if single else out
 
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, over
 shapes the main path does not use (ragged vocab and d, T > 48 rows, r = 1,
 GQA groups, Tq > 1, lengths at and past the cache capacity, paged tables
-with -1 entries, all -1 lanes and page sizes 16 and 4), in float32 and
+with -1 entries, all -1 lanes and page sizes 16 and 4, the attention
+kernels' split of a lane over 1, 2, 4 and 8 CTAs at its edges), in float32 and
 bfloat16, the SSD scan at odd chunk lengths, with padded rows, a carried
 h0 and strided inputs, plus the greedy sync path and the continuous paged
 path on the card, and mamba2-370m-tiny's greedy path in bfloat16.
@@ -125,6 +126,106 @@ def test_paged_decode_attention(ops, dtype, Tq, G, ps):
     want = ref.paged_decode_attention(q_in, kp, vp, lens_t, tbl_t)
     torch.testing.assert_close(out[:3], want[:3], **TOL[dtype])
     assert bool((out[3:] == 0).all()) and bool(torch.isfinite(want).all())
+
+
+def _capacity(ops, splits, pairs):
+    """A lane capacity at which the wrappers split each of `pairs` (lane, kv
+    head) pairs over `splits` CTAs: the largest one that still picks it
+    (twice the smallest for the last choice), so the shares are as long as
+    that choice allows."""
+    caps = [c for c in range(16, 4097, 16) if ops.attn_splits(c, pairs) == splits]
+    return caps[-1] if splits < max(ops.ATTN_SPLITS) else 2 * caps[0]
+
+
+def _close_visible(out, want, visible, dtype):
+    """The kernel's rows that see a slot match the plain version; the others
+    are exactly 0 (the plain version gives them a uniform average)."""
+    B, Tq = visible.shape
+    out4, want4 = out.reshape(B, Tq, *out.shape[-2:]), want.reshape(B, Tq, *out.shape[-2:])
+    vis = torch.as_tensor(visible, device="cuda")
+    torch.testing.assert_close(out4[vis], want4[vis], **TOL[dtype])
+    assert bool((out4[~vis] == 0).all()) and bool(torch.isfinite(want4).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,G", [(1, 1), (5, 1), (5, 4)])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_decode_attention_split_edges(ops, dtype, Tq, G, splits):
+    """Each lane split over `splits` CTAs: a lane of length 1 (at Tq = 5 its
+    first queries see nothing), one shorter than a CTA's share (the other
+    CTAs of its cluster empty), lanes at the capacity and past it, an idle
+    lane (length 0) and a lane ending one slot past a share border."""
+    from repro_torch.kernels import ref
+    B, KV, hd = 8, 2, 64
+    S = _capacity(ops, splits, B * KV)
+    assert ops.attn_splits(S, B * KV) == splits
+    gen = torch.Generator(device="cuda").manual_seed(S * Tq + G)
+    q = _randn(gen, B, Tq, KV * G, hd, dtype=dtype)
+    k = _randn(gen, B, S, KV, hd, dtype=dtype)
+    v = _randn(gen, B, S, KV, hd, dtype=dtype)
+    share = ops.attn_share(S, splits)
+    lens = np.array([1, 10, S, S + 3, 0, min(share + 1, S), S // 2, S - 1], np.int32)
+    lens_t = torch.as_tensor(lens, device="cuda")
+    q_in = q[:, 0].contiguous() if Tq == 1 else q
+    ops.reset_launches()
+    out = ops.decode_attention(q_in, k, v, lens_t)
+    assert ops.launches["decode_attention"] == 1
+    visible = np.array([[min(int(n) - (Tq - 1 - t), S) > 0 for t in range(Tq)] for n in lens])
+    _close_visible(out, ref.decode_attention(q_in, k, v, lens_t), visible, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,G", [(1, 1), (5, 1), (5, 4)])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_paged_decode_attention_split_edges(ops, dtype, Tq, G, splits):
+    """Shuffled pages of 16 with each lane split over `splits` CTAs: lanes
+    of length 1 and 10, at MPS * ps and past it, an idle lane (length 0, all
+    -1), a lane with -1 entries on both sides of a share border, and lanes
+    with a -1 entry on the first and on the last live page."""
+    from repro_torch.kernels import ref
+    ps, B, KV, hd = 16, 8, 2, 64
+    mps = _capacity(ops, splits, B * KV) // ps
+    cap = mps * ps
+    assert ops.attn_splits(cap, B * KV) == splits
+    rng = np.random.default_rng(cap * Tq + G)
+    P = B * mps + 3
+    tbl = rng.permutation(np.arange(1, P))[:B * mps].reshape(B, mps).astype(np.int32)
+    n_border = cap - ps + 5
+    share = ops.attn_share(n_border, splits)
+    border = share // ps if share < n_border else 1
+    lens = np.array([1, 10, cap, cap + 3, 0, n_border, 3 * ps + 1, cap - 1], np.int32)
+    tbl[4] = -1
+    tbl[5, border - 1] = tbl[5, border] = -1
+    tbl[6, 0] = tbl[7, mps - 1] = -1
+    gen = torch.Generator(device="cuda").manual_seed(cap * Tq + G)
+    q = _randn(gen, B, Tq, KV * G, hd, dtype=dtype)
+    kp = _randn(gen, P, ps, KV, hd, dtype=dtype)
+    vp = _randn(gen, P, ps, KV, hd, dtype=dtype)
+    lens_t, tbl_t = torch.as_tensor(lens, device="cuda"), torch.as_tensor(tbl, device="cuda")
+    q_in = q[:, 0].contiguous() if Tq == 1 else q
+    ops.reset_launches()
+    out = ops.paged_decode_attention(q_in, kp, vp, lens_t, tbl_t)
+    assert ops.launches["paged_decode_attention"] == 1
+    page = tbl[:, np.arange(cap) // ps]
+    visible = np.array([[bool(((page[b] >= 0) & (np.arange(cap) < min(int(n) - (Tq - 1 - t),
+                                                                          cap))).any())
+                         for t in range(Tq)] for b, n in enumerate(lens)])
+    _close_visible(out, ref.paged_decode_attention(q_in, kp, vp, lens_t, tbl_t), visible, dtype)
+
+
+def test_attention_rejects_what_it_does_not_take(ops):
+    """hd must be a whole number of 16-wide mma steps in bf16 and of 16-byte
+    copies in float32; K/V must start on 16 bytes."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lens = torch.tensor([3, 4], device="cuda", dtype=torch.int32)
+    q = _randn(gen, 2, 4, 40, dtype=torch.bfloat16)
+    kv = _randn(gen, 2, 10, 4, 40, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="hd % 16"):
+        ops.decode_attention(q, kv, kv, lens)
+    ops.decode_attention(q.float(), kv.float(), kv.float(), lens)     # float32 takes hd 40
+    kv = _randn(gen, 2 * 10 * 4 * 32 + 1, dtype=torch.bfloat16)[1:].reshape(2, 10, 4, 32)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.decode_attention(_randn(gen, 2, 4, 32, dtype=torch.bfloat16), kv, kv, lens)
 
 
 def test_wrappers_check_inputs_and_count_launches(ops):
