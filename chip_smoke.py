@@ -25,18 +25,24 @@ Phases (any failure raises and exits non-zero):
    conv output; a B = 1 admission, T = Q = 95; a padded T = 256, Q = 128
    with dt = 0 on the last 56 rows; a carried h0), checking y and the final
    state; ``verify_argmax`` and ``lora_logits`` at mamba2-370m's d = 1024
-   and tied V = 50280, tie rule included.  Then each kernel's device time
+   and tied V = 50280, tie rule included, and at their edge cases (V
+   about the 128-column strip and with rows off 16 bytes, T in one, two and
+   several row passes, r = 1 and 512, ties at every offset of a strip and
+   a fragment), each gated to the loader ``ops.vocab_fast`` must pick (the
+   paths' shapes the fast one).  Then each kernel's device time
    (``time_ms``: L2 flushed, the host's enqueue hidden behind a spin kernel
    and checked on every call) and per-call time, its plain version's, a
    library call's where one computes the same function, and the least
    time the card could take, at the main shapes and at the draft feed
    (attention), mamba2's d and V (vocab kernels) and the B = 1 admission
-   (``ssd_scan``);
+   (``ssd_scan``); beside each vocab kernel cuBLAS's bf16 h @ w alone
+   (``gemm_ms``, a yardstick without the argmax or the LoRA term);
 4. the sync path: vicuna-7b at full width and depth in bf16, random weights
    drawn on the card from a seed, a sync ``ServingEngine`` answering 8
    requests (prompts of 64-128 tokens, 32 new tokens each), then the same
    requests once more under torch.profiler for the device's busy share
-   and the attention kernel's device time a launch, beside phase 3's;
+   and the attention and vocab kernels' device time a launch and per
+   block-step, beside phase 3's; every vocab launch on the fast loader;
 5. the kernels' launch counts over phase 4 against the per-block formula;
 6. greedy losslessness on the card: speculative streams against
    ``ar_generate`` streams;
@@ -49,7 +55,7 @@ Phases (any failure raises and exits non-zero):
    pool at the end, the per-block launch formula, and that no dispatch
    synchronises with the device (sync debug mode "error"); it reports the
    synchronising operations per tick; the profile gives the paged
-   kernel's device time a launch beside phase 3's;
+   and vocab kernels' device time a launch beside phase 3's;
 9. mamba2-370m at full width and depth (48 layers) in bf16, random weights
    drawn on the card from a seed: a sync ``ServingEngine`` answering 8
    requests (prompts of 64-128 tokens, left-padded to their bucket, 32 new
@@ -63,7 +69,9 @@ Phases (any failure raises and exits non-zero):
    gives the completion bit for bit; then the launch formula (per
    block 0 attention, 5 ``lora_logits``, 1 ``verify_argmax``, 0
    ``ssd_scan``; 48 ``ssd_scan`` per prefill call), no synchronising
-   operation inside a continuous dispatch, and all lanes empty at the end;
+   operation inside a continuous dispatch, all lanes empty at the end,
+   every vocab launch on the fast loader, and each profile's vocab
+   kernel time beside phase 3's at mamba2's shapes;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 It imports torch, numpy and the port; nothing of JAX.  It needs one card and
@@ -102,6 +110,8 @@ TOL = {"verify_argmax": (2e-3, 1e-3), "lora_logits": (2e-3, 1e-3),
        "decode_attention": (2e-2, 2e-2), "paged_decode_attention": (2e-2, 2e-2),
        "ssd_scan": (1e-4, 1e-4)}
 GAP_RTOL = 2e-2                  # bf16 top-2 logit gap treated as a tie
+GEMM_NOTE = ("gemm_ms: cuBLAS torch.matmul(h, w) in bf16 alone, a yardstick: it writes "
+             "the logits and computes neither the argmax nor the LoRA term")
 # the continuous path (phase 8)
 C_SLOTS, C_PAGE, C_SYNC, C_REQUESTS = 8, 16, 4, 16
 C_PROMPTS, C_NEW = (64, 96, 128), (16, 32)
@@ -230,10 +240,20 @@ def close(name: str, x, y) -> tuple:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def loader_used(ops, name: str) -> str:
+    """The loader of the one vocab launch since the last reset."""
+    paths = ops.vocab_paths[name]
+    check(sum(paths.values()) == 1, f"{name}: {paths} launches by loader, expected one")
+    return "fast" if paths["fast"] else "element"
+
+
 def check_verify(ops, ref, gen, T, d, V, label):
     h = torch.randn((T, d), generator=gen, device=DEV).to(torch.bfloat16)
     w = (torch.randn((d, V), generator=gen, device=DEV) / d ** 0.5).to(torch.bfloat16)
+    ops.reset_launches()
     arg, mx = ops.verify_argmax(h, w)
+    check(loader_used(ops, "verify_argmax") == "fast",
+          f"verify_argmax {label}: the paths' shapes must take the fast loader")
     logits = h.float() @ w.float()
     top2 = logits.topk(2, dim=-1).values
     gap = top2[:, 0] - top2[:, 1]
@@ -263,13 +283,91 @@ def check_lora(ops, ref, gen, T, d, V, r, label):
     a = torch.randn((d, r), generator=gen, device=DEV) / d ** 0.5
     b = torch.randn((r, V), generator=gen, device=DEV) * 0.05
     gamma = 2.0
+    ops.reset_launches()
     out = ops.lora_logits(h, w, a, b, gamma)
+    check(loader_used(ops, "lora_logits") == "fast",
+          f"lora_logits {label}: the paths' shapes must take the fast loader")
     err, rel, ok = close("lora_logits", out, ref.lora_logits(h, w, a, b, gamma))
     atol, rtol = TOL["lora_logits"]
     phase(3, f"lora_logits {label}: T={T} d={d} V={V} r={r} max abs err {err:.3e} "
              f"rel {rel:.3e} (atol {atol} rtol {rtol}) ok={ok}")
     check(ok, f"lora_logits {label} disagrees with its plain version")
     return (h, w, a, b, gamma), err
+
+
+# the vocab kernels' edge cases (phase 3): widths about the 128-column strip
+# (8 and 1 short of it, exactly it, 1 and 8 past it) and rows that are not
+# 16-byte multiples (odd V in bf16: the element loader); row counts in one,
+# two and several passes; ties placed at every offset of a strip and a
+# fragment (the first L columns repeated n times; 1001 and 5 are odd); r = 1
+# and the largest rank the kernel takes
+VOCAB_EDGE_V = (120, 127, 128, 129, 136, 1001)
+VOCAB_EDGE_T = (1, 9, 41, 49, 67)
+VOCAB_EDGE_TIES = ((1001, 32), (5, 200), (3, 43))
+LORA_EDGE_R = (1, 512)
+
+
+def vocab_edges(ops, ref, gen, d, V):
+    """verify_argmax and lora_logits (r = 64) in bf16 at the edge cases,
+    each against its plain version at ``TOL``, each on the loader that
+    ``vocab_fast`` must pick (fast iff V * 2 is a multiple of 16, d and the
+    pointers being aligned); the exact tie rule at every offset."""
+    def loader_ok(name, V_):
+        return loader_used(ops, name) == ("fast" if V_ * 2 % 16 == 0 else "element")
+
+    def verify_case(T, V_, w=None):
+        h = torch.randn((T, d), generator=gen, device=DEV).to(torch.bfloat16)
+        if w is None:
+            w = (torch.randn((d, V_), generator=gen, device=DEV) / d ** 0.5).to(torch.bfloat16)
+        ops.reset_launches()
+        arg, mx = ops.verify_argmax(h, w)
+        ok = loader_ok("verify_argmax", V_)
+        arg_r, mx_r = ref.verify_argmax(h, w)
+        err, _, close_ok = close("verify_argmax", mx, mx_r)
+        top2 = (h.float() @ w.float()).topk(min(2, V_), dim=-1).values
+        atol, rtol = TOL["verify_argmax"]
+        near = top2[:, 0] - top2[:, -1] <= atol + rtol * top2[:, 0].abs()
+        return err, ok and close_ok and not bool(((arg != arg_r) & ~near).any())
+
+    def lora_case(T, V_, r):
+        h = torch.randn((T, d), generator=gen, device=DEV).to(torch.bfloat16)
+        w = (torch.randn((d, V_), generator=gen, device=DEV) / d ** 0.5).to(torch.bfloat16)
+        a = torch.randn((d, r), generator=gen, device=DEV) / d ** 0.5
+        b = torch.randn((r, V_), generator=gen, device=DEV) * 0.05
+        ops.reset_launches()
+        out = ops.lora_logits(h, w, a, b, 2.0)
+        ok = loader_ok("lora_logits", V_)
+        err, _, close_ok = close("lora_logits", out, ref.lora_logits(h, w, a, b, 2.0))
+        return err, ok and close_ok
+
+    cases = ([("verify_argmax", f"T=40 V={v}", lambda v=v: verify_case(40, v))
+              for v in VOCAB_EDGE_V]
+             + [("verify_argmax", f"T={t} V={V}", lambda t=t: verify_case(t, V))
+                for t in VOCAB_EDGE_T]
+             + [("lora_logits", f"T=8 V={v} r=64", lambda v=v: lora_case(8, v, 64))
+                for v in VOCAB_EDGE_V]
+             + [("lora_logits", f"T={t} V={V} r=64", lambda t=t: lora_case(t, V, 64))
+                for t in VOCAB_EDGE_T]
+             + [("lora_logits", f"T=8 V={V} r={r}", lambda r=r: lora_case(8, V, r))
+                for r in LORA_EDGE_R])
+    for name, label, run in cases:
+        err, ok = run()
+        atol, rtol = TOL[name]
+        phase(3, f"{name} edge {label} d={d}: max abs err {err:.3e} (atol {atol} rtol "
+                 f"{rtol}), loader {'fast' if ops.vocab_paths[name]['fast'] else 'element'}: "
+                 f"ok={ok}")
+        check(ok, f"{name} edge {label} disagrees with its plain version or took the "
+                  f"wrong loader")
+    for L, n in VOCAB_EDGE_TIES:
+        h = torch.randn((41, d), generator=gen, device=DEV).to(torch.bfloat16)
+        w = torch.randn((d, L), generator=gen, device=DEV).to(torch.bfloat16)
+        arg1, mx1 = ops.verify_argmax(h, w)
+        argn, mxn = ops.verify_argmax(h, w.repeat(1, n).contiguous())
+        ok = torch.equal(arg1, argn) and torch.equal(mx1, mxn) and bool((argn < L).all())
+        phase(3, f"verify_argmax tie rule: {L} columns repeated {n}x (copies at offsets "
+                 f"{sorted({L * i % 16 for i in range(n)})} mod 16), T=41 d={d}: lowest "
+                 f"index, bit-equal maxima: {ok}")
+        check(ok, f"verify_argmax tie rule at offsets of {L} columns")
 
 
 def close_visible(name, out, plain, visible):
@@ -483,6 +581,7 @@ def kernels_phase(cfg, mcfg):
     check_verify(ops, ref, gen, 67, 320, 1000, "ragged (T>48, odd tiles)")
     lora_args, err_l = check_lora(ops, ref, gen, B, d, V, cfg.dvi.lora_rank, "main")
     check_lora(ops, ref, gen, B, d, V, 1, "r=1 (ar_generate)")
+    vocab_edges(ops, ref, torch.Generator(device=DEV).manual_seed(SEED + 4), d, V)
     att_args, err_a = check_attention(ops, ref, gen, B, K + 1, H, KV, hd, cap,
                                       main_lens, "main (verify pass)")
     # a draft feed: one query per lane; its post-write length is the
@@ -552,6 +651,13 @@ def kernels_phase(cfg, mcfg):
                      2 * T * d * V / BF16_FLOP_PER_S
                      + (2 * T * d * r + 2 * T * r * V) / F32_FLOP_PER_S)
 
+    def gemm(h, w) -> dict:
+        """cuBLAS's bf16 product h @ w alone, a yardstick for the vocab
+        kernels: it computes the logits without the argmax or the LoRA
+        term, and writes them; the port never calls it."""
+        ms, call_ms = time_ms(lambda: torch.matmul(h, w))
+        return dict(gemm_ms=ms, gemm_call_ms=call_ms)
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def attn_timing(args, lengths):
@@ -585,18 +691,21 @@ def kernels_phase(cfg, mcfg):
         dict(name="verify_argmax", route="cuda", source="src/repro_torch/csrc/verify_argmax.cu",
              replaces="src/repro/kernels/verify_argmax.py:62", max_abs_err=err_v,
              **timing(lambda: ops.verify_argmax(h, w), lambda: ref.verify_argmax(h, w),
-                      verify_bound(T_verify, d, V)),
-             at_mamba2=timing(lambda: ops.verify_argmax(mh, mw),
-                              lambda: ref.verify_argmax(mh, mw),
-                              verify_bound(mh.shape[0], md, mV))),
+                      verify_bound(T_verify, d, V)), **gemm(h, w),
+             at_mamba2=dict(timing(lambda: ops.verify_argmax(mh, mw),
+                                   lambda: ref.verify_argmax(mh, mw),
+                                   verify_bound(mh.shape[0], md, mV)), **gemm(mh, mw)),
+             gemm_note=GEMM_NOTE),
         dict(name="lora_logits", route="cuda", source="src/repro_torch/csrc/lora_logits.cu",
              replaces="src/repro/kernels/lora_logits.py:53", max_abs_err=err_l,
              **timing(lambda: ops.lora_logits(hl, wl, a, b, gamma),
                       lambda: ref.lora_logits(hl, wl, a, b, gamma),
-                      lora_bound(B, d, V, a.shape[1])),
-             at_mamba2=timing(lambda: ops.lora_logits(*m_lora),
-                              lambda: ref.lora_logits(*m_lora),
-                              lora_bound(B, md, mV, m_lora[2].shape[1]))),
+                      lora_bound(B, d, V, a.shape[1])), **gemm(hl, wl),
+             at_mamba2=dict(timing(lambda: ops.lora_logits(*m_lora),
+                                   lambda: ref.lora_logits(*m_lora),
+                                   lora_bound(B, md, mV, m_lora[2].shape[1])),
+                            **gemm(m_lora[0], m_lora[1])),
+             gemm_note=GEMM_NOTE),
         # attention at the verify pass (Tq = K+1), with the draft feed
         # (Tq = 1) beside it: 30 and 10 of the 40 launches of a block
         dict(name="decode_attention", route="cuda",
@@ -621,10 +730,13 @@ def kernels_phase(cfg, mcfg):
                                           if k.startswith("at_")]:
             lib = ("-" if t["library_ms"] is None else
                    f"{t['library_ms']:.4f} (call {t['library_call_ms']:.4f})")
+            gm = ("" if "gemm_ms" not in t else
+                  f", cuBLAS h@w alone {t['gemm_ms']:.4f} (call {t['gemm_call_ms']:.4f})")
             phase(3, f"{row['name']} {label}: kernel {t['ms']:.4f} ms (call "
                      f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f} (call "
-                     f"{t['plain_call_ms']:.4f}), library {lib}, bound {t['bound_ms']:.4f} "
-                     f"({t['bound_by']}), bound/kernel {t['bound_share']:.3f}")
+                     f"{t['plain_call_ms']:.4f}), library {lib}{gm}, bound "
+                     f"{t['bound_ms']:.4f} ({t['bound_by']}), bound/kernel "
+                     f"{t['bound_share']:.3f}")
     return rows
 
 
@@ -643,18 +755,38 @@ def make_requests(cfg):
 # the port's kernels in a profile, by the names of their __global__ functions
 PORT_KERNELS = ("verify_partial", "verify_reduce", "lora_down", "lora_main", "decode_attn",
                 "ssd_cb", "ssd_chunks")
-ATTN_NAMES = {"decode_attention": re.compile(r"(?<![A-Za-z_])decode_attn\b"),
-              "paged_decode_attention": re.compile(r"(?<![A-Za-z_])paged_decode_attn\b")}
+# each kernel's __global__ functions in a profile, and the one of them that
+# runs once a call (the vocab kernels launch two: a pre-pass or a reduction)
+KERNEL_NAMES = {
+    "decode_attention": (re.compile(r"(?<![A-Za-z_])decode_attn\b"),) * 2,
+    "paged_decode_attention": (re.compile(r"(?<![A-Za-z_])paged_decode_attn\b"),) * 2,
+    "verify_argmax": (re.compile(r"\bverify_(partial|reduce)\b"),
+                      re.compile(r"\bverify_partial\b")),
+    "lora_logits": (re.compile(r"\blora_(down|main)\b"), re.compile(r"\blora_main\b")),
+}
+
+
+def covered_ms(spans) -> float:
+    """The time (ms) that a set of (start, end) spans in us covers, each
+    instant once: kernels that overlap on the card (a programmatic
+    dependent launch beside its primary) are not counted twice."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
 
 
 def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None) -> float:
     """The same requests once more under torch.profiler (device activity
-    only): device time by kernel and in all.  The run repeats the timed
-    run's work, so the device's busy share is its device time over the
-    timed run's (unprofiled) wall time `wall_ms`.  `expect` maps an
-    attention kernel's name to the per-launch device ms that phase 3
-    predicts for this path; the profile's per-launch time is printed beside
-    it.  Returns the share."""
+    only): device time by kernel and in all, the latter as the time some
+    kernel ran (``covered_ms``).  The run repeats the timed run's work, so
+    the device's busy share is its device time over the timed run's
+    (unprofiled) wall time `wall_ms`.  `expect` maps a kernel's
+    name to the per-launch device ms that phase 3 predicts for this path;
+    the profile's per-launch and per-block-step times are printed beside it,
+    with each of its __global__ functions' share.  Returns the share."""
     from torch.profiler import ProfilerActivity, profile
     for r in reqs:
         eng.submit_request(r)
@@ -664,17 +796,21 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None) ->
         eng.run()
         torch.cuda.synchronize()
     by_name: dict = {}
+    spans: dict = {}                   # name -> [(start us, end us)]
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             ms, k = by_name.get(evt.name, (0.0, 0))
             by_name[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3, k + 1)
-    busy = sum(ms for ms, _ in by_name.values())
+            spans.setdefault(evt.name, []).append((evt.time_range.start, evt.time_range.end))
+    busy = covered_ms([s for v in spans.values() for s in v])
     if busy == 0.0:
         phase(n, "profile: the profiler saw no device time")
         return float("nan")
-    ours = sum(ms for name, (ms, _) in by_name.items() if any(k in name for k in PORT_KERNELS))
-    gemm = sum(ms for name, (ms, _) in by_name.items()
-               if any(k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass")))
+    ours = covered_ms([s for name, v in spans.items() if any(k in name for k in PORT_KERNELS)
+                       for s in v])
+    gemm = covered_ms([s for name, v in spans.items()
+                       if any(k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass"))
+                       for s in v])
     steps = eng.stats["steps"] - steps0
     launches = sum(k for _, k in by_name.values())
     phase(n, f"profile of the same requests again ({steps} block-steps): device busy "
@@ -685,14 +821,27 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None) ->
     for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         phase(n, f"  {ms:9.3f} ms {k:6d}x  {name[:90]}")
     for kernel, want in (expect or {}).items():
-        hits = [(ms, k) for name, (ms, k) in by_name.items() if ATTN_NAMES[kernel].search(name)]
-        ms, k = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        every, once = KERNEL_NAMES[kernel]
+        hits = {name: v for name, v in by_name.items() if every.search(name)}
+        ms = covered_ms([s for name in hits for s in spans[name]])
+        k = sum(v[1] for name, v in hits.items() if once.search(name))
         per = ms / k if k else float("nan")
+        parts = "; ".join(f"{every.search(name).group(0)} {v[0] / max(v[1], 1) * 1e3:.2f} us "
+                          f"a launch" for name, v in sorted(hits.items()))
         phase(n, f"  {kernel}: {k} launches, {ms:.3f} ms, {per * 1e3:.2f} us a launch on the "
-                 f"path; phase 3 device time at this path's mix {want * 1e3:.2f} us "
+                 f"path ({parts}); phase 3 device time at this path's mix {want * 1e3:.2f} us "
                  f"(profile / phase 3 = {per / want:.2f}), "
                  f"{ms / max(steps, 1):.3f} ms per block-step")
     return busy / wall_ms
+
+
+def check_fast_loader(ops, n: int, label: str) -> None:
+    """Every vocab launch since the last reset took the fast loader."""
+    paths = {name: dict(v) for name, v in ops.vocab_paths.items()}
+    phase(n, f"{label}: vocab kernel launches by loader {paths}")
+    check(all(v["element"] == 0 and v["fast"] == ops.launches[name]
+              for name, v in paths.items()),
+          f"{label}: a vocab kernel on the path left the fast loader")
 
 
 def path_attention_ms(row, K: int, k: int, L: int) -> float:
@@ -816,7 +965,7 @@ def check_against_ar(model, params, spec, reqs, comps, label, n_phase=8, alone=F
                 if same_shape is not None else ""))
 
 
-def continuous_phase(cfg, model, params, dvi, paged_row):
+def continuous_phase(cfg, model, params, dvi, paged_row, vocab_rows):
     from repro_torch.core import spec
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
@@ -836,6 +985,7 @@ def continuous_phase(cfg, model, params, dvi, paged_row):
     ops.reset_launches()
     comps, wall, blocks_run, per_tick = serve_checked(eng, reqs)
     launches = dict(ops.launches)
+    check_fast_loader(ops, 8, "continuous")
     st, kv = eng.stats, eng.kv_stats()
     mat = st["committed"] / max(st["blocks"], 1)
     phase(8, f"ample pool ({C_PAGES_AMPLE} pages of {C_PAGE}, MPS {eng._mps}): "
@@ -856,7 +1006,9 @@ def continuous_phase(cfg, model, params, dvi, paged_row):
     check(launches == want, "the continuous path did not run the kernels as the formula says")
     check_against_ar(model, params, spec, reqs, comps, "ample pool")
     busy = profile_batch(eng, reqs, wall * 1e3, n=8, expect={
-        "paged_decode_attention": path_attention_ms(paged_row, K, k, L)})
+        "paged_decode_attention": path_attention_ms(paged_row, K, k, L),
+        "verify_argmax": vocab_rows["verify_argmax"]["ms"],
+        "lora_logits": vocab_rows["lora_logits"]["ms"]})
     del eng
 
     pages = C_PAGES_TIGHT
@@ -937,7 +1089,7 @@ def ar_at_engine_rows(model, params, req) -> list:
     return out
 
 
-def mamba_phase():
+def mamba_phase(vocab_rows):
     from repro_torch.configs import get_config
     from repro_torch.core import lora, spec
     from repro_torch.kernels import ops
@@ -974,6 +1126,7 @@ def mamba_phase():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     sync_launches, n_pre = dict(ops.launches), prefills[0]
+    check_fast_loader(ops, 9, f"{M_NAME} sync")
     st = eng.stats
     n = st["steps"]
     check(len(comps) == N_REQUESTS and n > 0, f"{len(comps)} completions in {n} block-steps")
@@ -985,7 +1138,9 @@ def mamba_phase():
     phase(9, f"sync: launches {sync_launches}; expected {want}")
     check(sync_launches == want, "the mamba2 sync path did not run the kernels as the "
                                  "formula says")
-    sync_busy = profile_batch(eng, reqs, wall * 1e3, n=9)
+    expect = {name: vocab_rows[name]["at_mamba2"]["ms"]
+              for name in ("verify_argmax", "lora_logits")}
+    sync_busy = profile_batch(eng, reqs, wall * 1e3, n=9, expect=expect)
     padded = [Request(uid=r.uid, prompt=eng._pad(r, eng._bucket(len(r.prompt))),
                       max_new=r.max_new) for r in reqs]
     check_against_ar(model, params, spec, padded, comps, f"{M_NAME} sync", n_phase=9)
@@ -1004,6 +1159,7 @@ def mamba_phase():
     prefills[0] = 0
     comps, wall, blocks_run, per_tick = serve_checked(eng, creqs)
     cont_launches, n_pre = dict(ops.launches), prefills[0]
+    check_fast_loader(ops, 9, f"{M_NAME} continuous")
     st = eng.stats
     check(len(comps) == C_REQUESTS and blocks_run > 0, f"{len(comps)} completions")
     phase(9, f"continuous (contiguous, {C_SLOTS} lanes, sync_every {C_SYNC}): "
@@ -1022,7 +1178,7 @@ def mamba_phase():
                                  "the formula says")
     check_against_ar(model, params, spec, creqs, comps, f"{M_NAME} continuous", n_phase=9,
                      alone=True, same_shape=lambda r: ar_at_engine_rows(model, params, r))
-    cont_busy = profile_batch(eng, creqs, wall * 1e3, n=9)
+    cont_busy = profile_batch(eng, creqs, wall * 1e3, n=9, expect=expect)
     return sync_launches, cont_launches, (sync_busy, cont_busy)
 
 
@@ -1083,6 +1239,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
+    check_fast_loader(ops, 4, "sync")
     st = eng.stats
     n = st["steps"]                    # spec_block_step calls of this run
     check(len(comps) == N_REQUESTS, f"{len(comps)} completions for {N_REQUESTS} requests")
@@ -1099,7 +1256,9 @@ def main() -> int:
     K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
     by_row = {row["name"]: row for row in rows}
     profile_batch(eng, reqs, wall * 1e3, expect={
-        "decode_attention": path_attention_ms(by_row["decode_attention"], K, k, L)})
+        "decode_attention": path_attention_ms(by_row["decode_attention"], K, k, L),
+        "verify_argmax": by_row["verify_argmax"]["ms"],
+        "lora_logits": by_row["lora_logits"]["ms"]})
 
     # ---- phase 5: launch counts ----
     want = {"decode_attention": ((K + 1) * k + (L - k)) * n, "lora_logits": (K + 1) * n,
@@ -1133,13 +1292,14 @@ def main() -> int:
     # ---- phase 8: the continuous path over a paged pool ----
     del eng, r_sd, r_ar
     torch.cuda.empty_cache()
-    c_launches, _ = continuous_phase(cfg, model, params, dvi, by_row["paged_decode_attention"])
+    c_launches, _ = continuous_phase(cfg, model, params, dvi, by_row["paged_decode_attention"],
+                                     by_row)
 
     # ---- phase 9: mamba2-370m through both schedulers ----
     del model, params, dvi
     gc.collect()                       # engines in reference cycles hold the weights
     torch.cuda.empty_cache()
-    m_sync, m_cont, _ = mamba_phase()
+    m_sync, m_cont, _ = mamba_phase(by_row)
 
     # ---- phase 7: result lines ----
     for row in rows:

@@ -1,14 +1,20 @@
 """PyTorch/CUDA port of the DVI reproduction, for one NVIDIA H100.
 
 This package grows beside the JAX package ``repro`` until it does what that
-package does.  This slice serves greedy DVI (prefill, speculative blocks of
-K+1 shallow draft feeds plus one deep verify pass, tuple logging) through the
-batch-synchronous engine, with its three hot functions on hand-written CUDA
-kernels for ``sm_90a``:
+package does.  It serves greedy DVI (prefill, speculative blocks of K+1
+shallow draft feeds plus one deep verify pass, tuple logging) through two
+schedulers, the batch-synchronous one and the continuous-batching one over
+a paged KV pool (or a contiguous per-lane cache), on dense decoders
+(vicuna-7b, qwen3-0.6b) and on the attention-free Mamba-2 stack
+(mamba2-370m).  Its five hot functions run on hand-written CUDA kernels
+for ``sm_90a``:
 
-* ``lora_logits``      — the LoRA draft head, once per draft feed;
-* ``verify_argmax``    — the verifier's greedy tokens, once per block;
-* ``decode_attention`` — every attention layer of the feeds and the verify.
+* ``lora_logits``            — the LoRA draft head, once per draft feed;
+* ``verify_argmax``          — the verifier's greedy tokens, once per block;
+* ``decode_attention``       — every attention layer of the feeds and the
+  verify over a contiguous cache;
+* ``paged_decode_attention`` — the same over the paged pool;
+* ``ssd_scan``               — the Mamba-2 chunked scan of every prefill.
 
 Ground rules
 ------------

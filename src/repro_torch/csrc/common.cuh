@@ -25,18 +25,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-// Two consecutive elements as float32; p must be aligned to two elements.
-__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
-  float2 v = *reinterpret_cast<const float2*>(p);
-  a = v.x;
-  b = v.y;
-}
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a, float& b) {
-  float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  a = v.x;
-  b = v.y;
-}
-
 // ---- Hopper data movement and tensor-core products (sm_80 and later) ----
 
 // The shared-memory address of a generic pointer, for the PTX below.

@@ -23,12 +23,12 @@ launches: Dict[str, int] = {name: 0 for name in build.KERNELS}
 
 _VOID, _INT, _FLOAT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _ARGTYPES = {
-    # h, w, T, d, V, is_bf16, part_max, part_arg, nblk, out_arg, out_max, stream
-    "verify_argmax": [_VOID, _VOID, _INT, _INT, _INT, _INT, _VOID, _VOID, _INT,
+    # h, w, T, d, V, is_bf16, fast, part_max, part_arg, nblk, out_arg, out_max, stream
+    "verify_argmax": [_VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _VOID, _VOID, _INT,
                       _VOID, _VOID, _VOID],
-    # h, w, a, b, gamma, T, d, V, r, is_bf16, u_part, ksplit, out, stream
+    # h, w, a, b, gamma, T, d, V, r, is_bf16, fast, u, out, stream
     "lora_logits": [_VOID, _VOID, _VOID, _VOID, _FLOAT, _INT, _INT, _INT, _INT,
-                    _INT, _VOID, _INT, _VOID, _VOID],
+                    _INT, _INT, _VOID, _VOID, _VOID],
     # q, k, v, lengths, out, B, Tq, H, KV, hd, S, scale, splits, is_bf16, stream
     "decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
                          _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID],
@@ -41,11 +41,10 @@ _ARGTYPES = {
     "ssd_scan": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _I64, _I64, _I64, _I64, _I64,
                  _I64, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOID, _VOID, _VOID, _VOID],
 }
-# vocab columns per block of the two vocab-streaming kernels, and the number
-# of d-slices of the LoRA down-projection pre-pass (both fixed in csrc/)
-VOCAB_COLS = 64
-LORA_KSPLIT = 16
-LORA_MAX_RANK = 512       # u rows of a pass must fit in shared memory
+# vocab columns of a strip of the two vocab-streaming kernels (fixed in
+# csrc/vocab_tile.cuh): verify_argmax writes one partial per row and strip
+VOCAB_COLS = 128
+LORA_MAX_RANK = 512       # the main pass stages u's rows in shared memory
 ATTN_MAX_ROWS = 64        # Tq * G query rows one attention CTA holds
 ATTN_MAX_HD = 256
 PAGED_MAX_PAGES = 8192    # block-table row of a paged attention call
@@ -60,9 +59,18 @@ ATTN_SPLIT_SLOTS = 128    # fewest capacity slots a CTA of a split lane takes
 ATTN_SUBTILE = 16         # slots of one warp's sub-tile; shares are multiples
 
 
+# Launches of the vocab kernels by loader since the last reset_launches():
+# "fast" (TMA boxes of w in bf16, 16-byte cp.async copies otherwise) or
+# "element" (one element a load), as ``vocab_fast`` chose it.
+vocab_paths: Dict[str, Dict[str, int]] = {name: {"fast": 0, "element": 0}
+                                          for name in ("verify_argmax", "lora_logits")}
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for paths in vocab_paths.values():
+        paths.update(fast=0, element=0)
 
 
 _fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -155,6 +163,21 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
     return _VOID(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def vocab_fast(h: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether the vocab kernels take h (T, d) and w (d, V) through their
+    fast loader (TMA and 16-byte copies): both start on 16 bytes and their
+    rows are whole multiples of 16 bytes.  Decided from host integers alone
+    (pointers and shapes), as the kernel's own check does; any other
+    operands take the element loader."""
+    elt = h.element_size()
+    return (h.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+            and h.shape[1] * elt % 16 == 0 and w.shape[1] * elt % 16 == 0)
+
+
+def _count_path(name: str, fast: bool) -> None:
+    vocab_paths[name]["fast" if fast else "element"] += 1
+
+
 def verify_argmax(h: torch.Tensor, w: torch.Tensor):
     """h (T, d), w (d, V) -> (argmax (T,) int32, max (T,) f32) of h @ w,
     ties to the lowest index, without materialising the (T, V) logits."""
@@ -167,14 +190,16 @@ def verify_argmax(h: torch.Tensor, w: torch.Tensor):
     _contig(h=h, w=w)
     T, d = h.shape
     V = w.shape[1]
+    fast = vocab_fast(h, w)
     nblk = -(-V // VOCAB_COLS)
     part_max = torch.empty((T, nblk), dtype=torch.float32, device=h.device)
     part_arg = torch.empty((T, nblk), dtype=torch.int32, device=h.device)
     arg = torch.empty((T,), dtype=torch.int32, device=h.device)
     mx = torch.empty((T,), dtype=torch.float32, device=h.device)
-    _launch("verify_argmax", h.data_ptr(), w.data_ptr(), T, d, V, is_bf16,
+    _launch("verify_argmax", h.data_ptr(), w.data_ptr(), T, d, V, is_bf16, int(fast),
             part_max.data_ptr(), part_arg.data_ptr(), nblk, arg.data_ptr(),
             mx.data_ptr(), _stream(h.device))
+    _count_path("verify_argmax", fast)
     return arg, mx
 
 
@@ -197,11 +222,13 @@ def lora_logits(h: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tens
           "lora_logits: a and b must be float32")
     is_bf16 = _check_dtype(h.dtype)
     _contig(h=h, w=w, a=a, b=b)
-    u_part = torch.empty((LORA_KSPLIT, T, r), dtype=torch.float32, device=h.device)
+    fast = vocab_fast(h, w)
+    u = torch.empty((T, r), dtype=torch.float32, device=h.device)
     out = torch.empty((T, V), dtype=torch.float32, device=h.device)
     _launch("lora_logits", h.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-            float(gamma), T, d, V, r, is_bf16, u_part.data_ptr(), LORA_KSPLIT,
-            out.data_ptr(), _stream(h.device))
+            float(gamma), T, d, V, r, is_bf16, int(fast), u.data_ptr(), out.data_ptr(),
+            _stream(h.device))
+    _count_path("lora_logits", fast)
     return out
 
 

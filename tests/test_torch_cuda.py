@@ -76,6 +76,95 @@ def test_lora_logits(ops, dtype, T, d, V, r):
                                ref.lora_logits(h, w, a, b, 2.0), rtol=1e-5, atol=1e-4)
 
 
+# vocab widths about a strip of 128 columns: one short of it, exactly it, one
+# past it (the element loader in both dtypes) and 8 short and 8 past it (the
+# 16-byte loader in both); rows in one, two and several passes
+VOCAB_EDGE_V = (120, 127, 128, 129, 136)
+VOCAB_EDGE_T = (1, 9, 41, 49, 67)
+
+
+def _fast_expected(dtype, d, V):
+    elt = 2 if dtype == torch.bfloat16 else 4
+    return d * elt % 16 == 0 and V * elt % 16 == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", VOCAB_EDGE_T)
+@pytest.mark.parametrize("V", VOCAB_EDGE_V)
+def test_verify_argmax_vocab_edges(ops, dtype, T, V):
+    from repro_torch.kernels import ref
+    d = 320
+    gen = torch.Generator(device="cuda").manual_seed(T * 1000 + V)
+    h = _randn(gen, T, d, dtype=dtype)
+    w = _randn(gen, d, V, dtype=dtype, scale=d ** -0.5)
+    ops.reset_launches()
+    arg, mx = ops.verify_argmax(h, w)
+    fast = _fast_expected(dtype, d, V)
+    assert ops.vocab_paths["verify_argmax"] == {"fast": int(fast), "element": int(not fast)}
+    arg_r, mx_r = ref.verify_argmax(h, w)
+    torch.testing.assert_close(mx, mx_r, rtol=1e-5, atol=1e-4)
+    top = (h.float() @ w.float()).topk(2, dim=-1).values
+    assert bool(((arg == arg_r) | ((top[:, 0] - top[:, 1]) <= 1e-4)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,n", [(1001, 8), (5, 200), (3, 43)])
+def test_verify_argmax_exact_ties_at_every_offset(ops, dtype, L, n):
+    """w's first L columns repeated n times: the copies sit at every offset
+    inside a strip, a warp's 32 columns and an m16 fragment (1001 and 5
+    are odd), so each row's maximum is tied n ways at different places; the
+    kernel must give every copy bit-equal logits and pick the first one."""
+    gen = torch.Generator(device="cuda").manual_seed(L * n)
+    d = 256
+    h = _randn(gen, 41, d, dtype=dtype)
+    w = _randn(gen, d, L, dtype=dtype)
+    arg1, mx1 = ops.verify_argmax(h, w)
+    argn, mxn = ops.verify_argmax(h, w.repeat(1, n).contiguous())
+    assert torch.equal(arg1, argn) and torch.equal(mx1, mxn)
+    assert bool((argn < L).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", (1, 9, 41, 67))
+@pytest.mark.parametrize("V", (127, 128, 136))
+@pytest.mark.parametrize("r", (1, 512))
+def test_lora_logits_vocab_edges(ops, dtype, T, V, r):
+    from repro_torch.kernels import ref
+    d = 320
+    gen = torch.Generator(device="cuda").manual_seed(T * 1000 + V + r)
+    h = _randn(gen, T, d, dtype=dtype)
+    w = _randn(gen, d, V, dtype=dtype, scale=d ** -0.5)
+    a = _randn(gen, d, r, scale=d ** -0.5)
+    b = _randn(gen, r, V, scale=0.05)
+    ops.reset_launches()
+    out = ops.lora_logits(h, w, a, b, 2.0)
+    fast = _fast_expected(dtype, d, V)
+    assert ops.vocab_paths["lora_logits"] == {"fast": int(fast), "element": int(not fast)}
+    torch.testing.assert_close(out, ref.lora_logits(h, w, a, b, 2.0), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vocab_kernels_take_unaligned_operands(ops, dtype):
+    """h starting one element past 16 bytes, and a d whose rows are not
+    16-byte multiples, take the element loader and agree all the same."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flat = _randn(gen, 9 * 256 + 1, dtype=dtype)
+    h = flat[1:].reshape(9, 256)
+    w = _randn(gen, 256, 1024, dtype=dtype, scale=1 / 16)
+    h_odd = _randn(gen, 9, 250, dtype=dtype)
+    w_odd = _randn(gen, 250, 1024, dtype=dtype, scale=1 / 16)
+    a, b = _randn(gen, 256, 4, scale=1 / 16), _randn(gen, 4, 1024, scale=0.05)
+    ops.reset_launches()
+    for hh, ww in ((h, w), (h_odd, w_odd)):
+        arg, mx = ops.verify_argmax(hh, ww)
+        torch.testing.assert_close(mx, ref.verify_argmax(hh, ww)[1], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(ops.lora_logits(h, w, a, b, 0.5),
+                               ref.lora_logits(h, w, a, b, 0.5), rtol=1e-5, atol=1e-4)
+    assert ops.vocab_paths == {"verify_argmax": {"fast": 0, "element": 2},
+                               "lora_logits": {"fast": 0, "element": 1}}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Tq,H,KV,hd,S", [(8, 5, 32, 32, 128, 294), (8, 1, 32, 32, 128, 294),
                                             (3, 1, 32, 8, 128, 300),
