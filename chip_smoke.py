@@ -20,22 +20,27 @@ Phases (any failure raises and exits non-zero):
    of a lane over C CTAs at its edges, at the main shapes and both Tq (a
    lane of length 1, one shorter than a CTA's share, lanes at the capacity
    and one past it, an idle lane, -1 entries on both sides of a share
-   border), every query that sees no slot exactly 0; ``ssd_scan`` at the
-   mamba2 paths' prefill shapes (B 8, T = Q = 127 from strided views of a
-   conv output; a B = 1 admission, T = Q = 95; a padded T = 256, Q = 128
+   border), every query that sees no slot exactly 0; paged cases with
+   ``page_counts`` (below ceil(len/ps), 0 and past MPS, both clipped; None
+   bit-identical to the call without it); ``ssd_scan`` at the mamba2
+   paths' prefill shapes (B 8, T = Q = 127 from strided views of a conv
+   output; B = 1 admissions, T = Q = 95 and 63; a padded T = 256, Q = 128
    with dt = 0 on the last 56 rows; a carried h0), checking y and the final
-   state; ``verify_argmax`` and ``lora_logits`` at mamba2-370m's d = 1024
-   and tied V = 50280, tie rule included, and at their edge cases (V
-   about the 128-column strip and with rows off 16 bytes, T in one, two and
-   several row passes, r = 1 and 512, ties at every offset of a strip and
-   a fragment), each gated to the loader ``ops.vocab_fast`` must pick (the
-   paths' shapes the fast one).  Then each kernel's device time
+   state, with ``ops.ssd_plan``'s split P beside each; ``verify_argmax``
+   and ``lora_logits`` at mamba2-370m's d = 1024 and tied V = 50280, tie
+   rule included, and at their edge cases (V about the 128-column strip
+   and with rows off 16 bytes, T in one, two and several row passes, r = 1
+   and 512, ties at every offset of a strip and a fragment), each gated
+   to the loader ``ops.vocab_fast`` must pick (the paths' shapes the fast
+   one).  Then each kernel's device time
    (``time_ms``: L2 flushed, the host's enqueue hidden behind a spin kernel
    and checked on every call) and per-call time, its plain version's, a
    library call's where one computes the same function, and the least
    time the card could take, at the main shapes and at the draft feed
    (attention), mamba2's d and V (vocab kernels) and the B = 1 admission
-   (``ssd_scan``); beside each vocab kernel cuBLAS's bf16 h @ w alone
+   (``ssd_scan``, its bound on the tensor cores at the kernel's split
+   count, the earlier all-float32 CUDA-core figure beside it as
+   ``f32_core_bound_ms``); beside each vocab kernel cuBLAS's bf16 h @ w alone
    (``gemm_ms``, a yardstick without the argmax or the LoRA term);
 4. the sync path: vicuna-7b at full width and depth in bf16, random weights
    drawn on the card from a seed, a sync ``ServingEngine`` answering 8
@@ -61,7 +66,9 @@ Phases (any failure raises and exits non-zero):
    requests (prompts of 64-128 tokens, left-padded to their bucket, 32 new
    tokens each), then a continuous one over the contiguous layout (8
    lanes, supersteps of 4 blocks) answering 16 requests, each profiled
-   once more for the device's busy share.  It checks every completion
+   once more for the device's busy share and the vocab kernels' and
+   ``ssd_scan``'s device time a launch (and per prefill call) beside
+   phase 3's.  It checks every completion
    against ``ar_generate`` on the prompt the engine decoded (bucket-padded,
    in one batch, on the sync path; exact and alone on the continuous one);
    on the continuous path a first difference outside a near-tie passes
@@ -70,8 +77,7 @@ Phases (any failure raises and exits non-zero):
    block 0 attention, 5 ``lora_logits``, 1 ``verify_argmax``, 0
    ``ssd_scan``; 48 ``ssd_scan`` per prefill call), no synchronising
    operation inside a continuous dispatch, all lanes empty at the end,
-   every vocab launch on the fast loader, and each profile's vocab
-   kernel time beside phase 3's at mamba2's shapes;
+   every vocab launch on the fast loader;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 It imports torch, numpy and the port; nothing of JAX.  It needs one card and
@@ -486,6 +492,40 @@ def check_paged(ops, ref, gen, rng, B, Tq, H, KV, hd, ps, mps, lengths, label,
     return (q_in, kp, vp, lens, tbl_t, tbl), err
 
 
+def check_paged_counts(ops, ref, gen, rng, B, Tq, H, KV, hd, ps, mps, lengths, label):
+    """Paged attention with per-lane ``page_counts`` at the given widths: the
+    lanes take counts below ceil(len/ps), 0 (clipped to 1), past MPS
+    (clipped to MPS) and at ceil(len/ps) in turn; every query sees a slot
+    (page 0 is mapped), so all rows are held against the plain version.
+    The call with page_counts=None must be bit-identical to the call
+    without it, and the counts below ceil(len/ps) must change the lanes
+    that take them."""
+    tbl, P = paged_tables(rng, lengths, ps, mps)
+    q = torch.randn((B, Tq, H, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    kp = torch.randn((P, ps, KV, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    vp = torch.randn((P, ps, KV, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    lens = torch.as_tensor(np.asarray(lengths), dtype=torch.int32, device=DEV)
+    tbl_t = torch.as_tensor(tbl, device=DEV)
+    q_in = q[:, 0].contiguous() if Tq == 1 else q
+    need = [-(-int(n) // ps) for n in lengths]
+    counts = [(max(1, need[b] // 2), 0, mps + 3, need[b])[b % 4] for b in range(B)]
+    pc = torch.as_tensor(np.asarray(counts, np.int32), device=DEV)
+    out = ops.paged_decode_attention(q_in, kp, vp, lens, tbl_t, page_counts=pc)
+    plain = ref.paged_decode_attention(q_in, kp, vp, lens, tbl_t, page_counts=pc)
+    err, _, ok = close("paged_decode_attention", out, plain)
+    full = ops.paged_decode_attention(q_in, kp, vp, lens, tbl_t)
+    same = torch.equal(ops.paged_decode_attention(q_in, kp, vp, lens, tbl_t,
+                                                  page_counts=None), full)
+    cut = [b for b in range(B) if min(max(counts[b], 1), mps) < need[b]]
+    changed = all(not torch.equal(out[b], full[b]) for b in cut)
+    phase(3, f"paged_decode_attention page_counts {label}: B={B} Tq={Tq} MPS={mps} lengths "
+             f"{list(map(int, lengths))} pages needed {need} page_counts {counts} max abs err "
+             f"{err:.3e} on every query: ok={ok}; page_counts=None bit-identical to the call "
+             f"without it: {same}; lanes {cut} cut below their length changed: {changed}")
+    check(ok and same and changed and len(cut) > 0,
+          f"paged_decode_attention page_counts {label} failed")
+
+
 def paged_bound(q, tbl, lengths, ps, KV, hd) -> tuple:
     """The least time of one paged attention call: q and the output once,
     each lane's live mapped K and V rows once, the lengths and the table
@@ -543,26 +583,41 @@ def check_ssd(ops, ref, gen, B, T, Q, H, hd, ds, label, pad_rows=0, with_h0=Fals
                                Cc[:, :T - pad_rows], dt[:, :T - pad_rows], A, 1, h0=h0)
         ok = ok and close("ssd_scan", h, h_np)[2]
     atol, rtol = TOL["ssd_scan"]
+    P = ops.ssd_plan(B, H, hd, ds, T, Q)
     phase(3, f"ssd_scan {label}: B={B} T={T} Q={Q} H={H} hd={hd} ds={ds} bf16 inputs, "
-             f"max abs err y {err_y:.3e} state {err_h:.3e} (atol {atol} rtol {rtol}), "
-             f"float32 outputs ok={ok}")
+             f"P={P} (ops.ssd_plan: slices of {hd // P} of hd), max abs err y {err_y:.3e} "
+             f"state {err_h:.3e} (atol {atol} rtol {rtol}), float32 outputs ok={ok}")
     check(ok, f"ssd_scan {label} disagrees with its plain version")
     return (xh, Bc, Cc, dt, A, Q, h0), max(err_y, err_h)
 
 
-def ssd_bound(xh, Bc, dt, Q, h0) -> tuple:
+def ssd_bound(xh, Bc, dt, Q, h0) -> dict:
     """The least time of one scan: every input read once, y and the final
-    state written once in float32, against its float32 products (C.B^T on
-    and below the diagonal once per lane and chunk; per head the intra-chunk
-    term, the carried-state term and the state update) at the float32 rate."""
+    state written once in float32, against its products on the tensor
+    cores at the kernel's split count: C.B^T on and below the diagonal once
+    per lane and chunk, and per head the intra-chunk term (W in three bf16
+    terms), the carried-state term (h in three terms) only on chunks that
+    start from a state that may be nonzero (after the first chunk, or with
+    h0), and the state update (u x in two terms); float32 inputs split x, B
+    and C too (six products each).  ``f32_core_bound_ms`` keeps the earlier
+    figure beside it: every product, the carried term on every chunk, at the
+    float32 CUDA-core rate."""
     B, T, H, hd = xh.shape
     ds = Bc.shape[3]
+    nc = T // Q
+    f32 = xh.dtype == torch.float32
     nbytes = (xh.numel() * xh.element_size() + 2 * Bc.numel() * Bc.element_size()
               + dt.numel() * 4 + H * 4 + (h0.numel() * 4 if h0 is not None else 0)
               + B * T * H * hd * 4 + B * H * hd * ds * 4)
-    tri = Q * (Q + 1) // 2 * (T // Q)
-    flops = 2 * B * tri * ds + 2 * B * H * tri * hd + 2 * 2 * B * H * T * ds * hd
-    return bound(nbytes, flops / F32_FLOP_PER_S)
+    tri = Q * (Q + 1) // 2 * nc
+    carried_rows = Q * (nc - (0 if h0 is not None else 1))
+    cb, intra = 2 * B * tri * ds, 2 * B * H * tri * hd
+    carried, update = 2 * B * H * carried_rows * ds * hd, 2 * B * H * T * ds * hd
+    terms = (6, 6, 6, 6) if f32 else (1, 3, 3, 2)
+    tc = sum(n * f for n, f in zip(terms, (cb, intra, carried, update)))
+    ms, by = bound(nbytes, tc / BF16_FLOP_PER_S)
+    f32_flop = cb + intra + 2 * update
+    return dict(bound=(ms, by), f32_core_bound_ms=bound(nbytes, f32_flop / F32_FLOP_PER_S)[0])
 
 
 def kernels_phase(cfg, mcfg):
@@ -630,6 +685,12 @@ def kernels_phase(cfg, mcfg):
             check_paged(ops, ref, egen, erng, nb, Tq, H, KV, hd, C_PAGE, mps,
                         [pedges[i] for i in lanes], f"split edges, {nb} lanes, Tq={Tq}",
                         holes=holes, unmapped=(lanes.index(4),) if 4 in lanes else ())
+    # page_counts: the reference's optional per-lane page count
+    cgen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    crng = np.random.RandomState(SEED + 5)
+    for Tq in (K + 1, 1):
+        check_paged_counts(ops, ref, cgen, crng, B, Tq, H, KV, hd, C_PAGE, mps,
+                           paged_lens, f"at the main widths, Tq={Tq}")
     # the mamba2 paths: the tied vocab (not a multiple of 64 columns) and the
     # scan at the prefill shapes of both schedulers
     md, mV, mK = mcfg.d_model, mcfg.vocab_size, mcfg.dvi.k_spec
@@ -642,6 +703,7 @@ def kernels_phase(cfg, mcfg):
                            "continuous admission (96 tokens)")
     check_ssd(ops, ref, gen, 2, 256, 128, mH, mhd, mds, "padded long prompt", pad_rows=56)
     check_ssd(ops, ref, gen, 2, 64, 64, mH, mhd, mds, "carried h0", with_h0=True)
+    check_ssd(ops, ref, gen, 1, 63, 63, mH, mhd, mds, "continuous admission (64 tokens)")
 
     def verify_bound(T, d, V):
         return bound(T * d * e + d * V * e + T * 8, 2 * T * d * V / BF16_FLOP_PER_S)
@@ -678,9 +740,10 @@ def kernels_phase(cfg, mcfg):
 
     def ssd_timing(args):
         xh, Bc, Cc, dt, A, Q, h0 = args
-        return timing(lambda: ops.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0),
-                      lambda: ref.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0),
-                      ssd_bound(xh, Bc, dt, Q, h0))
+        b = ssd_bound(xh, Bc, dt, Q, h0)
+        return dict(timing(lambda: ops.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0),
+                           lambda: ref.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0), b["bound"]),
+                    f32_core_bound_ms=b["f32_core_bound_ms"])
 
     # what the timer shows for a kernel that does nothing: the launch and
     # the two events around it
@@ -732,6 +795,9 @@ def kernels_phase(cfg, mcfg):
                    f"{t['library_ms']:.4f} (call {t['library_call_ms']:.4f})")
             gm = ("" if "gemm_ms" not in t else
                   f", cuBLAS h@w alone {t['gemm_ms']:.4f} (call {t['gemm_call_ms']:.4f})")
+            if "f32_core_bound_ms" in t:
+                gm += (f", f32_core_bound {t['f32_core_bound_ms']:.4f} (computed: every "
+                       f"product on the float32 CUDA cores)")
             phase(3, f"{row['name']} {label}: kernel {t['ms']:.4f} ms (call "
                      f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f} (call "
                      f"{t['plain_call_ms']:.4f}), library {lib}{gm}, bound "
@@ -754,7 +820,7 @@ def make_requests(cfg):
 
 # the port's kernels in a profile, by the names of their __global__ functions
 PORT_KERNELS = ("verify_partial", "verify_reduce", "lora_down", "lora_main", "decode_attn",
-                "ssd_cb", "ssd_chunks")
+                "ssd_chunks")
 # each kernel's __global__ functions in a profile, and the one of them that
 # runs once a call (the vocab kernels launch two: a pre-pass or a reduction)
 KERNEL_NAMES = {
@@ -763,6 +829,7 @@ KERNEL_NAMES = {
     "verify_argmax": (re.compile(r"\bverify_(partial|reduce)\b"),
                       re.compile(r"\bverify_partial\b")),
     "lora_logits": (re.compile(r"\blora_(down|main)\b"), re.compile(r"\blora_main\b")),
+    "ssd_scan": (re.compile(r"\bssd_chunks\b"),) * 2,
 }
 
 
@@ -778,7 +845,8 @@ def covered_ms(spans) -> float:
     return total / 1e3
 
 
-def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None) -> float:
+def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
+                  per_call: dict = None) -> float:
     """The same requests once more under torch.profiler (device activity
     only): device time by kernel and in all, the latter as the time some
     kernel ran (``covered_ms``).  The run repeats the timed run's work, so
@@ -786,7 +854,9 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None) ->
     (unprofiled) wall time `wall_ms`.  `expect` maps a kernel's
     name to the per-launch device ms that phase 3 predicts for this path;
     the profile's per-launch and per-block-step times are printed beside it,
-    with each of its __global__ functions' share.  Returns the share."""
+    with each of its __global__ functions' share; `per_call` maps a kernel
+    to its launches in one call of the path (``ssd_scan``: one per layer in
+    a prefill call), whose time is printed too.  Returns the share."""
     from torch.profiler import ProfilerActivity, profile
     for r in reqs:
         eng.submit_request(r)
@@ -831,7 +901,9 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None) ->
         phase(n, f"  {kernel}: {k} launches, {ms:.3f} ms, {per * 1e3:.2f} us a launch on the "
                  f"path ({parts}); phase 3 device time at this path's mix {want * 1e3:.2f} us "
                  f"(profile / phase 3 = {per / want:.2f}), "
-                 f"{ms / max(steps, 1):.3f} ms per block-step")
+                 f"{ms / max(steps, 1):.3f} ms per block-step"
+                 + (f", {per * per_call[kernel]:.3f} ms per call of {per_call[kernel]} "
+                    f"launches" if kernel in (per_call or {}) else ""))
     return busy / wall_ms
 
 
@@ -1089,7 +1161,7 @@ def ar_at_engine_rows(model, params, req) -> list:
     return out
 
 
-def mamba_phase(vocab_rows):
+def mamba_phase(by_row):
     from repro_torch.configs import get_config
     from repro_torch.core import lora, spec
     from repro_torch.kernels import ops
@@ -1138,9 +1210,12 @@ def mamba_phase(vocab_rows):
     phase(9, f"sync: launches {sync_launches}; expected {want}")
     check(sync_launches == want, "the mamba2 sync path did not run the kernels as the "
                                  "formula says")
-    expect = {name: vocab_rows[name]["at_mamba2"]["ms"]
+    expect = {name: by_row[name]["at_mamba2"]["ms"]
               for name in ("verify_argmax", "lora_logits")}
-    sync_busy = profile_batch(eng, reqs, wall * 1e3, n=9, expect=expect)
+    per_prefill = {"ssd_scan": cfg.num_layers}
+    sync_busy = profile_batch(eng, reqs, wall * 1e3, n=9,
+                              expect=dict(expect, ssd_scan=by_row["ssd_scan"]["ms"]),
+                              per_call=per_prefill)
     padded = [Request(uid=r.uid, prompt=eng._pad(r, eng._bucket(len(r.prompt))),
                       max_new=r.max_new) for r in reqs]
     check_against_ar(model, params, spec, padded, comps, f"{M_NAME} sync", n_phase=9)
@@ -1178,7 +1253,9 @@ def mamba_phase(vocab_rows):
                                  "the formula says")
     check_against_ar(model, params, spec, creqs, comps, f"{M_NAME} continuous", n_phase=9,
                      alone=True, same_shape=lambda r: ar_at_engine_rows(model, params, r))
-    cont_busy = profile_batch(eng, creqs, wall * 1e3, n=9, expect=expect)
+    cont_busy = profile_batch(
+        eng, creqs, wall * 1e3, n=9, per_call=per_prefill,
+        expect=dict(expect, ssd_scan=by_row["ssd_scan"]["at_admission"]["ms"]))
     return sync_launches, cont_launches, (sync_busy, cont_busy)
 
 

@@ -11,9 +11,11 @@
 //
 // Here the C CTAs of one thread block cluster own one (lane, kv head) and
 // hold all Tq * G query rows, as decode_attention.cu does.  They split the
-// lane's first min(ceil(len/ps), MPS) logical pages, slot by slot, between
-// them; each copies the table entries of its own share into shared memory
-// (the counterpart of the scalar prefetch) and computes each slot's address
+// lane's first pc logical pages, slot by slot, between them (pc is the
+// optional page_counts[b] clipped to [1, MPS], by default
+// min(ceil(len/ps), MPS), the same page mask for every query of a block);
+// each copies the table entries of its own share into shared memory (the
+// counterpart of the scalar prefetch) and computes each slot's address
 // from it: slot j of the lane is K/V row tbl[j / ps] * ps + j % ps of the
 // pages viewed as (P * ps, KV, hd), whatever the page size (ps >= 1).  A
 // slot on an unmapped page (-1, mid-row or a wholly unmapped row) copies
@@ -40,12 +42,17 @@ namespace {
 
 // slot j of the lane lives on physical page tbl[j / ps - p0]: the share's
 // table entries, from logical page p0 on, copied into shared memory by
-// prepare(); nowhere when that entry is -1
+// prepare(); nowhere when that entry is -1.  The lane visits its first
+// pc pages: page_counts[b] clipped to [1, MPS], or ceil(len / ps) (at most
+// MPS) without page counts; slots past them are never read.
 struct PagedMap {
   const int* row_tbl;   // the lane's block-table row in device memory
   int* tbl;             // its share's entries in shared memory
   int p0, ps, mps, cap;
-  __device__ int live(int len) const { return min(len, min((len + ps - 1) / ps, mps) * ps); }
+  int pc;               // the lane's page count, or 0 for ceil(len / ps)
+  __device__ int live(int len) const {
+    return min(len, (pc > 0 ? pc : min((len + ps - 1) / ps, mps)) * ps);
+  }
   __device__ void prepare(int lo, int hi) {
     p0 = lo / ps;
     const int np = hi > lo ? (hi - 1) / ps - p0 + 1 : 0;
@@ -61,20 +68,22 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(attn::THREADS)
 paged_decode_attn(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
                   const int* __restrict__ lengths, const int* __restrict__ tables,
-                  T* __restrict__ out, attn::Args a, int ps, int mps) {
+                  const int* __restrict__ page_counts, T* __restrict__ out, attn::Args a,
+                  int ps, int mps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.z;
   const attn::Layout L =
       attn::layout(a.Tq * (a.H / a.KV), a.hd, sizeof(T), a.bs, a.stages, a.splits, 0);
+  const int pc = page_counts ? min(max(page_counts[b], 1), mps) : 0;
   const PagedMap map{tables + (size_t)b * mps, reinterpret_cast<int*>(smem + L.extra), 0, ps,
-                     mps, mps * ps};
+                     mps, mps * ps, pc};
   attn::flash_decode<T, HD>(q, kp, vp, lengths, out, a, map, b, blockIdx.y, smem);
 }
 
 template <typename T>
 cudaError_t run(const void* q, const void* kp, const void* vp, const int* lengths,
-                const int* tables, void* out, int B, attn::Args a, int ps, int mps,
-                cudaStream_t s) {
+                const int* tables, const int* pcs, void* out, int B, attn::Args a, int ps,
+                int mps, cudaStream_t s) {
   const size_t smem = attn::plan(a, mps * ps, sizeof(T), ps);
   if (smem == 0) return cudaErrorInvalidValue;
   const T* qp = static_cast<const T*>(q);
@@ -82,13 +91,13 @@ cudaError_t run(const void* q, const void* kp, const void* vp, const int* length
   const T* v = static_cast<const T*>(vp);
   T* op = static_cast<T*>(out);
   if (a.hd <= 64)
-    return attn::launch<paged_decode_attn<T, 64>>(a, B, smem, s, qp, k, v, lengths, tables, op,
-                                                  a, ps, mps);
+    return attn::launch<paged_decode_attn<T, 64>>(a, B, smem, s, qp, k, v, lengths, tables,
+                                                  pcs, op, a, ps, mps);
   if (a.hd <= 128)
     return attn::launch<paged_decode_attn<T, 128>>(a, B, smem, s, qp, k, v, lengths, tables,
-                                                   op, a, ps, mps);
-  return attn::launch<paged_decode_attn<T, 256>>(a, B, smem, s, qp, k, v, lengths, tables, op,
-                                                 a, ps, mps);
+                                                   pcs, op, a, ps, mps);
+  return attn::launch<paged_decode_attn<T, 256>>(a, B, smem, s, qp, k, v, lengths, tables,
+                                                 pcs, op, a, ps, mps);
 }
 
 }  // namespace
@@ -97,12 +106,14 @@ DVI_EXPORT int dvi_paged_decode_attention(const void* q, const void* k_pages,
                                           const void* v_pages, const void* lengths,
                                           const void* block_tables, void* out, int B, int Tq,
                                           int H, int KV, int hd, int ps, int mps, float scale,
-                                          int splits, int is_bf16, void* stream) {
+                                          int splits, int is_bf16, const void* page_counts,
+                                          void* stream) {
   const attn::Args a{Tq, H, KV, hd, 0, 0, splits, scale};
   if (!attn::valid(a, B, is_bf16) || ps <= 0 || mps <= 0) return cudaErrorInvalidValue;
   const int* lp = static_cast<const int*>(lengths);
   const int* tp = static_cast<const int*>(block_tables);
+  const int* pp = static_cast<const int*>(page_counts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? run<__nv_bfloat16>(q, k_pages, v_pages, lp, tp, out, B, a, ps, mps, s)
-                 : run<float>(q, k_pages, v_pages, lp, tp, out, B, a, ps, mps, s);
+  return is_bf16 ? run<__nv_bfloat16>(q, k_pages, v_pages, lp, tp, pp, out, B, a, ps, mps, s)
+                 : run<float>(q, k_pages, v_pages, lp, tp, pp, out, B, a, ps, mps, s);
 }

@@ -33,13 +33,14 @@ _ARGTYPES = {
     "decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
                          _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID],
     # q, k_pages, v_pages, lengths, block_tables, out, B, Tq, H, KV, hd, ps,
-    # MPS, scale, splits, is_bf16, stream
+    # MPS, scale, splits, is_bf16, page_counts (or null), stream
     "paged_decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
-                               _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID],
+                               _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID,
+                               _VOID],
     # xh, Bc, Cc, dt, A, h0, sxb, sxt, sbb, sbt, scb, sct, B, T, H, hd, ds, Q,
-    # is_bf16, cb, y, hout, stream
+    # is_bf16, splits, y, hout, stream
     "ssd_scan": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _I64, _I64, _I64, _I64, _I64,
-                 _I64, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOID, _VOID, _VOID, _VOID],
+                 _I64, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOID, _VOID, _VOID],
 }
 # vocab columns of a strip of the two vocab-streaming kernels (fixed in
 # csrc/vocab_tile.cuh): verify_argmax writes one partial per row and strip
@@ -48,10 +49,12 @@ LORA_MAX_RANK = 512       # the main pass stages u's rows in shared memory
 ATTN_MAX_ROWS = 64        # Tq * G query rows one attention CTA holds
 ATTN_MAX_HD = 256
 PAGED_MAX_PAGES = 8192    # block-table row of a paged attention call
-SSD_MAX_CHUNK = 128       # chunk rows one scan block stages
+SSD_MAX_CHUNK = 128       # chunk rows one scan CTA stages: 8 tiles of 16
 SSD_MAX_DIM = 128         # hd and ds bounds of the scan kernel
-SSD_THREADS = 256         # threads of a scan block: ds must divide it
-SSD_MAX_STATE = 8192      # hd * ds state elements a scan block updates
+SSD_DIM_STEP = 8          # hd and ds come in whole multiples of 8
+# the scan splits each (head, lane) over P CTAs of hd / P columns
+SSD_SLICE_WIDTHS = (32, 16, 8)   # columns of a CTA's slice, widest first
+SSD_MIN_CTAS = 128        # narrower slices until about one CTA per SM
 # the attention kernels split a lane's live slots over a cluster of C CTAs
 ATTN_SPLITS = (1, 2, 4, 8)
 ATTN_SMS = 132            # SMs of an H100: a split stops at one CTA per SM
@@ -157,6 +160,25 @@ def attn_share(n_live: int, splits: int) -> int:
     takes slots [c * share, min((c+1) * share, n_live))."""
     tiles = -(-n_live // ATTN_SUBTILE)
     return ATTN_SUBTILE * -(-tiles // splits)
+
+
+def ssd_plan(B: int, H: int, hd: int, ds: int, T: int, Q: int) -> int:
+    """P, the CTAs that split each (head, lane) of the scan by slices of hd /
+    P columns, from host integers alone.  The widest slice of
+    SSD_SLICE_WIDTHS that divides hd, narrowed while the grid B * H * P
+    stays under SSD_MIN_CTAS (about one CTA per SM): the paths' B = 8
+    prefill (256 pairs) takes 32 columns, a B = 1 admission 16, the
+    fastest widths at those shapes in ``scripts/torch_ssd_variants.py`` on
+    an H100 (PERF.md).  ds, T and Q do not change the choice: every CTA
+    stages the chunk's C and B rows whatever its slice."""
+    widths = [w for w in SSD_SLICE_WIDTHS if hd % w == 0]
+    _need(bool(widths), f"ssd_scan: hd={hd} is not a multiple of {min(SSD_SLICE_WIDTHS)}")
+    splits = hd // widths[0]
+    for w in widths[1:]:
+        if B * H * splits >= SSD_MIN_CTAS:
+            break
+        splits = hd // w
+    return splits
 
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
@@ -268,18 +290,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                           lengths: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor, block_tables: torch.Tensor,
+                           page_counts=None) -> torch.Tensor:
     """Flash-decode GQA over pooled pages read through per-lane block tables,
     visiting only each lane's live mapped slots.
 
     q (B, H, hd) or a block (B, Tq, H, hd), masked as in ``decode_attention``
     (``lengths`` counts the block's own write); k_pages/v_pages (P, ps, KV,
     hd) with physical page 0 the null page; block_tables (B, MPS) int32,
-    -1 = unmapped; lengths (B,) int32.  Returns q's shape and dtype.  A
-    query with no live slot (an idle lane) is not defined: the kernel gives
-    0, the plain version the reference's uniform average."""
-    if _device(q, k_pages, v_pages, lengths, block_tables).type == "cpu":
-        return ref.paged_decode_attention(q, k_pages, v_pages, lengths, block_tables)
+    -1 = unmapped; lengths (B,) int32; page_counts (B,) int32 or None: only
+    the lane's first clip(page_counts[b], 1, MPS) logical pages take part
+    (None: ceil(lengths[b] / ps), which the length mask implies).  Returns
+    q's shape and dtype.  A query with no live slot (an idle lane) is not
+    defined: the kernel gives 0, the plain version the reference's uniform
+    average."""
+    tensors = (q, k_pages, v_pages, lengths, block_tables) + (
+        (page_counts,) if page_counts is not None else ())
+    if _device(*tensors).type == "cpu":
+        return ref.paged_decode_attention(q, k_pages, v_pages, lengths, block_tables,
+                                          page_counts=page_counts)
     single = q.ndim == 3
     q4 = q[:, None] if single else q
     _need(q4.ndim == 4 and k_pages.ndim == 4 and k_pages.shape == v_pages.shape,
@@ -297,6 +326,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
           and block_tables.shape[0] == B and 0 < block_tables.shape[1] <= PAGED_MAX_PAGES,
           f"paged_decode_attention: block_tables must be (B, MPS) int32, "
           f"MPS <= {PAGED_MAX_PAGES}")
+    if page_counts is not None:
+        _need(page_counts.dtype == torch.int32 and page_counts.shape == (B,),
+              "paged_decode_attention: page_counts must be (B,) int32")
+        _contig(page_counts=page_counts)
     is_bf16 = _check_dtype(q.dtype)
     _check_attn_shape("paged_decode_attention", Tq * (H // KV), hd, q.dtype)
     q4 = q4.contiguous() if single else q4
@@ -308,7 +341,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     _launch("paged_decode_attention", q4.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd,
             ps, mps, 1.0 / math.sqrt(hd), attn_splits(mps * ps, B * KV), is_bf16,
-            _stream(q.device))
+            page_counts.data_ptr() if page_counts is not None else None, _stream(q.device))
     return out[:, 0] if single else out
 
 
@@ -322,7 +355,8 @@ def ssd_scan(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, dt: torch.Ten
 
     xh, Bc and Cc may be strided views of the conv output: the kernel takes
     their batch and time strides, so only their inner dimensions must be
-    packed; dt, A and h0 must be contiguous."""
+    packed; dt, A and h0 must be contiguous.  hd and ds are multiples of 8
+    up to 128; ``ssd_plan`` splits each (head, lane) over P CTAs."""
     tensors = (xh, Bc, Cc, dt, A) + ((h0,) if h0 is not None else ())
     if _device(*tensors).type == "cpu":
         return ref.ssd_scan(xh, Bc, Cc, dt, A, chunk, h0=h0)
@@ -335,10 +369,10 @@ def ssd_scan(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, dt: torch.Ten
     _need(1 <= chunk <= SSD_MAX_CHUNK and T % chunk == 0,
           f"ssd_scan: needs 1 <= chunk <= {SSD_MAX_CHUNK} and T % chunk == 0, "
           f"got T={T} chunk={chunk}")
-    _need(hd <= SSD_MAX_DIM and ds <= SSD_MAX_DIM and SSD_THREADS % ds == 0
-          and hd * ds <= SSD_MAX_STATE,
-          f"ssd_scan: needs hd, ds <= {SSD_MAX_DIM}, ds dividing {SSD_THREADS} and "
-          f"hd*ds <= {SSD_MAX_STATE}, got hd={hd} ds={ds}")
+    _need(0 < hd <= SSD_MAX_DIM and 0 < ds <= SSD_MAX_DIM and hd % SSD_DIM_STEP == 0
+          and ds % SSD_DIM_STEP == 0,
+          f"ssd_scan: needs hd, ds <= {SSD_MAX_DIM} in multiples of {SSD_DIM_STEP}, "
+          f"got hd={hd} ds={ds}")
     _need(xh.dtype == Bc.dtype == Cc.dtype, "ssd_scan: xh, Bc and Cc must share a dtype")
     _need(dt.dtype == A.dtype == torch.float32, "ssd_scan: dt and A must be float32")
     is_bf16 = _check_dtype(xh.dtype)
@@ -349,12 +383,12 @@ def ssd_scan(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, dt: torch.Ten
         _need(h0.shape == (B, H, hd, ds) and h0.dtype == torch.float32,
               "ssd_scan: h0 must be (B,H,hd,ds) float32")
         _contig(h0=h0)
-    cb = torch.empty((B, T // chunk, chunk, chunk), dtype=torch.float32, device=xh.device)
+    splits = ssd_plan(B, H, hd, ds, T, chunk)
     y = torch.empty((B, T, H, hd), dtype=torch.float32, device=xh.device)
     hout = torch.empty((B, H, hd, ds), dtype=torch.float32, device=xh.device)
     _launch("ssd_scan", xh.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), dt.data_ptr(),
             A.data_ptr(), h0.data_ptr() if h0 is not None else None,
             xh.stride(0), xh.stride(1), Bc.stride(0), Bc.stride(1), Cc.stride(0),
-            Cc.stride(1), B, T, H, hd, ds, chunk, is_bf16, cb.data_ptr(), y.data_ptr(),
-            hout.data_ptr(), _stream(xh.device))
+            Cc.stride(1), B, T, H, hd, ds, chunk, is_bf16, splits, y.data_ptr(), hout.data_ptr(),
+            _stream(xh.device))
     return y, hout

@@ -52,7 +52,8 @@ def _block_limits(lengths: torch.Tensor, Tq: int) -> torch.Tensor:
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                           lengths: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor, block_tables: torch.Tensor,
+                           page_counts=None) -> torch.Tensor:
     """Decode attention over pooled pages read through per-lane block tables.
 
     k_pages/v_pages (P, ps, KV, hd), physical page 0 the null page;
@@ -60,8 +61,12 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     logical view (MPS * ps slots) through ``logical_to_physical`` and
     attends the mapped slots below the block limits of ``decode_attention``
     (q (B, H, hd) or (B, Tq, H, hd), ``lengths`` counting the block's own
-    write).  A query with no live slot gets the reference's uniform average
-    over the masked view (the kernel gives 0); only idle lanes have one."""
+    write).  ``page_counts`` (B,) int32, clipped to [1, MPS], masks logical
+    pages at or past it for every query of the lane, as the reference's
+    ``ref_paged_decode_attention`` does; None leaves ceil(lengths / ps),
+    which the length mask already implies.  A query with no live slot gets
+    the reference's uniform average over the masked view (the kernel gives
+    0); only idle lanes have one."""
     single = q.ndim == 3
     q4 = q[:, None] if single else q
     B, Tq = q4.shape[:2]
@@ -72,6 +77,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     kf = k_pages.reshape(P * ps, KV, hd)[phys]                         # (B, L, KV, hd)
     vf = v_pages.reshape(P * ps, KV, hd)[phys]
     mask = (page >= 0)[:, None, :] & (j[None, None, :] < _block_limits(lengths, Tq))
+    if page_counts is not None:
+        pc = page_counts.long().clamp(1, block_tables.shape[1])
+        mask = mask & ((j // ps)[None, :] < pc[:, None])[:, None, :]
     out = attend(q4, kf, vf, mask)
     return out[:, 0] if single else out
 

@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain versions on the card, over
 shapes the main path does not use (ragged vocab and d, T > 48 rows, r = 1,
 GQA groups, Tq > 1, lengths at and past the cache capacity, paged tables
-with -1 entries, all -1 lanes and page sizes 16 and 4, the attention
-kernels' split of a lane over 1, 2, 4 and 8 CTAs at its edges), in float32 and
-bfloat16, the SSD scan at odd chunk lengths, with padded rows, a carried
-h0 and strided inputs, plus the greedy sync path and the continuous paged
+with -1 entries, all -1 lanes, page sizes 16 and 4 and per-lane page counts,
+the attention kernels' split of a lane over 1, 2, 4 and 8 CTAs at its edges),
+in float32 and bfloat16, the SSD scan at odd chunk lengths, with padded
+rows, a carried h0, strided inputs and every slice width of its hd split,
+plus the greedy sync path and the continuous paged
 path on the card, and mamba2-370m-tiny's greedy path in bfloat16.
 
 These tests need an NVIDIA GPU and skip without one.  The machine with the
@@ -215,6 +216,41 @@ def test_paged_decode_attention(ops, dtype, Tq, G, ps):
     want = ref.paged_decode_attention(q_in, kp, vp, lens_t, tbl_t)
     torch.testing.assert_close(out[:3], want[:3], **TOL[dtype])
     assert bool((out[3:] == 0).all()) and bool(torch.isfinite(want).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq", [1, 5])
+@pytest.mark.parametrize("G,ps", [(1, 16), (4, 4)])
+def test_paged_decode_attention_page_counts(ops, dtype, Tq, G, ps):
+    """page_counts per lane: below ceil(len/ps), at it, above it (the length
+    mask still holds), 0 (clipped to 1) and above MPS (clipped to MPS), each
+    lane fully mapped; the kernel matches the plain version on every query,
+    and page_counts=None is bit-identical to the call without it."""
+    from repro_torch.kernels import ref
+    B, KV, hd, mps = 5, 4, 64, 6
+    H = KV * G
+    gen = torch.Generator(device="cuda").manual_seed(7 * G + ps + Tq)
+    rng = np.random.default_rng(G * ps + 1)
+    P = B * mps + 3
+    tbl = rng.permutation(np.arange(1, P))[:B * mps].reshape(B, mps).astype(np.int32)
+    lens = np.array([4 * ps + 3, 3 * ps, 2 * ps + 1, 3 * ps + 2, mps * ps], np.int32)
+    counts = np.array([2, 3, 4, 0, mps + 5], np.int32)
+    q = _randn(gen, B, Tq, H, hd, dtype=dtype)
+    kp = _randn(gen, P, ps, KV, hd, dtype=dtype)
+    vp = _randn(gen, P, ps, KV, hd, dtype=dtype)
+    lens_t, tbl_t = torch.as_tensor(lens, device="cuda"), torch.as_tensor(tbl, device="cuda")
+    pc_t = torch.as_tensor(counts, device="cuda")
+    q_in = q[:, 0].contiguous() if Tq == 1 else q
+    ops.reset_launches()
+    out = ops.paged_decode_attention(q_in, kp, vp, lens_t, tbl_t, page_counts=pc_t)
+    assert ops.launches["paged_decode_attention"] == 1
+    want = ref.paged_decode_attention(q_in, kp, vp, lens_t, tbl_t, page_counts=pc_t)
+    torch.testing.assert_close(out, want, **TOL[dtype])
+    # the counts below ceil(len/ps) change the result
+    full = ops.paged_decode_attention(q_in, kp, vp, lens_t, tbl_t)
+    assert not torch.equal(out[:1], full[:1]) and not torch.equal(out[3:4], full[3:4])
+    assert torch.equal(ops.paged_decode_attention(q_in, kp, vp, lens_t, tbl_t,
+                                                  page_counts=None), full)
 
 
 def _capacity(ops, splits, pairs):
@@ -447,7 +483,16 @@ SSD_TOL = dict(rtol=1e-4, atol=1e-4)
     (2, 256, 128, 32, 64, 128, 56, False),     # a padded long prompt, dt = 0 rows
     (2, 64, 32, 8, 64, 128, 0, True),          # a carried state
     (3, 40, 8, 8, 64, 32, 3, True),            # the tiny config's widths
-    (1, 1, 1, 4, 16, 16, 0, True)])            # one row
+    (1, 1, 1, 4, 16, 16, 0, True),             # one row
+    (1, 63, 63, 32, 64, 128, 0, False),        # a continuous admission of 64 tokens
+    (1, 127, 127, 32, 64, 128, 0, False),      # an admission of 128 tokens, P > 1
+    (1, 1, 1, 32, 64, 128, 0, False),          # Q = 1 at P > 1
+    (2, 190, 95, 32, 64, 128, 0, False),       # two chunks of 95, no h0
+    (2, 190, 95, 32, 64, 128, 4, True),        # two chunks of 95 with h0, padded
+    (1, 381, 127, 8, 64, 128, 0, True),        # three chunks of 127 with h0
+    (1, 96, 32, 4, 64, 32, 0, False),          # ds 32, slices of 8 columns
+    (2, 126, 63, 4, 64, 32, 5, True),          # ds 32 with h0
+    (1, 40, 20, 4, 32, 8, 0, True)])           # ds 8: padded to a 16-column tile
 def test_ssd_scan(ops, dtype, B, T, Q, H, hd, ds, pad, with_h0):
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(B * T + Q)
@@ -464,6 +509,45 @@ def test_ssd_scan(ops, dtype, B, T, Q, H, hd, ds, pad, with_h0):
         _, h_np = ref.ssd_scan(xh[:, :T - pad], Bc[:, :T - pad], Cc[:, :T - pad],
                                dt[:, :T - pad], A, 1, h0=h0)
         torch.testing.assert_close(h, h_np, **SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [2, 4, 8])
+@pytest.mark.parametrize("B,T,Q,with_h0", [(1, 95, 95, False), (2, 254, 127, True)])
+def test_ssd_scan_every_slice_width(ops, monkeypatch, dtype, splits, B, T, Q, with_h0):
+    """Every slice width the kernel takes at hd 64 (32, 16 and 8 columns a
+    CTA), whatever ssd_plan would choose."""
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(ops, "ssd_plan", lambda *a: splits)
+    gen = torch.Generator(device="cuda").manual_seed(B * T + splits)
+    xh, Bc, Cc, dt, A = _ssd_inputs(gen, B, T, 32, 64, 128, dtype)
+    h0 = _randn(gen, B, 32, 64, 128) if with_h0 else None
+    y, h = ops.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0)
+    y_r, h_r = ref.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0)
+    torch.testing.assert_close(y, y_r, **SSD_TOL)
+    torch.testing.assert_close(h, h_r, **SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_cols", [1, 3])
+def test_ssd_scan_rows_off_16_bytes(ops, dtype, pad_cols):
+    """A conv output whose rows are not a whole number of 16 bytes: the
+    kernel copies element by element in place of its 16-byte copies."""
+    from repro_torch.kernels import ref
+    B, T, Q, H, hd, ds = 2, 126, 63, 8, 64, 32
+    gen = torch.Generator(device="cuda").manual_seed(pad_cols)
+    xbc = _randn(gen, B, T, H * hd + 2 * ds + pad_cols, dtype=dtype)
+    xh = xbc[..., :H * hd].reshape(B, T, H, hd)
+    Bc = xbc[..., H * hd:H * hd + ds].reshape(B, T, 1, ds)
+    Cc = xbc[..., H * hd + ds:H * hd + 2 * ds].reshape(B, T, 1, ds)
+    dt = torch.nn.functional.softplus(_randn(gen, B, T, H))
+    A = -torch.exp(_randn(gen, H, scale=0.3))
+    h0 = _randn(gen, B, H, hd, ds)
+    assert xh.stride(1) * xh.element_size() % 16 != 0
+    y, h = ops.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0)
+    y_r, h_r = ref.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0)
+    torch.testing.assert_close(y, y_r, **SSD_TOL)
+    torch.testing.assert_close(h, h_r, **SSD_TOL)
 
 
 def test_ssd_scan_rejects_what_it_does_not_take(ops):
