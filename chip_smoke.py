@@ -80,6 +80,16 @@ Phases (any failure raises and exits non-zero):
    every vocab launch on the fast loader;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
+Phases 4, 8 and 9 run every path twice: eagerly (``graphs=False``) and
+replaying one CUDA graph a block-step (the engine's default, the main
+path).  The graphed streams must equal the eager ones bit for bit, every
+gate above holds on both, each graph's kernel nodes (counted through
+libcuda) must equal the launches its capture recorded, and one line per
+mode gives the wall and device time per block-step, tokens/s, the busy
+share, host launches, captures, nodes, the graph pool and peak memory.
+The graphed continuous paths are traced once more for the host's time per
+tick phase.
+
 It imports torch, numpy and the port; nothing of JAX.  It needs one card and
 exits non-zero without one.
 """
@@ -833,6 +843,25 @@ KERNEL_NAMES = {
 }
 
 
+# the __global__ function each kernel launches once a call, as its mangled
+# name spells it (length, then the name)
+ONCE = {"decode_attention": "decode_attn", "paged_decode_attention": "paged_decode_attn",
+        "verify_argmax": "verify_partial", "lora_logits": "lora_main", "ssd_scan": "ssd_chunks"}
+
+
+def check_census(n: int, label: str, g: dict) -> None:
+    """Each captured graph holds, by libcuda's count of its kernel
+    nodes, as many launches of each port kernel as its capture recorded:
+    the launches each of its replays adds to ``ops.launches``."""
+    for recorded, kernel_nodes in g["per_graph"]:
+        nodes = {kernel: sum(c for name, c in kernel_nodes.items() if f"{len(fn)}{fn}" in name)
+                 for kernel, fn in ONCE.items()}
+        phase(n, f"{label}: a graph of {sum(kernel_nodes.values())} kernel nodes holds "
+                 f"{nodes} of the port's kernels; its capture recorded {recorded}")
+        check(nodes == recorded, f"{label}: a graph's kernel nodes {nodes} disagree with the "
+                                 f"launches its capture recorded {recorded}")
+
+
 def covered_ms(spans) -> float:
     """The time (ms) that a set of (start, end) spans in us covers, each
     instant once: kernels that overlap on the card (a programmatic
@@ -846,7 +875,7 @@ def covered_ms(spans) -> float:
 
 
 def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
-                  per_call: dict = None) -> float:
+                  per_call: dict = None) -> dict:
     """The same requests once more under torch.profiler (device activity
     only): device time by kernel and in all, the latter as the time some
     kernel ran (``covered_ms``).  The run repeats the timed run's work, so
@@ -854,17 +883,25 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
     (unprofiled) wall time `wall_ms`.  `expect` maps a kernel's
     name to the per-launch device ms that phase 3 predicts for this path;
     the profile's per-launch and per-block-step times are printed beside it,
-    with each of its __global__ functions' share; `per_call` maps a kernel
-    to its launches in one call of the path (``ssd_scan``: one per layer in
-    a prefill call), whose time is printed too.  Returns the share."""
+    with each of its __global__ functions' share, and its launches must
+    equal what ``ops.launches`` counted over the run (under graph replay:
+    the launches each capture recorded, once a replay), less at most 10 %
+    lost to dropped records; `per_call` maps a
+    kernel to its launches in one call of the path (``ssd_scan``: one per
+    layer in a prefill call), whose time is printed too.  Returns the busy
+    share, device ms and device launches per block-step."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
     for r in reqs:
         eng.submit_request(r)
     torch.cuda.synchronize()
     steps0 = eng.stats["steps"]
+    ops.reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run()
         torch.cuda.synchronize()
+    counted = dict(ops.launches)
     by_name: dict = {}
     spans: dict = {}                   # name -> [(start us, end us)]
     for evt in prof.events():
@@ -873,9 +910,7 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
             by_name[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3, k + 1)
             spans.setdefault(evt.name, []).append((evt.time_range.start, evt.time_range.end))
     busy = covered_ms([s for v in spans.values() for s in v])
-    if busy == 0.0:
-        phase(n, "profile: the profiler saw no device time")
-        return float("nan")
+    check(busy > 0.0, "profile: the profiler saw no device time")
     ours = covered_ms([s for name, v in spans.items() if any(k in name for k in PORT_KERNELS)
                        for s in v])
     gemm = covered_ms([s for name, v in spans.items()
@@ -890,6 +925,7 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
              f"({launches / max(steps, 1):.0f} per block-step)")
     for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         phase(n, f"  {ms:9.3f} ms {k:6d}x  {name[:90]}")
+    seen = {}
     for kernel, want in (expect or {}).items():
         every, once = KERNEL_NAMES[kernel]
         hits = {name: v for name, v in by_name.items() if every.search(name)}
@@ -904,7 +940,17 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
                  f"{ms / max(steps, 1):.3f} ms per block-step"
                  + (f", {per * per_call[kernel]:.3f} ms per call of {per_call[kernel]} "
                     f"launches" if kernel in (per_call or {}) else ""))
-    return busy / wall_ms
+        seen[kernel] = k
+    # under graph replay the profiler loses runs of records (up to 1.2 % of
+    # a run's, 15 of 1280 decode_attention launches, once): it must see at
+    # least 90 % of each kernel's launches and never more than were counted
+    missed = {name: counted[name] - k for name, k in seen.items()}
+    phase(n, f"  launches the profiler saw {seen}, ops.launches counted "
+             f"{ {name: counted[name] for name in seen} }: records missed {missed}")
+    check(all(0 <= m <= counted[name] // 10 for name, m in missed.items()),
+          f"the profiler's launch counts {seen} disagree with ops.launches {counted}")
+    return dict(busy=busy / wall_ms, device_ms=busy / max(steps, 1),
+                launches=launches / max(steps, 1))
 
 
 def check_fast_loader(ops, n: int, label: str) -> None:
@@ -1037,61 +1083,213 @@ def check_against_ar(model, params, spec, reqs, comps, label, n_phase=8, alone=F
                 if same_shape is not None else ""))
 
 
-def continuous_phase(cfg, model, params, dvi, paged_row, vocab_rows):
-    from repro_torch.core import spec
+# ---------------------------------------------------------------------------
+# eager and graphed runs of a path (phases 4, 8 and 9)
+# ---------------------------------------------------------------------------
+
+# every path runs twice: replaying its block-step from CUDA graphs (the
+# engine's default, the main path) and eagerly (graphs=False), which the
+# graphed streams must equal bit for bit
+MODES = (("eager", False), ("graphed", True))
+
+
+def streams(comps) -> dict:
+    return {c.uid: c.gen_tokens.tolist() for c in comps}
+
+
+def release(run: dict) -> None:
+    """Drop a run's engine (its static caches and graphs) and give its
+    memory back, so the next run's peak is its own."""
+    run.pop("eng", None)
+    gc.collect()                       # an engine may sit in a reference cycle
+    torch.cuda.empty_cache()
+
+
+def finish_run(eng, n, label, comps, wall, g0, prefills=None) -> dict:
+    """A timed run's figures: completions, wall s, launch counts, block-steps
+    and counts, peak memory since the last reset, graph replays in the run
+    and the engine's graph figures."""
     from repro_torch.kernels import ops
+    check_fast_loader(ops, n, label)
+    g, st = eng.graph_stats(), eng.stats
+    return dict(eng=eng, comps=comps, wall=wall, launches=dict(ops.launches),
+                steps=st["steps"], blocks=st["blocks"], committed=st["committed"],
+                dispatches=st["dispatches"], host_syncs=st["host_syncs"],
+                peak=torch.cuda.max_memory_allocated(),
+                peak_reserved=torch.cuda.max_memory_reserved(),
+                replays=g["replays"] - g0["replays"], graph=g,
+                prefills=None if prefills is None else prefills[0])
+
+
+def reset_counts(prefills=None) -> None:
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    if prefills is not None:
+        prefills[0] = 0
+
+
+def sync_run(model, params, dvi, reqs, graphs_on: bool, n: int, label: str,
+             prefills=None) -> dict:
+    """A sync engine with graphs on or off: its graphs captured for the
+    requests' buckets (``warmup``) and one warm-up batch, then `reqs` timed."""
     from repro_torch.serving.engine import ServingEngine
-    K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
-    reqs = continuous_requests(cfg)
+    eng = ServingEngine(model, params, dvi, batch_size=N_REQUESTS, max_new=MAX_NEW,
+                        graphs=graphs_on)
+    eng.warmup(buckets=sorted({eng._bucket(len(r.prompt)) for r in reqs}))
+    eng.submit_request(reqs[0])                  # warm-up batch, not counted
+    eng.run()
+    eng.reset_stats()
+    for r in reqs:
+        eng.submit_request(r)
+    reset_counts(prefills)
+    g0 = eng.graph_stats()
+    t0 = time.perf_counter()
+    comps = eng.run()
+    torch.cuda.synchronize()
+    return finish_run(eng, n, label, comps, time.perf_counter() - t0, g0, prefills)
 
-    def engine(pages):
-        return ServingEngine(model, params, dvi, scheduler="continuous", num_slots=C_SLOTS,
-                             max_new=MAX_NEW, kv_pages=pages, kv_page_size=C_PAGE,
-                             sync_every=C_SYNC)
 
-    eng = engine(C_PAGES_AMPLE)
+def continuous_engine(model, params, dvi, pages: int, graphs_on: bool, **kw):
+    """A continuous engine (8 lanes, supersteps of 4 blocks; paged over
+    `pages` pages, or contiguous with 0), its graph captured."""
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(model, params, dvi, scheduler="continuous", num_slots=C_SLOTS,
+                        max_new=MAX_NEW, kv_pages=pages, kv_page_size=C_PAGE,
+                        sync_every=C_SYNC, graphs=graphs_on, **kw)
+    eng.warmup()
+    return eng
+
+
+TICK_PHASES = ("pre_admit", "harvest", "sync_wait", "sweep_cancels", "grow_pages", "admit",
+               "dispatch")
+
+
+def tick_phases(model, params, dvi, reqs, pages: int, n: int, label: str) -> dict:
+    """The graphed continuous path once more with the engine's lifecycle
+    tracer on (``telemetry=True``): host ms per block-step in each phase of
+    a tick, from the tracer's spans on the engine's track.  ``sync_wait``
+    is the harvest's wait for the device, inside ``harvest``; ``admit`` and
+    ``pre_admit`` hold the admissions' eager prefills, ``dispatch`` the
+    uploads and the replays.  Returns {phase: ms per block-step}."""
+    eng = continuous_engine(model, params, dvi, pages, True, telemetry=True)
+    for r in reqs:
+        eng.submit_request(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = max(eng.stats["steps"], 1)
+    tid = eng.telem.tid_engine
+    ms = {name: 0.0 for name in ("tick",) + TICK_PHASES}
+    for ev in eng.trace_dict()["traceEvents"]:
+        if ev.get("ph") == "X" and ev.get("tid") == tid and ev["name"] in ms:
+            ms[ev["name"]] += ev["dur"] / 1e3 / steps
+    phase(n, f"{label}, graphed, traced again: wall {1e3 * wall / steps:.2f} ms a block-step "
+             f"({steps} block-steps); host ms a block-step by tick phase: "
+             + ", ".join(f"{name} {v:.2f}" for name, v in ms.items())
+             + f"; outside ticks {1e3 * wall / steps - ms['tick']:.2f}")
+    del eng
+    release({})
+    return ms
+
+
+def continuous_run(model, params, dvi, reqs, graphs_on: bool, pages: int, n: int,
+                   label: str, prefills=None) -> dict:
+    """A continuous engine with graphs on or off and one warm-up request,
+    then `reqs` served at once under ``serve_checked``'s zero-sync gate."""
+    eng = continuous_engine(model, params, dvi, pages, graphs_on)
     eng.submit_request(reqs[0])                  # warm-up, not counted
     eng.run()
     eng.reset_stats()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
+    reset_counts(prefills)
+    g0 = eng.graph_stats()
     comps, wall, blocks_run, per_tick = serve_checked(eng, reqs)
-    launches = dict(ops.launches)
-    check_fast_loader(ops, 8, "continuous")
-    st, kv = eng.stats, eng.kv_stats()
-    mat = st["committed"] / max(st["blocks"], 1)
-    phase(8, f"ample pool ({C_PAGES_AMPLE} pages of {C_PAGE}, MPS {eng._mps}): "
-             f"{len(comps)} requests in {wall:.3f} s, {st['committed'] / wall:.1f} committed "
-             f"tokens/s, MAT {mat:.4f}, {st['dispatches']} dispatches, {st['host_syncs']} host "
-             f"syncs, {blocks_run} blocks run ({st['steps']} with a live lane), peak "
-             f"{kv['peak_used_pages']} pages, {kv['preemptions']} preemptions, used pages at "
-             f"the end {kv['used_pages']}, peak memory "
-             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    phase(8, f"synchronising operations per tick: {per_tick} (0 inside every dispatch: "
-             f"sync debug mode 'error')")
-    check(kv["used_pages"] == 0, "pages left in use after the ample run")
-    check(st["host_syncs"] == st["dispatches"], "host syncs != dispatches")
-    want = {"paged_decode_attention": ((K + 1) * k + (L - k)) * blocks_run,
-            "lora_logits": (K + 1) * blocks_run, "verify_argmax": blocks_run,
-            "decode_attention": 0, "ssd_scan": 0}
-    phase(8, f"launches over {blocks_run} blocks: {launches}; expected {want}")
-    check(launches == want, "the continuous path did not run the kernels as the formula says")
-    check_against_ar(model, params, spec, reqs, comps, "ample pool")
-    busy = profile_batch(eng, reqs, wall * 1e3, n=8, expect={
-        "paged_decode_attention": path_attention_ms(paged_row, K, k, L),
-        "verify_argmax": vocab_rows["verify_argmax"]["ms"],
-        "lora_logits": vocab_rows["lora_logits"]["ms"]})
-    del eng
+    run = finish_run(eng, n, label, comps, wall, g0, prefills)
+    run.update(blocks_run=blocks_run, per_tick=per_tick)
+    return run
 
+
+def report_modes(n: int, label: str, runs: dict) -> None:
+    """The eager and graphed runs of a path side by side, and the gate that
+    the graphed streams equal the eager ones bit for bit.  Host launches per
+    block-step: the device launches the profile saw (eager: each one a
+    kernel launch from the host), or the graph replays (graphed)."""
+    for mode, r in runs.items():
+        steps, g, p = max(r["steps"], 1), r["graph"], r["profile"]
+        host = (f"{p['launches']:.0f} kernel launches" if mode == "eager" else
+                f"{r['replays'] / steps:.3f} graph replays ({r['replays']} in the run)")
+        phase(n, f"{label}, {mode}: wall per block-step {1e3 * r['wall'] / steps:.2f} ms "
+                 f"({r['steps']} block-steps in {r['wall']:.3f} s), "
+                 f"{r['committed'] / r['wall']:.1f} committed tokens/s, device busy "
+                 f"{100 * p['busy']:.1f}% ({p['device_ms']:.2f} ms and {p['launches']:.0f} "
+                 f"device launches a block-step), host launches per block-step: {host}; "
+                 f"{g['captures']} captures in {g['capture_s']:.2f} s (instantiate "
+                 f"{g['instantiate_s']:.3f} s), graph nodes {g['nodes']}, graph pool "
+                 f"{g['pool_bytes'] / 2**30:.3f} GiB, replay() "
+                 f"{1e6 * g['replay_host_s'] / max(g['replays'], 1):.1f} us on the host; peak "
+                 f"memory {r['peak'] / 2**30:.2f} GiB allocated, "
+                 f"{r['peak_reserved'] / 2**30:.2f} GiB reserved")
+    check_census(n, f"{label}, graphed", runs["graphed"]["graph"])
+    eager, graphed = streams(runs["eager"]["comps"]), streams(runs["graphed"]["comps"])
+    phase(n, f"{label}: graphed streams bit-identical to eager ones: {eager == graphed} "
+             f"({len(graphed)} completions)")
+    check(eager == graphed and len(graphed) > 0,
+          f"{label}: graphed streams differ from eager ones")
+
+
+def continuous_phase(cfg, model, params, dvi, paged_row, vocab_rows):
+    """Phase 8.  Returns the graphed and the eager ample-pool runs' launch
+    counts and the graphed run's busy share."""
+    from repro_torch.core import spec
+    K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
+    reqs = continuous_requests(cfg)
+    expect = {"paged_decode_attention": path_attention_ms(paged_row, K, k, L),
+              "verify_argmax": vocab_rows["verify_argmax"]["ms"],
+              "lora_logits": vocab_rows["lora_logits"]["ms"]}
+    runs = {}
+    for mode, on in MODES:
+        r = runs[mode] = continuous_run(model, params, dvi, reqs, on, C_PAGES_AMPLE, 8,
+                                        f"continuous {mode}")
+        eng, blocks_run = r["eng"], r["blocks_run"]
+        kv = eng.kv_stats()
+        phase(8, f"{mode}, ample pool ({C_PAGES_AMPLE} pages of {C_PAGE}, MPS {eng._mps}): "
+                 f"{len(r['comps'])} requests in {r['wall']:.3f} s, "
+                 f"{r['committed'] / r['wall']:.1f} committed tokens/s, MAT "
+                 f"{r['committed'] / max(r['blocks'], 1):.4f}, {r['dispatches']} dispatches, "
+                 f"{r['host_syncs']} host syncs, {blocks_run} blocks run ({r['steps']} with a "
+                 f"live lane), peak {kv['peak_used_pages']} pages, {kv['preemptions']} "
+                 f"preemptions, used pages at the end {kv['used_pages']}, peak memory "
+                 f"{r['peak'] / 2**30:.2f} GiB")
+        phase(8, f"{mode}: synchronising operations per tick: {r['per_tick']} (0 inside every "
+                 f"dispatch: sync debug mode 'error')")
+        check(kv["used_pages"] == 0, "pages left in use after the ample run")
+        check(r["host_syncs"] == r["dispatches"], "host syncs != dispatches")
+        want = {"paged_decode_attention": ((K + 1) * k + (L - k)) * blocks_run,
+                "lora_logits": (K + 1) * blocks_run, "verify_argmax": blocks_run,
+                "decode_attention": 0, "ssd_scan": 0}
+        phase(8, f"{mode}: launches over {blocks_run} blocks: {r['launches']}; expected {want}")
+        check(r["launches"] == want,
+              "the continuous path did not run the kernels as the formula says")
+        r["profile"] = profile_batch(eng, reqs, r["wall"] * 1e3, n=8, expect=expect)
+        release(r)
+    report_modes(8, "vicuna-7b continuous, ample pool", runs)
+    tick_phases(model, params, dvi, reqs, C_PAGES_AMPLE, 8, "vicuna-7b continuous, ample pool")
+    check_against_ar(model, params, spec, reqs, runs["graphed"]["comps"], "ample pool")
+
+    # the tight pool: searched with graphed engines, then served eagerly at
+    # the size found
     pages = C_PAGES_TIGHT
     while True:
-        eng = engine(pages)
+        eng = continuous_engine(model, params, dvi, pages, True)
         comps_t, wall_t, _, per_tick_t = serve_checked(eng, reqs)
         kv_t = eng.kv_stats()
-        phase(8, f"tight pool of {pages} pages: {len(comps_t)} requests in {wall_t:.3f} s, "
-                 f"{kv_t['preemptions']} preemptions, peak {kv_t['peak_used_pages']} pages, "
-                 f"used pages at the end {kv_t['used_pages']}, syncs per tick max "
-                 f"{max(per_tick_t)}")
+        phase(8, f"graphed, tight pool of {pages} pages: {len(comps_t)} requests in "
+                 f"{wall_t:.3f} s, {kv_t['preemptions']} preemptions, peak "
+                 f"{kv_t['peak_used_pages']} pages, used pages at the end "
+                 f"{kv_t['used_pages']}, syncs per tick max {max(per_tick_t)}")
         check(kv_t["used_pages"] == 0, "pages left in use after the tight run")
         if kv_t["preemptions"] >= 1 or pages <= eng._mps:
             break
@@ -1100,10 +1298,27 @@ def continuous_phase(cfg, model, params, dvi, paged_row, vocab_rows):
         # lanes only just (about 20-24 pages of 16 here at MAT 1)
         pages = pages // 2 if pages // 2 >= 24 else pages - 1
         del eng
+        release({})
     check(kv_t["preemptions"] >= 1, "the tight pool never preempted")
-    phase(8, f"tight pool used: kv_pages={pages}")
+    del eng
+    release({})
+    eng = continuous_engine(model, params, dvi, pages, False)
+    comps_e, wall_e, _, per_tick_e = serve_checked(eng, reqs)
+    kv_e = eng.kv_stats()
+    phase(8, f"eager, tight pool of {pages} pages: {len(comps_e)} requests in {wall_e:.3f} s, "
+             f"{kv_e['preemptions']} preemptions, used pages at the end {kv_e['used_pages']}, "
+             f"syncs per tick max {max(per_tick_e)}")
+    check(kv_e["used_pages"] == 0 and kv_e["preemptions"] >= 1,
+          "the eager tight run left pages in use or never preempted")
+    same = streams(comps_t) == streams(comps_e)
+    phase(8, f"tight pool used: kv_pages={pages}; graphed streams bit-identical to eager "
+             f"ones: {same}")
+    check(same, "tight pool: graphed streams differ from eager ones")
+    del eng
+    release({})
     check_against_ar(model, params, spec, reqs, comps_t, f"tight pool ({pages} pages)")
-    return launches, busy
+    return (runs["graphed"]["launches"], runs["eager"]["launches"],
+            runs["graphed"]["profile"]["busy"])
 
 
 # ---------------------------------------------------------------------------
@@ -1162,11 +1377,12 @@ def ar_at_engine_rows(model, params, req) -> list:
 
 
 def mamba_phase(by_row):
+    """Phase 9.  Returns the graphed sync and continuous runs' launch counts,
+    the eager ones', and the graphed runs' busy shares."""
     from repro_torch.configs import get_config
     from repro_torch.core import lora, spec
-    from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
-    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.engine import Request
     cfg = get_config(M_NAME)
     model = build_model(cfg, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -1180,83 +1396,71 @@ def mamba_phase(by_row):
              f"({cfg.num_layers} layers, {n_par / 1e6:.1f}M in segments, tied head "
              f"{tuple(params['lm_head'].shape)})")
     prefills = count_prefills(model)
-
-    # ---- sync scheduler: bucket-padded prompts ----
-    reqs = make_requests(cfg)
-    eng = ServingEngine(model, params, dvi, batch_size=N_REQUESTS, max_new=MAX_NEW)
-    eng.submit_request(reqs[0])                  # warm-up batch, not counted
-    eng.run()
-    eng.reset_stats()
-    for r in reqs:
-        eng.submit_request(r)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    prefills[0] = 0
-    t0 = time.perf_counter()
-    comps = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    sync_launches, n_pre = dict(ops.launches), prefills[0]
-    check_fast_loader(ops, 9, f"{M_NAME} sync")
-    st = eng.stats
-    n = st["steps"]
-    check(len(comps) == N_REQUESTS and n > 0, f"{len(comps)} completions in {n} block-steps")
-    phase(9, f"sync: served {len(comps)} requests in {n} block-steps and {n_pre} prefill "
-             f"calls, wall {wall:.3f} s: MAT {st['committed'] / max(st['blocks'], 1):.4f}, "
-             f"{st['committed'] / wall:.1f} committed tokens/s, peak memory "
-             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    want = mamba_want(cfg, n, n_pre)
-    phase(9, f"sync: launches {sync_launches}; expected {want}")
-    check(sync_launches == want, "the mamba2 sync path did not run the kernels as the "
-                                 "formula says")
     expect = {name: by_row[name]["at_mamba2"]["ms"]
               for name in ("verify_argmax", "lora_logits")}
     per_prefill = {"ssd_scan": cfg.num_layers}
-    sync_busy = profile_batch(eng, reqs, wall * 1e3, n=9,
-                              expect=dict(expect, ssd_scan=by_row["ssd_scan"]["ms"]),
-                              per_call=per_prefill)
-    padded = [Request(uid=r.uid, prompt=eng._pad(r, eng._bucket(len(r.prompt))),
-                      max_new=r.max_new) for r in reqs]
-    check_against_ar(model, params, spec, padded, comps, f"{M_NAME} sync", n_phase=9)
-    del eng
-    torch.cuda.empty_cache()
+
+    # ---- sync scheduler: bucket-padded prompts ----
+    reqs = make_requests(cfg)
+    sync = {}
+    for mode, on in MODES:
+        r = sync[mode] = sync_run(model, params, dvi, reqs, on, 9, f"{M_NAME} sync {mode}",
+                                  prefills=prefills)
+        n, n_pre = r["steps"], r["prefills"]
+        check(len(r["comps"]) == N_REQUESTS and n > 0,
+              f"{len(r['comps'])} completions in {n} block-steps")
+        phase(9, f"sync {mode}: served {len(r['comps'])} requests in {n} block-steps and "
+                 f"{n_pre} prefill calls, wall {r['wall']:.3f} s: MAT "
+                 f"{r['committed'] / max(r['blocks'], 1):.4f}, "
+                 f"{r['committed'] / r['wall']:.1f} committed tokens/s, peak memory "
+                 f"{r['peak'] / 2**30:.2f} GiB")
+        want = mamba_want(cfg, n, n_pre)
+        phase(9, f"sync {mode}: launches {r['launches']}; expected {want}")
+        check(r["launches"] == want, "the mamba2 sync path did not run the kernels as the "
+                                     "formula says")
+        r["profile"] = profile_batch(r["eng"], reqs, r["wall"] * 1e3, n=9,
+                                     expect=dict(expect, ssd_scan=by_row["ssd_scan"]["ms"]),
+                                     per_call=per_prefill)
+        padded = [Request(uid=q.uid, prompt=r["eng"]._pad(q, r["eng"]._bucket(len(q.prompt))),
+                          max_new=q.max_new) for q in reqs]
+        release(r)
+    report_modes(9, f"{M_NAME} sync", sync)
+    check_against_ar(model, params, spec, padded, sync["graphed"]["comps"], f"{M_NAME} sync",
+                     n_phase=9)
 
     # ---- continuous scheduler, contiguous layout: exact prompts ----
     creqs = continuous_requests(cfg)
-    eng = ServingEngine(model, params, dvi, scheduler="continuous", num_slots=C_SLOTS,
-                        max_new=MAX_NEW, sync_every=C_SYNC)
-    eng.submit_request(creqs[0])                 # warm-up, not counted
-    eng.run()
-    eng.reset_stats()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    prefills[0] = 0
-    comps, wall, blocks_run, per_tick = serve_checked(eng, creqs)
-    cont_launches, n_pre = dict(ops.launches), prefills[0]
-    check_fast_loader(ops, 9, f"{M_NAME} continuous")
-    st = eng.stats
-    check(len(comps) == C_REQUESTS and blocks_run > 0, f"{len(comps)} completions")
-    phase(9, f"continuous (contiguous, {C_SLOTS} lanes, sync_every {C_SYNC}): "
-             f"{len(comps)} requests in {wall:.3f} s, {st['committed'] / wall:.1f} committed "
-             f"tokens/s, MAT {st['committed'] / max(st['blocks'], 1):.4f}, "
-             f"{st['dispatches']} dispatches, {st['host_syncs']} host syncs, {blocks_run} "
-             f"blocks run ({st['steps']} with a live lane), {n_pre} prefill calls, peak "
-             f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    phase(9, f"continuous: synchronising operations per tick: {per_tick} (0 inside every "
-             f"dispatch: sync debug mode 'error')")
-    check(eng.active_slots == 0 and not eng.busy, "lanes left occupied at the end")
-    check(st["host_syncs"] == st["dispatches"], "host syncs != dispatches")
-    want = mamba_want(cfg, blocks_run, n_pre)
-    phase(9, f"continuous: launches {cont_launches}; expected {want}")
-    check(cont_launches == want, "the mamba2 continuous path did not run the kernels as "
-                                 "the formula says")
-    check_against_ar(model, params, spec, creqs, comps, f"{M_NAME} continuous", n_phase=9,
-                     alone=True, same_shape=lambda r: ar_at_engine_rows(model, params, r))
-    cont_busy = profile_batch(
-        eng, creqs, wall * 1e3, n=9, per_call=per_prefill,
-        expect=dict(expect, ssd_scan=by_row["ssd_scan"]["at_admission"]["ms"]))
-    return sync_launches, cont_launches, (sync_busy, cont_busy)
+    cont = {}
+    for mode, on in MODES:
+        r = cont[mode] = continuous_run(model, params, dvi, creqs, on, 0, 9,
+                                        f"{M_NAME} continuous {mode}", prefills=prefills)
+        eng, blocks_run, n_pre = r["eng"], r["blocks_run"], r["prefills"]
+        check(len(r["comps"]) == C_REQUESTS and blocks_run > 0, f"{len(r['comps'])} completions")
+        phase(9, f"continuous {mode} (contiguous, {C_SLOTS} lanes, sync_every {C_SYNC}): "
+                 f"{len(r['comps'])} requests in {r['wall']:.3f} s, "
+                 f"{r['committed'] / r['wall']:.1f} committed tokens/s, MAT "
+                 f"{r['committed'] / max(r['blocks'], 1):.4f}, {r['dispatches']} dispatches, "
+                 f"{r['host_syncs']} host syncs, {blocks_run} blocks run ({r['steps']} with a "
+                 f"live lane), {n_pre} prefill calls, peak memory {r['peak'] / 2**30:.2f} GiB")
+        phase(9, f"continuous {mode}: synchronising operations per tick: {r['per_tick']} (0 "
+                 f"inside every dispatch: sync debug mode 'error')")
+        check(eng.active_slots == 0 and not eng.busy, "lanes left occupied at the end")
+        check(r["host_syncs"] == r["dispatches"], "host syncs != dispatches")
+        want = mamba_want(cfg, blocks_run, n_pre)
+        phase(9, f"continuous {mode}: launches {r['launches']}; expected {want}")
+        check(r["launches"] == want, "the mamba2 continuous path did not run the kernels as "
+                                     "the formula says")
+        r["profile"] = profile_batch(
+            eng, creqs, r["wall"] * 1e3, n=9, per_call=per_prefill,
+            expect=dict(expect, ssd_scan=by_row["ssd_scan"]["at_admission"]["ms"]))
+        release(r)
+    report_modes(9, f"{M_NAME} continuous", cont)
+    tick_phases(model, params, dvi, creqs, 0, 9, f"{M_NAME} continuous")
+    check_against_ar(model, params, spec, creqs, cont["graphed"]["comps"],
+                     f"{M_NAME} continuous", n_phase=9, alone=True,
+                     same_shape=lambda q: ar_at_engine_rows(model, params, q))
+    return (sync["graphed"]["launches"], cont["graphed"]["launches"],
+            sync["eager"]["launches"], cont["eager"]["launches"])
 
 
 def main() -> int:
@@ -1270,7 +1474,6 @@ def main() -> int:
     from repro_torch.core import lora, spec
     from repro_torch.kernels import build, ops
     from repro_torch.models.model import build_model
-    from repro_torch.serving.engine import ServingEngine
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1288,7 +1491,9 @@ def main() -> int:
                  f"registers a thread, {spills} bytes of spill stores")
 
     cfg = get_config("vicuna-7b")
+    marks = {"1-2": time.perf_counter() - t_start}
     rows = kernels_phase(cfg, get_config(M_NAME))
+    marks["3"] = time.perf_counter() - t_start
 
     # ---- phase 4: the main path ----
     model = build_model(cfg, device=DEV)
@@ -1302,52 +1507,51 @@ def main() -> int:
              f"({sum(p.numel() for s in params['segments'].values() for p in s.values()) / 1e9:.2f}"
              f"B in segments)")
     reqs = make_requests(cfg)
-    eng = ServingEngine(model, params, dvi, batch_size=N_REQUESTS, max_new=MAX_NEW)
-    eng.submit_request(reqs[0])                  # warm-up batch, not counted
-    eng.run()
-    eng.reset_stats()
-    for r in reqs:
-        eng.submit_request(r)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    comps = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.launches)
-    check_fast_loader(ops, 4, "sync")
-    st = eng.stats
-    n = st["steps"]                    # spec_block_step calls of this run
-    check(len(comps) == N_REQUESTS, f"{len(comps)} completions for {N_REQUESTS} requests")
-    for c in comps:
-        check(1 <= len(c.gen_tokens) <= MAX_NEW and bool((c.gen_tokens >= 0).all())
-              and bool((c.gen_tokens < cfg.vocab_size).all()),
-              f"request {c.uid}: bad generation {c.gen_tokens}")
-    mat = st["committed"] / max(st["blocks"], 1)
-    phase(4, f"served {len(comps)} requests in {n} block-steps, wall {wall:.3f} s: "
-             f"MAT {mat:.4f}, acceptance {eng.acceptance:.4f}, "
-             f"{st['committed'] / wall:.1f} committed tokens/s, "
-             f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
     K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
     by_row = {row["name"]: row for row in rows}
-    profile_batch(eng, reqs, wall * 1e3, expect={
-        "decode_attention": path_attention_ms(by_row["decode_attention"], K, k, L),
-        "verify_argmax": by_row["verify_argmax"]["ms"],
-        "lora_logits": by_row["lora_logits"]["ms"]})
+    expect = {"decode_attention": path_attention_ms(by_row["decode_attention"], K, k, L),
+              "verify_argmax": by_row["verify_argmax"]["ms"],
+              "lora_logits": by_row["lora_logits"]["ms"]}
+    runs = {}
+    for mode, on in MODES:
+        r = runs[mode] = sync_run(model, params, dvi, reqs, on, 4, f"sync {mode}")
+        comps, n = r["comps"], r["steps"]  # spec_block_step calls of this run
+        check(len(comps) == N_REQUESTS, f"{len(comps)} completions for {N_REQUESTS} requests")
+        for c in comps:
+            check(1 <= len(c.gen_tokens) <= MAX_NEW and bool((c.gen_tokens >= 0).all())
+                  and bool((c.gen_tokens < cfg.vocab_size).all()),
+                  f"request {c.uid}: bad generation {c.gen_tokens}")
+        phase(4, f"{mode}: served {len(comps)} requests in {n} block-steps, wall "
+                 f"{r['wall']:.3f} s: MAT {r['committed'] / max(r['blocks'], 1):.4f}, "
+                 f"acceptance {r['eng'].acceptance:.4f}, "
+                 f"{r['committed'] / r['wall']:.1f} committed tokens/s, "
+                 f"peak memory {r['peak'] / 2**30:.2f} GiB")
+        r["profile"] = profile_batch(r["eng"], reqs, r["wall"] * 1e3, expect=expect)
 
-    # ---- phase 5: launch counts ----
-    want = {"decode_attention": ((K + 1) * k + (L - k)) * n, "lora_logits": (K + 1) * n,
-            "verify_argmax": n}
-    phase(5, f"launches over {n} block-steps: {launches}; expected {want}")
-    want.update(paged_decode_attention=0, ssd_scan=0)
-    check(launches == want, "the sync path did not run the kernels as the formula says")
+        # ---- phase 5: launch counts ----
+        want = {"decode_attention": ((K + 1) * k + (L - k)) * n, "lora_logits": (K + 1) * n,
+                "verify_argmax": n, "paged_decode_attention": 0, "ssd_scan": 0}
+        phase(5, f"{mode}: launches over {n} block-steps: {r['launches']}; expected {want}")
+        check(r["launches"] == want, "the sync path did not run the kernels as the formula says")
+        if mode == "eager":
+            release(r)
+    report_modes(4, "vicuna-7b sync", runs)
+    launches = runs["graphed"]["launches"]
 
     # ---- phase 6: greedy losslessness on the card ----
+    eng = runs["graphed"].pop("eng")
     prompts = torch.as_tensor(np.stack([eng._pad(r, 128) for r in reqs]), device=DEV)
     r_sd = spec.speculative_generate(model, params, dvi, prompts, MAX_NEW)
     r_ar = spec.ar_generate(model, params, prompts, MAX_NEW)
+    # the engine's graphed block-step on the same batch: its replays must
+    # give the functional loop's streams bit for bit
+    r_gr = eng._runner.generate(prompts, torch.ones((N_REQUESTS,), dtype=torch.bool,
+                                                    device=DEV))
+    same = torch.equal(r_gr.tokens, r_sd.tokens) and torch.equal(r_gr.lengths, r_sd.lengths)
+    phase(6, f"graphed block-step == speculative_generate bit for bit on the 8 lanes padded "
+             f"to 128: {same} ({r_gr.steps} replays, {r_sd.steps} blocks)")
+    check(same and r_gr.steps == r_sd.steps,
+          "the graphed block-step differs from speculative_generate")
     Tp = prompts.shape[1]
     equal, tied = 0, 0
     for b in range(N_REQUESTS):
@@ -1367,26 +1571,33 @@ def main() -> int:
              f"{tied} differ only at a bf16 near-tie (rtol {GAP_RTOL})")
 
     # ---- phase 8: the continuous path over a paged pool ----
-    del eng, r_sd, r_ar
-    torch.cuda.empty_cache()
-    c_launches, _ = continuous_phase(cfg, model, params, dvi, by_row["paged_decode_attention"],
-                                     by_row)
+    del eng, r_sd, r_ar, r_gr
+    release({})
+    marks["4-6"] = time.perf_counter() - t_start
+    c_launches, c_eager, _ = continuous_phase(cfg, model, params, dvi,
+                                              by_row["paged_decode_attention"], by_row)
+    marks["8"] = time.perf_counter() - t_start
 
     # ---- phase 9: mamba2-370m through both schedulers ----
     del model, params, dvi
-    gc.collect()                       # engines in reference cycles hold the weights
-    torch.cuda.empty_cache()
-    m_sync, m_cont, _ = mamba_phase(by_row)
+    release({})                        # engines in reference cycles hold the weights
+    m_sync, m_cont, m_sync_e, m_cont_e = mamba_phase(by_row)
+    marks["9"] = time.perf_counter() - t_start
 
     # ---- phase 7: result lines ----
     for row in rows:
-        by_path = {"sync": launches.get(row["name"], 0),
-                   "continuous": c_launches.get(row["name"], 0),
-                   "mamba2_sync": m_sync.get(row["name"], 0),
-                   "mamba2_continuous": m_cont.get(row["name"], 0)}
+        name = row["name"]
+        by_path = {"sync": launches.get(name, 0), "continuous": c_launches.get(name, 0),
+                   "mamba2_sync": m_sync.get(name, 0), "mamba2_continuous": m_cont.get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-    phase(7, f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+        row["launches_eager_by_path"] = {
+            "sync": runs["eager"]["launches"].get(name, 0), "continuous": c_eager.get(name, 0),
+            "mamba2_sync": m_sync_e.get(name, 0), "mamba2_continuous": m_cont_e.get(name, 0)}
+    ends = list(marks.values())
+    phase(7, f"all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by phase: "
+             + ", ".join(f"{name} {end - start:.1f}" for name, start, end
+                         in zip(marks, [0.0] + ends[:-1], ends)))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -57,7 +57,7 @@ class SuperstepResult(NamedTuple):
     counters summarise what a per-block host loop would have accumulated."""
     pending: torch.Tensor          # (B,) next pending token
     done: torch.Tensor             # (B,) bool, in-graph EOS/budget exits included
-    gen_buf: torch.Tensor          # (B, steps*(K+1)) committed tokens, capped
+    gen_buf: torch.Tensor          # (B, >= steps*(K+1)) committed tokens, capped
     gen_count: torch.Tensor        # (B,) valid prefix length of gen_buf
     lane_blocks: torch.Tensor      # (B,) blocks the lane was live for
     lane_committed: torch.Tensor   # (B,) cache advance (sum of accepts)
@@ -68,6 +68,13 @@ class SuperstepResult(NamedTuple):
     cache: dict                    # advanced decode cache
     buffer: Optional[dict]         # replay buffer with this superstep's tuples
     iters: int                     # blocks run (the loop's iterations)
+
+
+# the per-lane counters of a superstep, in SuperstepResult's order
+LANE_COUNTERS = ("gen_count", "lane_blocks", "lane_committed", "lane_accepted",
+                 "lane_drafted")
+# the batch counters of a generation, in GenResult's order
+GEN_COUNTERS = ("blocks", "committed", "accepted_drafts", "drafted")
 
 
 class BlockStep(NamedTuple):
@@ -237,44 +244,65 @@ def spec_superstep(model: Model, params: dict, dvi_params: dict,
     if collect and buf is None:
         buf = buffer_mod.init_buffer(cfg, device=dev)
     cap = steps * (K + 1)
-    ar = torch.arange(K + 1, device=dev)
-    base = torch.arange(B, device=dev)[:, None] * cap
     # one spare slot past the buffer takes the writes the reference drops
     gen_flat = torch.zeros((B * cap + 1,), dtype=torch.int32, device=dev)
 
     def zeros(n):
         return torch.zeros((n,), dtype=torch.int32, device=dev)
 
-    gen_count, blocks, committed, accepted, drafted = (zeros(B) for _ in range(5))
-    a_hist, d_hist = zeros(K + 1), zeros(K + 1)
-    depth = torch.full((B,), K, dtype=torch.long, device=dev)
+    st = dict(pending=pending, done=done, budget=budget, cache=cache, buf=buf,
+              **{name: zeros(B) for name in LANE_COUNTERS},
+              accept_hist=zeros(K + 1), depth_hist=zeros(K + 1))
     for _ in range(steps):
-        live = (~done).to(torch.int32)
-        blk = spec_block_step(model, params, dvi_params, pending, cache,
-                              k_spec=K, done=done)
-        can = ((ar[None, :] < blk.accept[:, None])
-               & (gen_count[:, None] + ar[None, :] < budget[:, None]))
-        hit_eos = can & (blk.commit_vec == eos_id)
-        eos_before = torch.cumsum(hit_eos.to(torch.int32), dim=1) - hit_eos.to(torch.int32)
-        written = can & (eos_before == 0)
-        dest = torch.where(written, base + gen_count[:, None] + ar[None, :], B * cap)
-        gen_flat.index_put_((dest.reshape(-1),), blk.commit_vec.reshape(-1))
-        new_count = (gen_count + written.sum(dim=1)).to(torch.int32)
-        new_done = done | hit_eos.any(dim=1) | (new_count >= budget)
-        if collect:
-            gen0 = buf["gen"]
-            buf = log_block_tuples(cfg, buf, blk, pending, done, k_spec=K)
-            buf["gen"] = torch.where(live.any(), buf["gen"], gen0)
-        drafted = drafted + K * live
-        a_hist.scatter_add_(0, blk.m.long(), live)
-        d_hist.scatter_add_(0, depth, live)
-        blocks = blocks + live
-        committed = committed + blk.accept
-        accepted = accepted + blk.m * live
-        pending, done, gen_count, cache = blk.pending, new_done, new_count, blk.cache
-    return SuperstepResult(pending, done, gen_flat[:B * cap].view(B, cap), gen_count,
-                           blocks, committed, accepted, drafted, a_hist, d_hist,
-                           cache, buf, steps)
+        st = superstep_block(model, params, dvi_params, st, gen_flat, cap, k_spec=K,
+                             eos_id=eos_id, collect=collect)
+    return SuperstepResult(st["pending"], st["done"], gen_flat[:B * cap].view(B, cap),
+                           *(st[name] for name in LANE_COUNTERS),
+                           st["accept_hist"], st["depth_hist"], st["cache"], st["buf"], steps)
+
+
+def superstep_block(model: Model, params: dict, dvi_params: dict, st: dict,
+                    gen_flat: torch.Tensor, cap: int, *, k_spec: int, eos_id: int,
+                    collect: bool) -> dict:
+    """ONE block of ``spec_superstep`` with its bookkeeping, shared by the
+    functional superstep and the block-step graph (``core.graphs``).
+
+    st: the superstep's state, {"pending", "done", "budget", "cache", "buf",
+    the ``LANE_COUNTERS``, "accept_hist", "depth_hist"}.  gen_flat: (B * cap
+    + 1,) int32, lane b's committed tokens at [b * cap, (b + 1) * cap) and a
+    spare last slot for the writes the reference drops.  Returns the state
+    after the block as a new dict; gen_flat, the histograms, the cache's
+    K/V and SSM states and the buffer's rows are written in place."""
+    K = k_spec
+    pending, done, budget, cache = st["pending"], st["done"], st["budget"], st["cache"]
+    gen_count, buf = st["gen_count"], st["buf"]
+    B = pending.shape[0]
+    dev = pending.device
+    ar = torch.arange(K + 1, device=dev)
+    base = torch.arange(B, device=dev)[:, None] * cap
+    depth = torch.full((B,), K, dtype=torch.long, device=dev)
+    live = (~done).to(torch.int32)
+    blk = spec_block_step(model, params, dvi_params, pending, cache, k_spec=K, done=done)
+    can = ((ar[None, :] < blk.accept[:, None])
+           & (gen_count[:, None] + ar[None, :] < budget[:, None]))
+    hit_eos = can & (blk.commit_vec == eos_id)
+    eos_before = torch.cumsum(hit_eos.to(torch.int32), dim=1) - hit_eos.to(torch.int32)
+    written = can & (eos_before == 0)
+    dest = torch.where(written, base + gen_count[:, None] + ar[None, :], B * cap)
+    gen_flat.index_put_((dest.reshape(-1),), blk.commit_vec.reshape(-1))
+    new_count = (gen_count + written.sum(dim=1)).to(torch.int32)
+    new_done = done | hit_eos.any(dim=1) | (new_count >= budget)
+    if collect:
+        gen0 = buf["gen"]
+        buf = log_block_tuples(model.cfg, buf, blk, pending, done, k_spec=K)
+        buf["gen"] = torch.where(live.any(), buf["gen"], gen0)
+    st["accept_hist"].scatter_add_(0, blk.m.long(), live)
+    st["depth_hist"].scatter_add_(0, depth, live)
+    return dict(st, pending=blk.pending, done=new_done, cache=blk.cache, buf=buf,
+                gen_count=new_count, lane_blocks=st["lane_blocks"] + live,
+                lane_committed=st["lane_committed"] + blk.accept,
+                lane_accepted=st["lane_accepted"] + blk.m * live,
+                lane_drafted=st["lane_drafted"] + K * live)
 
 
 def speculative_generate(model: Model, params: dict, dvi_params: dict,
@@ -312,31 +340,50 @@ def speculative_generate(model: Model, params: dict, dvi_params: dict,
     if collect and buf is None:
         buf = buffer_mod.init_buffer(cfg, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    blocks, committed, accepted, drafted = zero, zero, zero, zero
-    ar = torch.arange(K + 1, device=dev)
+    st = dict(pending=pending, done=done, cache=cache, buf=buf, out=out, out_len=out_len,
+              **{name: zero for name in GEN_COUNTERS})
     steps = 0
-
-    while not bool(done.all()):
-        blk = spec_block_step(model, params, dvi_params, pending, cache,
-                              k_spec=K, done=done)
-        # the reference's dynamic_update_slice clamps its start index, so a
-        # done lane's block may land before Tp + max_new: mirror the clamp
-        start = torch.clamp(out_len, max=total - (K + 1))
-        out.scatter_(1, (start[:, None] + ar[None, :]).long(), blk.commit_vec)
-        emitted_eos = ((ar[None, :] < blk.accept[:, None])
-                       & (blk.commit_vec == eos_id)).any(dim=1)
-        out_len = out_len + blk.accept
-        new_done = done | emitted_eos | (out_len >= Tp + max_new)
-        if collect:
-            buf = log_block_tuples(cfg, buf, blk, pending, done, k_spec=K)
-        live = (~done).to(torch.int64)
-        blocks = blocks + live.sum()
-        committed = committed + blk.accept.sum()
-        accepted = accepted + (blk.m * live).sum()
-        drafted = drafted + K * live.sum()
-        pending, done, cache = blk.pending, new_done, blk.cache
+    while not bool(st["done"].all()):
+        st = generate_block(model, params, dvi_params, st, k_spec=K, limit=Tp + max_new,
+                            eos_id=eos_id, collect=collect)
         steps += 1
-    return GenResult(out, out_len, blocks, committed, accepted, drafted, buf, steps)
+    return GenResult(st["out"], st["out_len"], *(st[name] for name in GEN_COUNTERS),
+                     st["buf"], steps)
+
+
+def generate_block(model: Model, params: dict, dvi_params: dict, st: dict, *,
+                   k_spec: int, limit: int, eos_id: int, collect: bool) -> dict:
+    """ONE block of ``speculative_generate`` with its bookkeeping, shared by
+    the functional loop and the block-step graph (``core.graphs``).
+
+    st: {"pending", "done", "cache", "buf", "out" (B, total), "out_len",
+    the ``GEN_COUNTERS``}; a lane is done once it emits EOS or reaches
+    `limit` (prompt length + max_new) tokens.  Returns the state after the
+    block as a new dict; "out", the cache's K/V and SSM states and the
+    buffer's rows are written in place."""
+    K = k_spec
+    pending, done, out, out_len = st["pending"], st["done"], st["out"], st["out_len"]
+    total = out.shape[1]
+    ar = torch.arange(K + 1, device=pending.device)
+    blk = spec_block_step(model, params, dvi_params, pending, st["cache"], k_spec=K,
+                          done=done)
+    # the reference's dynamic_update_slice clamps its start index, so a
+    # done lane's block may land before Tp + max_new: mirror the clamp
+    start = torch.clamp(out_len, max=total - (K + 1))
+    out.scatter_(1, (start[:, None] + ar[None, :]).long(), blk.commit_vec)
+    emitted_eos = ((ar[None, :] < blk.accept[:, None])
+                   & (blk.commit_vec == eos_id)).any(dim=1)
+    new_len = out_len + blk.accept
+    new_done = done | emitted_eos | (new_len >= limit)
+    buf = st["buf"]
+    if collect:
+        buf = log_block_tuples(model.cfg, buf, blk, pending, done, k_spec=K)
+    live = (~done).to(torch.int64)
+    return dict(st, pending=blk.pending, done=new_done, cache=blk.cache, buf=buf,
+                out_len=new_len, blocks=st["blocks"] + live.sum(),
+                committed=st["committed"] + blk.accept.sum(),
+                accepted_drafts=st["accepted_drafts"] + (blk.m * live).sum(),
+                drafted=st["drafted"] + K * live.sum())
 
 
 def ar_generate(model: Model, params: dict, prompts, max_new, **kw) -> GenResult:

@@ -18,7 +18,10 @@ import torch
 from repro_torch.kernels import build, ref
 
 # Launches of each kernel since the last reset_launches(); plain CPU calls
-# never count.  chip_smoke.py reads them to show the main path ran the kernels.
+# never count.  A launch counts where the wrapper makes it; a CUDA graph
+# replay adds the launches its capture recorded (``add_counts``), so the
+# counts keep meaning launches executed.  chip_smoke.py reads them to show
+# the main path ran the kernels.
 launches: Dict[str, int] = {name: 0 for name in build.KERNELS}
 
 _VOID, _INT, _FLOAT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -74,6 +77,22 @@ def reset_launches() -> None:
         launches[name] = 0
     for paths in vocab_paths.values():
         paths.update(fast=0, element=0)
+
+
+def counts() -> dict:
+    """A copy of ``launches`` and ``vocab_paths``."""
+    return {"launches": dict(launches),
+            "vocab_paths": {name: dict(v) for name, v in vocab_paths.items()}}
+
+
+def add_counts(delta: dict) -> None:
+    """Add `delta` (``counts()``'s form) to the counters: a CUDA graph's
+    replay adds the launches its capture recorded."""
+    for name, n in delta["launches"].items():
+        launches[name] += n
+    for name, paths in delta["vocab_paths"].items():
+        for path, n in paths.items():
+            vocab_paths[name][path] += n
 
 
 _fns: Dict[str, ctypes._CFuncPtr] = {}

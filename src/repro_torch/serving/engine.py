@@ -32,6 +32,16 @@ return to the pool, its prompt plus generated prefix is re-queued at the
 front and replayed through prefill on re-admission, which is lossless for
 greedy decoding); retirement frees the lane's pages.
 
+Both schedulers run their block-steps through a runner of
+``core.graphs``, which owns static buffers for everything a block reads or
+advances and, on the card with ``graphs=True`` (the default), replays one
+captured CUDA graph a block-step: one graph a continuous engine, one per
+(batch, prompt bucket) on the sync path.  ``warmup()`` captures them ahead
+of the traffic; ``graphs=False`` runs the same block-step eagerly, as the
+CPU always does.  The engine's pending tokens, cache and replay buffer are
+the runner's static buffers: admission, retirement, preemption,
+cancellation and page growth edit them in place and never replace them.
+
 Host-to-device uploads (prompts, block-table rows, the per-dispatch done
 mask and budgets) are staged through pinned host memory and copied with
 ``non_blocking=True``, so no dispatch blocks the host; PyTorch's pinned
@@ -54,7 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import buffer as buffer_mod
-from repro_torch.core import spec as spec_mod
+from repro_torch.core import graphs as graphs_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model import Model
 from repro_torch.serving.handles import QueueFull, RequestHandle, TenantQueue
@@ -122,6 +132,7 @@ class ServingEngine:
     trace_limit: int = 200_000
     max_queue: int = 0            # admission queue bound (0 = unbounded)
     tenant_weights: Optional[Dict[str, float]] = None
+    graphs: bool = True           # replay a CUDA graph a block-step on the card
     stats: object = field(default=None, init=False)
 
     def __post_init__(self):
@@ -153,6 +164,8 @@ class ServingEngine:
         self._pending = torch.zeros((self.num_slots,), dtype=torch.int32,
                                     device=self.model.device)
         self._cache: Optional[dict] = None
+        # the block-step runner (core.graphs), made on first use or warmup()
+        self._runner = None
         self._submit_t: Dict[int, float] = {}
         self._tq = TenantQueue(max_queue=self.max_queue, weights=self.tenant_weights)
         self._handles: Dict[int, RequestHandle] = {}
@@ -309,7 +322,7 @@ class ServingEngine:
         if self.paged:
             self._pool.free(uid)
             self._tbl_host[s] = -1
-        self._cache = tfm.reset_slot(self.model.cfg, self._cache, s)
+        tfm.reset_slot(self.model.cfg, self._cache, s)
         self._slots[s] = None
         self._done[s] = True
         self._submit_t.pop(uid, None)
@@ -375,13 +388,12 @@ class ServingEngine:
                                   dtype=torch.int32, device=dev)
 
         t0 = self.clock()
-        res = spec_mod.speculative_generate(
-            self.model, self.params, self.dvi_params, prompts, int(self.max_new),
-            collect=True, buf=self.buf, live_mask=live)
-        toks = res.tokens.cpu().numpy()
-        lens = res.lengths.cpu().numpy()
+        res = self._ensure_runner().generate(prompts, live)
+        # copies: the result is the runner's static buffers, which the next
+        # batch of this shape overwrites (on the CPU .cpu() would alias them)
+        toks = res.tokens.cpu().numpy().copy()
+        lens = res.lengths.cpu().numpy().copy()
         wall = self.clock() - t0
-        self.buf = res.buffer
 
         blocks, committed = int(res.blocks), int(res.committed)
         mat = committed / max(blocks, 1)
@@ -476,10 +488,7 @@ class ServingEngine:
             gen_carry = len(self._preempted.get(req.uid, (None, ()))[1])
             prompt = self._trim_prompt(req, max_new - gen_carry)
             c1 = len(prompt) - 1
-            if self._cache is None:
-                self._cache = (self.model.init_paged_cache(
-                    self.num_slots, self.kv_pages, self.kv_page_size, self._mps)
-                    if self.paged else self.model.init_cache(self.num_slots, self._cap))
+            self._ensure_runner()
             if self.paged:
                 need = self._pages_needed(c1, max_new - gen_carry)
                 if not self._pool.can_alloc(need, self.kv_watermark + reserve):
@@ -503,7 +512,7 @@ class ServingEngine:
                 max_len = self._cap
             tokens = self._to_device(prompt)
             _, pc = self.model.prefill(self.params, tokens[None, :-1], max_len=max_len)
-            self._cache = tfm.insert_slot(cfg, self._cache, pc, slot)
+            tfm.insert_slot(cfg, self._cache, pc, slot)
             self._pending[slot] = tokens[-1]
             orig_prompt, gen0, blocks0, wall0, seq0 = self._preempted.pop(
                 req.uid, (prompt, [], 0, 0.0, None))
@@ -548,7 +557,7 @@ class ServingEngine:
             uid=st.uid, prompt=combined, max_new=st.max_new,
             tenant=st.handle.tenant if st.handle is not None else "default",
             priority=st.handle.priority if st.handle is not None else 0))
-        self._cache = tfm.reset_slot(self.model.cfg, self._cache, slot)
+        tfm.reset_slot(self.model.cfg, self._cache, slot)
         tr = self.telem.tracer
         if tr is not None:
             now = self.clock()
@@ -586,8 +595,8 @@ class ServingEngine:
                     self._sync_row(s, st.uid)
                     dirty = True
                 break
-        if dirty:
-            self._cache = tfm.set_block_tables(self._cache, self._to_device(self._tbl_host))
+        if dirty:                        # in place: the graph reads this table
+            graphs_mod.upload(self._cache["tbl"], self._tbl_host)
 
     def _sync_row(self, s: int, uid: int) -> None:
         """Mirror lane `s`'s pool ownership into the host block table
@@ -606,14 +615,10 @@ class ServingEngine:
             if st is not None:
                 budget[s] = st.max_new - len(st.gen)
         steps = min(self.sync_every, int(budget[~self._done].max()))
-        res = spec_mod.spec_superstep(
-            self.model, self.params, self.dvi_params, self._pending, self._cache,
-            steps=steps, done=self._to_device(self._done),
-            budget=self._to_device(budget), eos_id=self.eos_id, buf=self.buf,
-            collect=True)
-        # engine state moves to the (not yet computed) outputs; every later
-        # device op of the engine is queued behind them on the same stream
-        self._pending, self._cache, self.buf = res.pending, res.cache, res.buffer
+        # the runner advances the engine's pending tokens, cache and replay
+        # buffer in place; every later device op of the engine is queued
+        # behind the superstep on the same stream
+        res = self._runner.dispatch(self._done, budget, steps)
         lanes = [s for s, st in enumerate(self._slots) if st is not None]
         now = self.clock()
         mark = self._clock + (now - self._tick_t0)
@@ -692,7 +697,7 @@ class ServingEngine:
                 if self.paged:
                     self._pool.free(st.uid)   # copy-free eviction: pages
                     self._tbl_host[s] = -1    # recycle host-side
-                self._cache = tfm.reset_slot(self.model.cfg, self._cache, s)
+                tfm.reset_slot(self.model.cfg, self._cache, s)
                 self._slots[s] = None
                 self._done[s] = True
         if k_seen:
@@ -722,6 +727,8 @@ class ServingEngine:
         try:
             _phase("pre_admit", self._admit_waiting,
                    self._growth_reserve() if self.paged else 0)
+            # the harvest reads the last superstep's outputs, the runner's
+            # static buffers, before the dispatch below rewrites them
             outs = _phase("harvest", self._harvest)
             _phase("sweep_cancels", self._sweep_cancels)
             if self.paged:               # grow BEFORE admitting: admission then
@@ -746,6 +753,46 @@ class ServingEngine:
                         args={"live": self.active_slots, "queued": len(self._tq)})
             self._tick_t0 = None
         return outs
+
+    # ------------------------------------------------------------------
+    # the block-step runner
+    # ------------------------------------------------------------------
+
+    def _ensure_runner(self):
+        """The block-step runner, made on first use: the continuous one with
+        the engine's one cache (its graph captured now), or the sync one
+        (graphs captured per batch shape as they come)."""
+        if self._runner is not None:
+            return self._runner
+        if self.scheduler == "sync":
+            self._runner = graphs_mod.GenerateRunner(
+                self.model, self.params, self.dvi_params, self.buf,
+                max_new=int(self.max_new), graphs=self.graphs)
+            return self._runner
+        self._cache = (self.model.init_paged_cache(self.num_slots, self.kv_pages,
+                                                   self.kv_page_size, self._mps)
+                       if self.paged else self.model.init_cache(self.num_slots, self._cap))
+        self._runner = graphs_mod.SuperstepRunner(
+            self.model, self.params, self.dvi_params, self._pending, self._cache, self.buf,
+            sync_every=self.sync_every, eos_id=self.eos_id, graphs=self.graphs)
+        return self._runner
+
+    def warmup(self, buckets=None) -> None:
+        """Make the block-step runner and capture its graphs now, ahead of
+        the traffic (capturing synchronises with the device): the continuous
+        engine's one graph, or the sync engine's graph for a full batch of
+        each prompt bucket in `buckets` (default: all of ``self.buckets``)."""
+        runner = self._ensure_runner()
+        if self.scheduler == "sync":
+            for b in self.buckets if buckets is None else buckets:
+                runner.prepare(self.batch_size, b)
+
+    def graph_stats(self) -> dict:
+        """The runner's captures, capture and instantiate seconds, graph
+        nodes, pool memory, replays and host seconds in ``replay()``
+        (``core.graphs.graph_stats``); all zero before the runner is made."""
+        return (graphs_mod.graph_stats([]) if self._runner is None
+                else self._runner.graph_stats())
 
     # ------------------------------------------------------------------
     # the serving loop

@@ -6,7 +6,8 @@ the attention kernels' split of a lane over 1, 2, 4 and 8 CTAs at its edges),
 in float32 and bfloat16, the SSD scan at odd chunk lengths, with padded
 rows, a carried h0, strided inputs and every slice width of its hd split,
 plus the greedy sync path and the continuous paged
-path on the card, and mamba2-370m-tiny's greedy path in bfloat16.
+path on the card, mamba2-370m-tiny's greedy path in bfloat16, and the
+engines' block-step replayed from CUDA graphs against the eager block-step.
 
 These tests need an NVIDIA GPU and skip without one.  The machine with the
 card has no JAX, so run them there without the suite's conftest:
@@ -425,6 +426,7 @@ def test_continuous_paged_path_on_the_card(ops):
                     .astype(np.int32), max_new=int(rng.choice([6, 10, 16]))) for i in range(7)]
     eng = ServingEngine(model, params, dvi, scheduler="continuous", num_slots=3, max_new=16,
                         cache_len=40, kv_pages=14, kv_page_size=4, sync_every=3)
+    eng.warmup()                   # the graph's capture and warm-up block, not counted
     inner, iters = eng._dispatch_superstep, []
 
     def dispatch():
@@ -586,3 +588,123 @@ def test_mamba2_greedy_path_on_the_card(ops):
     for b in range(3):
         n_b = min(int(r_ar.lengths[b]), int(r_sd.lengths[b]), 40 + 16)
         assert torch.equal(r_ar.tokens[b, :n_b], r_sd.tokens[b, :n_b]), b
+
+
+# ---------------------------------------------------------------------------
+# the block-step replayed from CUDA graphs (core.graphs)
+# ---------------------------------------------------------------------------
+
+GRAPH_CELLS = {
+    "vicuna_sync": ("vicuna-7b", dict(scheduler="sync", batch_size=3, max_new=16,
+                                      buckets=(8, 16))),
+    "vicuna_paged": ("vicuna-7b", dict(scheduler="continuous", num_slots=3, max_new=16,
+                                       cache_len=40, kv_pages=14, kv_page_size=4,
+                                       sync_every=3)),
+    "mamba2_sync": ("mamba2-370m", dict(scheduler="sync", batch_size=3, max_new=16,
+                                        buckets=(16,))),
+    "mamba2_continuous": ("mamba2-370m", dict(scheduler="continuous", num_slots=3,
+                                              max_new=16, cache_len=64, sync_every=3)),
+}
+
+
+def _graph_engine_run(name, kw, graphs_on, ops, around=None):
+    """A tiny engine (vicuna in float32, mamba2 in its bfloat16) with graphs
+    on or off, captured ahead, over seven requests (inside the context
+    `around()` when given): (streams, stats, launches, engine)."""
+    import contextlib
+    from repro_torch.configs import get_config
+    from repro_torch.core import lora
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = get_config(name, tiny=True)
+    if name == "vicuna-7b":
+        cfg = cfg.replace(dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    dvi = lora.init_draft_params(gen, cfg)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(2, cfg.vocab_size, size=int(rng.choice([6, 9, 12])))
+                    .astype(np.int32), max_new=int(rng.choice([6, 10, 16]))) for i in range(7)]
+    eng = ServingEngine(model, params, dvi, graphs=graphs_on, **kw)
+    eng.warmup()
+    for r in reqs:
+        eng.submit_request(r)
+    ops.reset_launches()
+    with (around or contextlib.nullcontext)():
+        outs = {c.uid: c.gen_tokens.tolist() for c in eng.run(max_steps=1000)}
+        torch.cuda.synchronize()
+    stats = {key: eng.stats[key] for key in ("requests", "blocks", "steps", "committed",
+                                            "accepted", "drafted", "preemptions",
+                                            "dispatches", "host_syncs")}
+    return outs, stats, dict(ops.launches), eng
+
+
+@pytest.mark.parametrize("cell", list(GRAPH_CELLS))
+def test_graphed_paths_match_eager(ops, cell):
+    """graphs=True and graphs=False on the card: bit-identical streams,
+    equal counts, equal launch counts (under replay, the capture's counts
+    once a replay), and the replay buffers equal; the graphed engine
+    replayed its graphs and ran nothing eagerly."""
+    name, kw = GRAPH_CELLS[cell]
+    outs_e, stats_e, launches_e, eng_e = _graph_engine_run(name, kw, False, ops)
+    outs_g, stats_g, launches_g, eng_g = _graph_engine_run(name, kw, True, ops)
+    assert outs_g == outs_e and len(outs_g) == 7
+    assert stats_g == stats_e and launches_g == launches_e
+    assert launches_g["lora_logits"] > 0
+    for key in eng_e.buf:
+        assert torch.equal(eng_g.buf[key], eng_e.buf[key]), key
+    g = eng_g.graph_stats()
+    assert g["captures"] >= 1 and g["replays"] > 0 and all(n > 0 for n in g["nodes"])
+    # each graph holds the kernel nodes its capture counted (mangled names)
+    once = {"decode_attention": "11decode_attn", "paged_decode_attention": "17paged_decode_attn",
+            "verify_argmax": "14verify_partial", "lora_logits": "9lora_main",
+            "ssd_scan": "10ssd_chunks"}
+    for recorded, kernel_nodes in g["per_graph"]:
+        assert recorded == {k: sum(c for name, c in kernel_nodes.items() if fn in name)
+                            for k, fn in once.items()}
+        assert recorded["lora_logits"] > 0
+    assert eng_e.graph_stats()["captures"] == 0
+    if kw["scheduler"] == "continuous":
+        assert eng_g._pending is eng_g._runner.state["pending"]
+        assert eng_g._cache is eng_g._runner.state["cache"]
+        assert eng_g.buf is eng_g._runner.state["buf"]
+        if cell == "vicuna_paged":
+            assert stats_g["preemptions"] > 0 and eng_g.kv_stats()["used_pages"] == 0
+
+
+def test_replays_count_launches_as_the_profiler_sees_them(ops):
+    """Under replay ops.launches counts what the captures recorded, once a
+    replay; the profiler sees the graphs' kernels, as many of each."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    name, kw = GRAPH_CELLS["vicuna_paged"]
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    _, _, launches, eng = _graph_engine_run(name, kw, True, ops, around=lambda: prof)
+    assert eng.graph_stats()["replays"] > 0
+    seen = {"verify_argmax": r"\bverify_partial\b", "lora_logits": r"\blora_main\b",
+            "paged_decode_attention": r"(?<![A-Za-z_])paged_decode_attn\b"}
+    counts = {kernel: sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and re.search(pat, e.name))
+              for kernel, pat in seen.items()}
+    assert counts == {kernel: launches[kernel] for kernel in seen} and counts["lora_logits"] > 0
+
+
+def test_failed_capture_raises(ops):
+    """A body that synchronises cannot be captured: the capture raises,
+    nothing is counted for it and no graph is kept."""
+    from repro_torch.core import graphs
+    h = torch.randn(4, 64, device="cuda")
+    w = torch.randn(64, 256, device="cuda")
+
+    def body():
+        ops.verify_argmax(h, w)
+        float(h.sum())                   # a host sync: not allowed while capturing
+
+    ops.reset_launches()
+    with pytest.raises(RuntimeError):
+        graphs.StepGraph(body, capture=True)
+    torch.cuda.synchronize()
+    assert ops.launches["verify_argmax"] == 1     # the warm-up's launch alone
