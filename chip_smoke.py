@@ -41,9 +41,14 @@ Phases (any failure raises and exits non-zero):
    (``ssd_scan``, its bound on the tensor cores at the kernel's split
    count, the earlier all-float32 CUDA-core figure beside it as
    ``f32_core_bound_ms``); beside each vocab kernel cuBLAS's bf16 h @ w alone
-   (``gemm_ms``, a yardstick without the argmax or the LoRA term);
+   (``gemm_ms``, a yardstick without the argmax or the LoRA term); and
+   ``lora_logits`` at the online update's shape (T = 256 rows, 4 passes of
+   64, bf16, r 64): its forward through the differentiable wrapper against
+   the plain version, its dA and dB against autograd through the plain
+   version, and its device time beside ``gemm_ms`` at T = 256;
 4. the sync path: vicuna-7b at full width and depth in bf16, random weights
-   drawn on the card from a seed, a sync ``ServingEngine`` answering 8
+   drawn on the card from a seed, a sync ``ServingEngine`` (drafter frozen,
+   ``learn=False``, as in phases 8 and 9) answering 8
    requests (prompts of 64-128 tokens, 32 new tokens each), then the same
    requests once more under torch.profiler for the device's busy share
    and the attention and vocab kernels' device time a launch and per
@@ -78,6 +83,21 @@ Phases (any failure raises and exits non-zero):
    ``ssd_scan``; 48 ``ssd_scan`` per prefill call), no synchronising
    operation inside a continuous dispatch, all lanes empty at the end,
    every vocab launch on the fast loader;
+10. the Improve loop on vicuna-7b, after phase 8 on the same weights: the
+   continuous engine of phase 8 (ample pool) with ``learn=True`` (an update
+   every 4 blocks, mode "full", lr 1e-3, the trainer state drawn from the
+   seed) answering phase 8's 16 requests, and the sync engine with one
+   update a batch answering phase 4's 8, each eagerly and graphed.  It
+   checks graphed against eager bit for bit, streams and the final drafter
+   state (A, B, moments, baseline, steps); each completion against the
+   frozen drafter's (or AR's, near-ties allowed); the launch formula plus 2
+   ``lora_logits`` an update; the reference's update cadence counted on the
+   host; 0 synchronising operations inside every dispatch and update; A
+   and B at their addresses; every ``dvi_train_*`` gauge finite.  It
+   reports the first and last update's loss terms, acceptance over the
+   first and last quarter of the blocks, an update's host and device ms,
+   and the graphed path's wall and device ms a block-step and tokens/s
+   against phase 8's;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Phases 4, 8 and 9 run every path twice: eagerly (``graphs=False``) and
@@ -132,6 +152,15 @@ GEMM_NOTE = ("gemm_ms: cuBLAS torch.matmul(h, w) in bf16 alone, a yardstick: it 
 C_SLOTS, C_PAGE, C_SYNC, C_REQUESTS = 8, 16, 4, 16
 C_PROMPTS, C_NEW = (64, 96, 128), (16, 32)
 C_PAGES_AMPLE, C_PAGES_TIGHT = 152, 48
+# the Improve loop (phase 10): phase 8's continuous path and phase 4's sync
+# path with learn=True, the reference engine's defaults
+L_UPDATE_EVERY, L_LR, L_MODE = 4, 1e-3, "full"
+# rows of h one pass of the vocab kernels holds (csrc/vocab_tile.cuh: MAX_NT
+# n8 tiles); the update's lora_logits at dvi.batch_size = 256 rows takes 4
+VOCAB_PASS_ROWS = 64
+# the LoraLogits backward (dA, dB) against autograd through the plain
+# version: both are float32 products on the card, in other orders
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4   # atol x the gradient's largest entry
 # the mamba2 paths (phase 9): the sync path's 8 requests and the continuous
 # path's 16, as for vicuna; the continuous cache is contiguous
 M_NAME = "mamba2-370m"
@@ -309,6 +338,45 @@ def check_lora(ops, ref, gen, T, d, V, r, label):
              f"rel {rel:.3e} (atol {atol} rtol {rtol}) ok={ok}")
     check(ok, f"lora_logits {label} disagrees with its plain version")
     return (h, w, a, b, gamma), err
+
+
+def check_lora_update(ops, ref, gen, T, d, V, r, gamma):
+    """lora_logits at the online update's shape (T = dvi.batch_size rows in
+    bf16, A and B requiring gradients): the forward through the
+    differentiable wrapper (the kernel, on the fast loader) against the
+    plain version at ``TOL``, and its dA and dB against autograd through
+    ``ref.lora_logits`` at GRAD_RTOL / GRAD_ATOL.  Returns the timing
+    arguments, the forward's and the gradients' max abs errors."""
+    h = torch.randn((T, d), generator=gen, device=DEV).to(torch.bfloat16)
+    w = (torch.randn((d, V), generator=gen, device=DEV) / d ** 0.5).to(torch.bfloat16)
+    a = (torch.randn((d, r), generator=gen, device=DEV) / d ** 0.5).requires_grad_()
+    b = (torch.randn((r, V), generator=gen, device=DEV) * 0.05).requires_grad_()
+    g = torch.randn((T, V), generator=gen, device=DEV) / (T * V) ** 0.5
+    ops.reset_launches()
+    out = ops.lora_logits(h, w, a, b, gamma)
+    check(out.requires_grad and loader_used(ops, "lora_logits") == "fast",
+          "lora_logits at the update's shape must run the kernel on the fast loader")
+    (out * g).sum().backward()
+    da, db = a.grad.clone(), b.grad.clone()
+    a.grad = b.grad = None
+    plain = ref.lora_logits(h, w, a, b, gamma)
+    (plain * g).sum().backward()
+    err, rel, ok = close("lora_logits", out.detach(), plain.detach())
+    grad_err, grad_ok = {}, True
+    for name, got, want in (("dA", da, a.grad), ("dB", db, b.grad)):
+        diff = (got - want).abs()
+        grad_err[name] = float(diff.max())
+        grad_ok &= bool((diff <= GRAD_ATOL * float(want.abs().max())
+                         + GRAD_RTOL * want.abs()).all())
+    atol, rtol = TOL["lora_logits"]
+    phase(3, f"lora_logits at the update (T={T}, {-(-T // VOCAB_PASS_ROWS)} row passes): d={d} "
+             f"V={V} r={r} forward max abs err {err:.3e} rel {rel:.3e} (atol {atol} rtol "
+             f"{rtol}); backward max abs err dA {grad_err['dA']:.3e}, dB {grad_err['dB']:.3e} "
+             f"(rtol {GRAD_RTOL}, atol {GRAD_ATOL} x max |grad|), launches "
+             f"{ops.launches['lora_logits']}; ok={ok and grad_ok}")
+    check(ok and grad_ok and ops.launches["lora_logits"] == 1,
+          "lora_logits at the update's shape disagrees with its plain version")
+    return (h, w, a.detach(), b.detach(), gamma), err, grad_err
 
 
 # the vocab kernels' edge cases (phase 3): widths about the 128-column strip
@@ -646,6 +714,11 @@ def kernels_phase(cfg, mcfg):
     check_verify(ops, ref, gen, 67, 320, 1000, "ragged (T>48, odd tiles)")
     lora_args, err_l = check_lora(ops, ref, gen, B, d, V, cfg.dvi.lora_rank, "main")
     check_lora(ops, ref, gen, B, d, V, 1, "r=1 (ar_generate)")
+    # the online update's shape, from a generator of its own so that the
+    # other cases keep their inputs
+    upd_args, upd_err, upd_grad_err = check_lora_update(
+        ops, ref, torch.Generator(device=DEV).manual_seed(SEED + 6), cfg.dvi.batch_size, d, V,
+        cfg.dvi.lora_rank, cfg.dvi.lora_alpha / cfg.dvi.lora_rank)
     vocab_edges(ops, ref, torch.Generator(device=DEV).manual_seed(SEED + 4), d, V)
     att_args, err_a = check_attention(ops, ref, gen, B, K + 1, H, KV, hd, cap,
                                       main_lens, "main (verify pass)")
@@ -778,6 +851,13 @@ def kernels_phase(cfg, mcfg):
                                    lambda: ref.lora_logits(*m_lora),
                                    lora_bound(B, md, mV, m_lora[2].shape[1])),
                             **gemm(m_lora[0], m_lora[1])),
+             # the online update's forward (twice an update): T = 256 rows
+             at_update=dict(timing(lambda: ops.lora_logits(*upd_args),
+                                   lambda: ref.lora_logits(*upd_args),
+                                   lora_bound(cfg.dvi.batch_size, d, V, cfg.dvi.lora_rank)),
+                            **gemm(upd_args[0], upd_args[1]), max_abs_err=upd_err,
+                            grad_max_abs_err=upd_grad_err,
+                            row_passes=-(-cfg.dvi.batch_size // VOCAB_PASS_ROWS)),
              gemm_note=GEMM_NOTE),
         # attention at the verify pass (Tq = K+1), with the draft feed
         # (Tq = 1) beside it: 30 and 10 of the 40 launches of a block
@@ -989,15 +1069,18 @@ def continuous_requests(cfg):
                     max_new=int(rng.choice(C_NEW))) for i in range(C_REQUESTS)]
 
 
-def serve_checked(eng, reqs):
-    """Serve `reqs` submitted at once.  Every dispatch runs under sync debug
-    mode "error" (a synchronising operation inside it raises); the rest of
-    each tick runs under "warn", and its synchronising operations are
-    counted per tick.  Returns (completions, wall s, blocks the supersteps
-    ran, syncs per tick)."""
+def serve_checked(eng, reqs, log=None):
+    """Serve `reqs` submitted at once.  Every superstep dispatch, and every
+    drafter update a learning engine dispatches, runs under sync debug mode
+    "error" (a synchronising operation inside it raises); the rest of each
+    tick runs under "warn", and its synchronising operations are counted
+    per tick.  With `log` (a list), each tick appends the block-steps,
+    accepted and drafted tokens its harvest counted and the host seconds of
+    the updates it dispatched.  Returns (completions, wall s, blocks the
+    supersteps ran, syncs per tick)."""
     import warnings
-    inner = eng._dispatch_superstep
-    iters = []
+    inner, inner_update = eng._dispatch_superstep, eng._dispatch_update
+    iters, update_s = [], []
 
     def dispatch():
         torch.cuda.set_sync_debug_mode("error")
@@ -1007,22 +1090,36 @@ def serve_checked(eng, reqs):
             torch.cuda.set_sync_debug_mode("warn")
         iters.append(eng._inflight[0].iters)
 
-    eng._dispatch_superstep = dispatch
+    def dispatch_update(*a):
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            inner_update(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+        update_s.append(time.perf_counter() - t0)
+
+    eng._dispatch_superstep, eng._dispatch_update = dispatch, dispatch_update
     for r in reqs:
         eng.submit_request(r)
     torch.cuda.synchronize()
     comps, per_tick = [], []
+    keys = ("steps", "accepted", "drafted")
     t0 = time.perf_counter()
     try:
         torch.cuda.set_sync_debug_mode("warn")
         while eng.busy:
+            before, n_upd = [eng.stats[k] for k in keys], len(update_s)
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 comps.extend(eng.step())
             per_tick.append(sum("synchroniz" in str(w.message) for w in caught))
+            if log is not None:
+                log.append(dict(zip(keys, (eng.stats[k] - b for k, b in zip(keys, before))),
+                                update_s=update_s[n_upd:]))
     finally:
         torch.cuda.set_sync_debug_mode("default")
-        del eng._dispatch_superstep          # the class's method again; no cycle
+        del eng._dispatch_superstep, eng._dispatch_update   # the class's methods; no cycle
     torch.cuda.synchronize()
     return comps, time.perf_counter() - t0, sum(iters), per_tick
 
@@ -1130,13 +1227,22 @@ def reset_counts(prefills=None) -> None:
         prefills[0] = 0
 
 
+def frozen(model, dvi):
+    """A trainer state around the fixed drafter `dvi`: phases 4, 8 and 9
+    serve with learn=False."""
+    from repro_torch.core import online
+    return online.init_trainer(model, dvi_params=dvi)
+
+
 def sync_run(model, params, dvi, reqs, graphs_on: bool, n: int, label: str,
-             prefills=None) -> dict:
+             prefills=None, state=None, **kw) -> dict:
     """A sync engine with graphs on or off: its graphs captured for the
-    requests' buckets (``warmup``) and one warm-up batch, then `reqs` timed."""
+    requests' buckets (``warmup``) and one warm-up batch, then `reqs` timed.
+    The drafter `dvi` is frozen, unless a learning trainer `state` is given
+    (with ``learn=True`` in `kw`)."""
     from repro_torch.serving.engine import ServingEngine
-    eng = ServingEngine(model, params, dvi, batch_size=N_REQUESTS, max_new=MAX_NEW,
-                        graphs=graphs_on)
+    eng = ServingEngine(model, params, state or frozen(model, dvi), batch_size=N_REQUESTS,
+                        max_new=MAX_NEW, graphs=graphs_on, **dict(dict(learn=False), **kw))
     eng.warmup(buckets=sorted({eng._bucket(len(r.prompt)) for r in reqs}))
     eng.submit_request(reqs[0])                  # warm-up batch, not counted
     eng.run()
@@ -1151,13 +1257,16 @@ def sync_run(model, params, dvi, reqs, graphs_on: bool, n: int, label: str,
     return finish_run(eng, n, label, comps, time.perf_counter() - t0, g0, prefills)
 
 
-def continuous_engine(model, params, dvi, pages: int, graphs_on: bool, **kw):
+def continuous_engine(model, params, dvi, pages: int, graphs_on: bool, state=None, **kw):
     """A continuous engine (8 lanes, supersteps of 4 blocks; paged over
-    `pages` pages, or contiguous with 0), its graph captured."""
+    `pages` pages, or contiguous with 0), its graph captured.  The drafter
+    `dvi` is frozen, unless a learning trainer `state` is given (with
+    ``learn=True`` in `kw`)."""
     from repro_torch.serving.engine import ServingEngine
-    eng = ServingEngine(model, params, dvi, scheduler="continuous", num_slots=C_SLOTS,
-                        max_new=MAX_NEW, kv_pages=pages, kv_page_size=C_PAGE,
-                        sync_every=C_SYNC, graphs=graphs_on, **kw)
+    kw = dict(dict(learn=False), **kw)
+    eng = ServingEngine(model, params, state or frozen(model, dvi), scheduler="continuous",
+                        num_slots=C_SLOTS, max_new=MAX_NEW, kv_pages=pages,
+                        kv_page_size=C_PAGE, sync_every=C_SYNC, graphs=graphs_on, **kw)
     eng.warmup()
     return eng
 
@@ -1317,8 +1426,230 @@ def continuous_phase(cfg, model, params, dvi, paged_row, vocab_rows):
     del eng
     release({})
     check_against_ar(model, params, spec, reqs, comps_t, f"tight pool ({pages} pages)")
-    return (runs["graphed"]["launches"], runs["eager"]["launches"],
-            runs["graphed"]["profile"]["busy"])
+    return runs["graphed"]["launches"], runs["eager"]["launches"], runs["graphed"]
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the Improve loop on vicuna-7b
+# ---------------------------------------------------------------------------
+
+def learn_state(model):
+    """The drafter's trainer state drawn from the seed (B = 0: the drafter
+    starts as the verifier head read at layer k), an empty 4096-slot ring."""
+    from repro_torch.core import online
+    return online.init_trainer(model, torch.Generator(device=DEV).manual_seed(SEED))
+
+
+def drafter_tensors(state) -> dict:
+    """A copy of every tensor of the drafter's state that an update writes."""
+    return {k: t.clone() for k, t in (
+        ("A", state.dvi_params["A"]), ("B", state.dvi_params["B"]),
+        *((f"{m}/{k}", t) for m in ("m", "v") for k, t in state.opt_state[m].items()),
+        ("opt_step", state.opt_state["step"]), ("baseline", state.baseline),
+        ("step", state.step))}
+
+
+def record_updates(eng) -> list:
+    """Keep every update's metrics (device scalars) as the engine runs it."""
+    seen, inner = [], eng._update_fn
+
+    def update(*a, **kw):
+        seen.append(inner(*a, **kw))
+        return seen[-1]
+
+    eng._update_fn = update
+    return seen
+
+
+def update_report(metrics: list) -> str:
+    keys = (("loss", "loss"), ("kl", "KL"), ("l_ce", "CE"), ("entropy", "entropy"),
+            ("gnorm", "gnorm"), ("acc_rate", "batch acceptance"))
+    return "; ".join(f"{label} first {float(metrics[0][k]):.4f} last {float(metrics[-1][k]):.4f}"
+                     for k, label in keys)
+
+
+def quarter_acceptance(log: list) -> tuple:
+    """Acceptance (accepted / drafted) over the first and the last quarter
+    of the block-steps, from serve_checked's per-tick log."""
+    total = sum(t["steps"] for t in log)
+    first, last, seen = [0, 0], [0, 0], 0
+    for t in log:
+        for q, inside in ((first, seen < total / 4), (last, seen >= 3 * total / 4)):
+            if inside:
+                q[0] += t["accepted"]
+                q[1] += t["drafted"]
+        seen += t["steps"]
+    return first[0] / max(first[1], 1), last[0] / max(last[1], 1)
+
+
+def cadence(log: list, since: int, update_every: int) -> int:
+    """The reference engine's update count, counted on the host from the
+    block-steps each harvest saw: an update once `update_every` of them ran
+    since the last and the buffer holds tuples (after any live block)."""
+    updates, seen = 0, 0
+    for t in log:
+        since += t["steps"]
+        seen += t["steps"]
+        if since >= update_every and seen > 0:
+            since, updates = 0, updates + 1
+    return updates
+
+
+def update_device_ms(eng) -> float:
+    """The device time of one update (``time_ms``: L2 flushed, enqueue
+    hidden behind a spin) on a copy of the engine's trainer state after its
+    run (a full ring), writing into staging tensors as the engine does."""
+    from repro_torch.core import online
+    st = eng.state
+    copy = online.OnlineTrainerState(
+        {k: v.clone() for k, v in st.dvi_params.items()},
+        {"m": {k: v.clone() for k, v in st.opt_state["m"].items()},
+         "v": {k: v.clone() for k, v in st.opt_state["v"].items()},
+         "step": st.opt_state["step"].clone()},
+        {k: v.clone() for k, v in st.buf.items()}, st.baseline.clone(), st.step.clone())
+    staging = {k: torch.empty_like(v) for k, v in copy.dvi_params.items()}
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    ms, _ = time_ms(lambda: eng._update_fn(eng.params, copy, gen, out=staging), iters=10)
+    return ms
+
+
+def learn_continuous(cfg, model, params, reqs, base: dict) -> dict:
+    """Phase 10, continuous: phase 8's ample pool and requests with
+    learn=True, eagerly and graphed, each from the same seeded trainer state
+    and after one warm-up request (which learns too).  Returns the launches
+    by mode."""
+    from repro_torch.core import graphs
+    from repro_torch.kernels import ops
+    K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
+    runs = {}
+    for mode, on in MODES:
+        state = learn_state(model)
+        ptrs = graphs.drafter_ptrs(state.dvi_params)
+        eng = continuous_engine(model, params, None, C_PAGES_AMPLE, on, state=state, learn=True,
+                                update_every=L_UPDATE_EVERY, lr=L_LR, mode=L_MODE)
+        eng.submit_request(reqs[0])                  # warm-up, not counted
+        eng.run()
+        eng.reset_stats()
+        reset_counts()
+        since, step0 = eng._blocks_since_update, int(state.step)
+        metrics, log = record_updates(eng), []
+        g0 = eng.graph_stats()
+        comps, wall, blocks_run, per_tick = serve_checked(eng, reqs, log=log)
+        r = runs[mode] = finish_run(eng, 10, f"learning continuous {mode}", comps, wall, g0)
+        st = eng.stats
+        n_upd = st["updates"]
+        want = {"paged_decode_attention": ((K + 1) * k + (L - k)) * blocks_run,
+                "lora_logits": (K + 1) * blocks_run + 2 * n_upd, "verify_argmax": blocks_run,
+                "decode_attention": 0, "ssd_scan": 0}
+        host_s = [s for t in log for s in t["update_s"]]
+        q1, q4 = quarter_acceptance(log)
+        tt = eng.train_telemetry()
+        gauges = {name: v["value"] for name, v in eng.metrics_snapshot().items()
+                  if name.startswith("dvi_train_") and v.get("type") == "gauge"}
+        phase(10, f"continuous {mode}: {len(comps)} requests in {wall:.3f} s, {st['steps']} "
+                  f"block-steps, {blocks_run} blocks run, {n_upd} updates (the reference's "
+                  f"cadence counted on the host: {cadence(log, since, L_UPDATE_EVERY)}), "
+                  f"{st['dispatches']} dispatches, {st['host_syncs']} host syncs, MAT "
+                  f"{st['committed'] / max(st['blocks'], 1):.4f}, acceptance first quarter "
+                  f"{q1:.4f} last quarter {q4:.4f}; update host ms "
+                  f"{1e3 * np.mean(host_s):.2f} (max {1e3 * max(host_s):.2f}); "
+                  f"peak memory {r['peak'] / 2**30:.2f} GiB")
+        phase(10, f"continuous {mode}: {update_report(metrics)}")
+        phase(10, f"continuous {mode}: launches {r['launches']}; expected {want}; syncs per "
+                  f"tick {per_tick} (0 inside every superstep and update dispatch)")
+        check(r["launches"] == want, "the learning continuous path did not run the kernels "
+                                     "as the formula says")
+        check(n_upd == cadence(log, since, L_UPDATE_EVERY) > 0,
+              "the updates do not follow the reference's cadence")
+        check(st["host_syncs"] == st["dispatches"], "host syncs != dispatches")
+        check(eng.kv_stats()["used_pages"] == 0, "pages left in use after the learning run")
+        check(graphs.drafter_ptrs(state.dvi_params) == ptrs, "A or B moved")
+        check(tt["step"] == int(state.step) == step0 + n_upd and tt["updates"] == n_upd,
+              "the train telemetry's step disagrees with the updates")
+        check(len(gauges) >= 12 and all(np.isfinite(v) for v in gauges.values()),
+              f"a dvi_train_* gauge is not finite: {gauges}")
+        r.update(blocks_run=blocks_run, metrics=metrics, state=drafter_tensors(state),
+                 update_host_ms=1e3 * float(np.mean(host_s)), q=(q1, q4))
+        if mode == "graphed":
+            check_census(10, "learning continuous, graphed", r["graph"])
+            r["update_ms"] = update_device_ms(eng)
+            r["profile"] = profile_batch(eng, reqs, wall * 1e3, n=10)
+        release(r)
+    eager, graphed = runs["eager"], runs["graphed"]
+    same = streams(eager["comps"]) == streams(graphed["comps"])
+    same_state = all(torch.equal(graphed["state"][k], v) for k, v in eager["state"].items())
+    phase(10, f"continuous: graphed streams bit-identical to eager ones: {same}; final drafter "
+              f"state (A, B, m, v, baseline, steps) bit-identical: {same_state}")
+    check(same and same_state, "learning continuous: graphed differs from eager")
+    g, steps = graphed, max(graphed["steps"], 1)
+    phase(10, f"continuous graphed, learning against phase 8's frozen drafter: wall per "
+              f"block-step {1e3 * g['wall'] / steps:.2f} ms against "
+              f"{1e3 * base['wall'] / max(base['steps'], 1):.2f}, device ms a block-step "
+              f"{g['profile']['device_ms']:.2f} against {base['profile']['device_ms']:.2f}, "
+              f"busy {100 * g['profile']['busy']:.1f}% against "
+              f"{100 * base['profile']['busy']:.1f}%, {g['committed'] / g['wall']:.1f} "
+              f"committed tokens/s against {base['committed'] / base['wall']:.1f}; an update: "
+              f"{g['update_ms']:.3f} device ms (time_ms), {g['update_host_ms']:.2f} host ms")
+    return runs
+
+
+def learn_sync(cfg, model, params, reqs, base: dict) -> dict:
+    """Phase 10, sync: phase 4's requests with learn=True and one update a
+    batch, eagerly and graphed, each from the same seeded trainer state; the
+    updates run under sync debug mode "error".  Returns the runs."""
+    from repro_torch.core import graphs
+    K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
+    runs = {}
+    for mode, on in MODES:
+        state = learn_state(model)
+        ptrs = graphs.drafter_ptrs(state.dvi_params)
+        r = runs[mode] = sync_run(model, params, None, reqs, on, 10, f"learning sync {mode}",
+                                  state=state, learn=True, updates_per_batch=1, lr=L_LR,
+                                  mode=L_MODE)
+        eng, n, n_upd = r["eng"], r["steps"], r["eng"].stats["updates"]
+        want = {"decode_attention": ((K + 1) * k + (L - k)) * n,
+                "lora_logits": (K + 1) * n + 2 * n_upd, "verify_argmax": n,
+                "paged_decode_attention": 0, "ssd_scan": 0}
+        phase(10, f"sync {mode}: {len(r['comps'])} requests in {n} block-steps, {n_upd} "
+                  f"updates, wall {r['wall']:.3f} s, {r['committed'] / r['wall']:.1f} committed "
+                  f"tokens/s, acceptance {eng.acceptance:.4f}; launches {r['launches']}; "
+                  f"expected {want}")
+        check(r["launches"] == want and n_upd == 1, "the learning sync path did not run the "
+                                                    "kernels as the formula says")
+        check(graphs.drafter_ptrs(state.dvi_params) == ptrs, "A or B moved")
+        # one more update on the same engine, under sync debug mode "error"
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._drafter_update(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        r["state"] = drafter_tensors(state)
+        release(r)
+    eager, graphed = runs["eager"], runs["graphed"]
+    same = streams(eager["comps"]) == streams(graphed["comps"])
+    same_state = all(torch.equal(graphed["state"][k], v) for k, v in eager["state"].items())
+    phase(10, f"sync: graphed streams bit-identical to eager ones: {same}; final drafter state "
+              f"bit-identical: {same_state}; an extra update ran with 0 syncs (mode 'error'); "
+              f"wall per block-step {1e3 * graphed['wall'] / max(graphed['steps'], 1):.2f} ms "
+              f"against phase 4's {1e3 * base['wall'] / max(base['steps'], 1):.2f}")
+    check(same and same_state, "learning sync: graphed differs from eager")
+    return runs
+
+
+def against_frozen(model, params, spec, reqs, comps, frozen_comps, label, padded=None):
+    """Each learning completion equals the frozen drafter's (greedy
+    decoding is lossless whatever the drafter); where one does not, it must
+    pass ``check_against_ar`` (AR on the prompt the engine decoded, the
+    near-tie rule)."""
+    want = streams(frozen_comps)
+    differ = [r for r in reqs if streams([c for c in comps if c.uid == r.uid])[r.uid]
+              != want[r.uid]]
+    phase(10, f"{label}: {len(reqs) - len(differ)} of {len(reqs)} completions equal the frozen "
+              f"drafter's; {len(differ)} go to the AR check")
+    if differ:
+        uids = {r.uid for r in differ}
+        check_against_ar(model, params, spec, [(padded or {}).get(r.uid, r) for r in differ],
+                         [c for c in comps if c.uid in uids], label, n_phase=10)
 
 
 # ---------------------------------------------------------------------------
@@ -1474,6 +1805,7 @@ def main() -> int:
     from repro_torch.core import lora, spec
     from repro_torch.kernels import build, ops
     from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Request, ServingEngine
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1574,9 +1906,23 @@ def main() -> int:
     del eng, r_sd, r_ar, r_gr
     release({})
     marks["4-6"] = time.perf_counter() - t_start
-    c_launches, c_eager, _ = continuous_phase(cfg, model, params, dvi,
-                                              by_row["paged_decode_attention"], by_row)
+    c_launches, c_eager, c_frozen = continuous_phase(cfg, model, params, dvi,
+                                                     by_row["paged_decode_attention"], by_row)
     marks["8"] = time.perf_counter() - t_start
+
+    # ---- phase 10: the Improve loop, on the same weights ----
+    c_reqs = continuous_requests(cfg)
+    learn_c = learn_continuous(cfg, model, params, c_reqs, c_frozen)
+    against_frozen(model, params, spec, c_reqs, learn_c["graphed"]["comps"], c_frozen["comps"],
+                   "learning continuous")
+    learn_s = learn_sync(cfg, model, params, reqs, runs["graphed"])
+    pad = ServingEngine(model, params, frozen(model, dvi), learn=False)
+    padded = {q.uid: Request(uid=q.uid, prompt=pad._pad(q, pad._bucket(len(q.prompt))),
+                             max_new=q.max_new) for q in reqs}
+    against_frozen(model, params, spec, reqs, learn_s["graphed"]["comps"],
+                   runs["graphed"]["comps"], "learning sync", padded=padded)
+    del pad
+    marks["10"] = time.perf_counter() - t_start
 
     # ---- phase 9: mamba2-370m through both schedulers ----
     del model, params, dvi
@@ -1588,11 +1934,15 @@ def main() -> int:
     for row in rows:
         name = row["name"]
         by_path = {"sync": launches.get(name, 0), "continuous": c_launches.get(name, 0),
+                   "learn_sync": learn_s["graphed"]["launches"].get(name, 0),
+                   "learn_continuous": learn_c["graphed"]["launches"].get(name, 0),
                    "mamba2_sync": m_sync.get(name, 0), "mamba2_continuous": m_cont.get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["launches_eager_by_path"] = {
             "sync": runs["eager"]["launches"].get(name, 0), "continuous": c_eager.get(name, 0),
+            "learn_sync": learn_s["eager"]["launches"].get(name, 0),
+            "learn_continuous": learn_c["eager"]["launches"].get(name, 0),
             "mamba2_sync": m_sync_e.get(name, 0), "mamba2_continuous": m_cont_e.get(name, 0)}
     ends = list(marks.values())
     phase(7, f"all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by phase: "

@@ -42,7 +42,7 @@ CELLS = {
 
 def serve(name: str, kw: dict, graphs_on: bool):
     from repro_torch.configs import get_config
-    from repro_torch.core import lora
+    from repro_torch.core import lora, online
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Request, ServingEngine
     cfg = get_config(name, tiny=True)
@@ -53,7 +53,8 @@ def serve(name: str, kw: dict, graphs_on: bool):
     params = model.init(gen)
     dvi = lora.init_draft_params(gen, cfg)
     rng = np.random.default_rng(0)
-    eng = ServingEngine(model, params, dvi, graphs=graphs_on, **kw)
+    eng = ServingEngine(model, params, online.init_trainer(model, dvi_params=dvi),
+                        graphs=graphs_on, learn=False, **kw)
     eng.warmup()
     for i in range(7):
         eng.submit_request(Request(i, rng.integers(2, cfg.vocab_size,

@@ -1,9 +1,9 @@
-"""Online replay ring buffer (paper §3.3), port of ``repro.core.buffer``
-(``init_buffer`` and ``add_block``; sampling comes with the Improve loop).
+"""Online replay ring buffer (paper §3.3), port of ``repro.core.buffer``.
 
 Each logged tuple is one drafted position up to and including the first
 reject: (h_k, h_L, action, reward, block_pos, prev_id).  Everything stays on
-the device and logging needs no host sync.
+the device: logging and sampling need no host sync, and both work on the
+ring in place (a CUDA graph of the block-step holds its tensors' addresses).
 """
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 
 _ROWS = ("h_k", "h_L", "action", "reward", "pos", "prev")
+# the fields of a sampled minibatch, besides its mask
+_BATCH = _ROWS + ("age",)
 
 
 def init_buffer(cfg: ModelConfig, slots: int = 0, dtype=torch.float32,
@@ -69,3 +71,37 @@ def add_block(buf: dict, h_k, h_L, action, reward, pos, prev, valid) -> dict:
     out["count"] = torch.clamp(buf["count"] + total, max=S).to(torch.int32)
     out["gen"] = buf["gen"] + 1
     return out
+
+
+def rows_at(buf: dict, idx: torch.Tensor) -> dict:
+    """The tuples of rank `idx` (N,) counted back from the newest (rank 0 is
+    the last row written), gathered from the ring; rows with ``idx >= count``
+    are masked invalid."""
+    S = buf["h_k"].shape[0]
+    slot = (buf["ptr"].long() - 1 - idx) % S
+    batch = {k: buf[k][slot] for k in _BATCH}
+    batch["mask"] = (idx < buf["count"]).to(torch.float32)
+    return batch
+
+
+def sample(buf: dict, gen: torch.Generator, batch_size: int) -> dict:
+    """Uniform sample (with replacement) of `batch_size` logged tuples,
+    drawn from `gen` without a host sync: rank floor(u * max(count, 1)) for
+    u uniform in [0, 1).  Rows are masked invalid when the buffer is empty,
+    as in the reference (``jax.random.randint(key, (n,), 0, max(count, 1))``;
+    the two generators give different numbers)."""
+    cnt = torch.clamp(buf["count"].long(), min=1)
+    u = torch.rand((batch_size,), generator=gen, dtype=torch.float64,
+                   device=buf["count"].device)
+    idx = torch.minimum((u * cnt).long(), cnt - 1)
+    return rows_at(buf, idx)
+
+
+def fresh_batch(buf: dict, batch_size: int) -> dict:
+    """The most recently written tuples (the on-policy slice, the paper's
+    'fresh'): ranks 0..batch_size-1, valid where written by the last block."""
+    offs = torch.arange(batch_size, device=buf["count"].device)
+    batch = rows_at(buf, offs)
+    fresh = batch["age"] == buf["gen"] - 1
+    batch["mask"] = (fresh & (offs < buf["count"])).to(torch.float32)
+    return batch

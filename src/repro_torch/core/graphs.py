@@ -17,12 +17,15 @@ block with its bookkeeping (``spec.superstep_block`` or
 ``spec.generate_block``) and ends by copying each advanced value back into
 its static buffer (``write_back``), so a replay reads and writes only
 tensors whose addresses the capture saw.  Callers change those buffers in
-place, between replays, and never swap one for a new tensor.
+place, between replays, and never swap one for a new tensor.  The drafter's
+A and B are such inputs too: the Improve loop writes them in place
+(``core.online``), and every dispatch checks on the host, by address, that
+they are still the tensors the runner was made with (``check_drafter``).
 
 * On CUDA with ``graphs=True`` the body first runs once eagerly on a side
   stream (torch's documented warm-up) with every lane done, which changes
-  nothing a later block reads (the sync runner puts the replay buffer's
-  generation back).  So each kernel library's first-call setup (its
+  nothing a later block reads: the replay buffer's ``ptr`` and ``count``
+  stay, and its generation stays or is put back.  So each kernel library's first-call setup (its
   attributes, occupancy, the TMA entry point, lazy module loading) happens
   before the capture.  Then the body is captured once per shape key and
   replayed.
@@ -249,6 +252,20 @@ def graph_stats(steps) -> dict:
                           for s in steps if s.graph is not None]}
 
 
+def drafter_ptrs(dvi_params: dict) -> dict:
+    return {k: t.data_ptr() for k, t in dvi_params.items()}
+
+
+def check_drafter(dvi_params: dict, ptrs: dict) -> None:
+    """Raise unless `dvi_params` holds the tensors at the addresses `ptrs`
+    (``drafter_ptrs`` when the runner was made): a graph replays with the
+    addresses it captured, so a rebound A or B would never be read."""
+    if drafter_ptrs(dvi_params) != ptrs:
+        raise RuntimeError("the drafter's tensors were rebound since the block-step "
+                           "was made: update A and B in place (copy_), never assign new "
+                           "tensors")
+
+
 class SuperstepRunner:
     """The continuous scheduler's block-step over static buffers.
     ``dispatch`` runs a superstep of ``steps`` blocks as ``steps`` calls of
@@ -266,6 +283,7 @@ class SuperstepRunner:
         K = model.cfg.dvi.k_spec
         B = pending.shape[0]
         dev = pending.device
+        self.dvi_params, self.drafter = dvi_params, drafter_ptrs(dvi_params)
         self.cap = cap = sync_every * (K + 1)
         sizes = [B] * len(LANE_COUNTERS) + [K + 1, K + 1, B * cap + 1]
         self.acc = torch.zeros((sum(sizes),), dtype=torch.int32, device=dev)
@@ -295,6 +313,7 @@ class SuperstepRunner:
         the device; the result's tensors are the static buffers, which the
         next dispatch overwrites."""
         st = self.state
+        check_drafter(self.dvi_params, self.drafter)
         upload(st["done"], done)
         upload(st["budget"], budget)
         self.acc.zero_()
@@ -320,6 +339,7 @@ class GenerateRunner:
     def __init__(self, model: Model, params: dict, dvi_params: dict, buf: dict, *,
                  max_new: int, graphs: bool, eos_id: int = 1):
         self.model, self.params, self.dvi_params, self.buf = model, params, dvi_params, buf
+        self.drafter = drafter_ptrs(dvi_params)
         self.max_new, self.eos_id = max_new, eos_id
         self.capture = graphs and _cuda.captures(model.device)
         self.pool = _cuda.new_pool() if self.capture else None
@@ -366,6 +386,7 @@ class GenerateRunner:
         B, Tp = prompts.shape
         if Tp < 2:
             raise ValueError("need at least 2 prompt tokens (one prefill + one pending)")
+        check_drafter(self.dvi_params, self.drafter)
         st, step = self.prepare(B, Tp)
         prompts = prompts.to(torch.int32)
         # the prefill is eager: it fills the static cache in place

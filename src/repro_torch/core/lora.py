@@ -4,7 +4,9 @@
 
 W_S is the frozen verifier head; only (A_s, B_s) train.  The draft path
 reuses the backbone's frozen final RMSNorm on h_k, then the fused
-``lora_logits`` kernel computes the logits in one pass over W_S.
+``lora_logits`` kernel computes the logits in one pass over W_S.  The kernel's
+wrapper is differentiable in (A_s, B_s), so the online loss trains them
+through it.
 """
 from __future__ import annotations
 
@@ -29,9 +31,18 @@ def init_draft_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def draft_logits(model: Model, params: dict, dvi_params: dict,
                  h_k: torch.Tensor) -> torch.Tensor:
-    """h_k (T, d) -> float32 logits (T, V)."""
+    """h_k (T, d) -> float32 logits (T, V).
+
+    The normed h_k is cast to W's dtype, as the kernel takes them in one
+    dtype: a no-op on the serving path, where h_k is in the model dtype; the
+    replay buffer's float32 rows are rounded to bf16 in a bf16 model, where
+    the reference multiplies float32 by bf16 (ROADMAP §3)."""
     cfg = model.cfg
     gamma = cfg.dvi.lora_alpha / cfg.dvi.lora_rank
-    hn = rms_norm(h_k, params["final_norm"], cfg.norm_eps)
-    return ops.lora_logits(hn, model.head_matrix(params), dvi_params["A"],
-                           dvi_params["B"], gamma)
+    w = model.head_matrix(params)
+    hn = rms_norm(h_k, params["final_norm"], cfg.norm_eps).to(w.dtype)
+    return ops.lora_logits(hn, w, dvi_params["A"], dvi_params["B"], gamma)
+
+
+def num_trainable(dvi_params: dict) -> int:
+    return sum(p.numel() for p in dvi_params.values())

@@ -247,9 +247,20 @@ def verify_argmax(h: torch.Tensor, w: torch.Tensor):
 def lora_logits(h: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                 gamma: float) -> torch.Tensor:
     """h (T, d), w (d, V) in the model dtype; a (d, r), b (r, V) float32 ->
-    float32 logits h@w + gamma*(h@a)@b.  u = h@a is formed once per call."""
+    float32 logits h@w + gamma*(h@a)@b.  u = h@a is formed once per call.
+
+    Differentiable in a and b (``LoraLogits``) when autograd records and
+    either requires a gradient; h and w are frozen and get none."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return LoraLogits.apply(h, w, a, b, gamma)
+    return _lora_forward(h, w, a, b, gamma)[0]
+
+
+def _lora_forward(h, w, a, b, gamma):
+    """(logits, u): the kernel on the card, which leaves u = h@a (T, r)
+    float32 in its scratch; the plain version on the CPU, with u None."""
     if _device(h, w, a, b).type == "cpu":
-        return ref.lora_logits(h, w, a, b, gamma)
+        return ref.lora_logits(h, w, a, b, gamma), None
     _need(h.ndim == 2 and w.ndim == 2 and a.ndim == 2 and b.ndim == 2,
           "lora_logits: all operands are 2-D")
     T, d = h.shape
@@ -270,7 +281,37 @@ def lora_logits(h: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tens
             float(gamma), T, d, V, r, is_bf16, int(fast), u.data_ptr(), out.data_ptr(),
             _stream(h.device))
     _count_path("lora_logits", fast)
-    return out
+    return out, u
+
+
+class LoraLogits(torch.autograd.Function):
+    """``lora_logits`` with a backward in the LoRA factors only, as the
+    reference's loss differentiates its draft logits (h and w frozen).  The
+    forward is ``_lora_forward``: the hand-written kernel on the card.  With
+    g = dL/dlogits and u = h@a (kept from the kernel's scratch):
+
+        dB = gamma * u^T g        dA = gamma * h^T (g B^T)
+
+    Both are small float32 products outside any kernel, as the JAX package
+    computes them in plain jnp."""
+
+    @staticmethod
+    def forward(ctx, h, w, a, b, gamma):
+        out, u = _lora_forward(h, w, a, b, gamma)
+        ctx.gamma = gamma
+        ctx.save_for_backward(h, a, b, u if u is not None else torch.empty(0))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, a, b, u = ctx.saved_tensors
+        hf = h.float()
+        if u.numel() == 0:               # the plain version kept no u
+            u = hf @ a
+        gamma = ctx.gamma
+        da = gamma * (hf.T @ (g @ b.T)) if ctx.needs_input_grad[2] else None
+        db = gamma * (u.T @ g) if ctx.needs_input_grad[3] else None
+        return None, None, da, db, None
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Serving engine: port of ``repro.serving.engine``, greedy, fixed depth,
-without online learning.
+"""Continual-learning serving engine: port of ``repro.serving.engine``,
+greedy, at fixed depth.
 
 Two schedulers:
 
@@ -49,27 +49,52 @@ memory cache keeps each staging buffer until its copy has run.  Every
 device op runs on PyTorch's current stream, which orders the in-place lane
 edits of a tick after the superstep still running.
 
-Where the reference engine takes an ``OnlineTrainerState``, this one takes
-the drafter's ``dvi_params`` and an optional replay buffer until the
-Improve loop is ported.  Online learning, chunked prefill, the prefix
-cache and adaptive depth are later slices and raise.
+The engine takes an ``OnlineTrainerState`` (``core.online``): the
+drafter's A and B, its optimizer state, the replay buffer, the baseline and
+the step.  With ``learn=True`` (the default, as in the reference) the
+drafter learns while it serves:
+
+* sync: ``updates_per_batch`` updates after each batch, in place;
+* continuous: an update is dispatched at the end of a harvest once
+  ``update_every`` blocks have run since the last and the buffer holds
+  tuples.  It is not waited for: it writes the new A and B into staging
+  tensors, and the next harvest folds them into the live ones (``copy_``),
+  so the superstep dispatched right after an update still decodes with the
+  old drafter, as the reference's does.  The update runs on the current
+  stream, after the superstep whose tuples it samples and before the next
+  one writes the ring, and adds no host sync: the buffer's count and the
+  staged update metrics ride the harvest's one packed copy, and the
+  metrics reach the ``dvi_train_*`` gauges one harvest after their fold.
+
+Every write of an update is in place: the block-step graphs hold the
+addresses of A, B and the ring, and each dispatch checks that A and B were
+not rebound.  Chunked prefill, the prefix cache and adaptive depth are
+later slices and raise.
 """
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core import buffer as buffer_mod
 from repro_torch.core import graphs as graphs_mod
+from repro_torch.core import online as online_mod
+from repro_torch.core import schedule as schedule_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model import Model
 from repro_torch.serving.handles import QueueFull, RequestHandle, TenantQueue
 from repro_torch.serving.kv_pool import KVPool
 from repro_torch.serving.telemetry import ServingTelemetry
+
+
+# an update's metrics as the engine stages them: one float32 vector in this
+# order, which rides the harvest's packed copy to the host
+TRAIN_KEYS = ("loss", "kl", "l_pg", "pg_on", "lam_pg", "lam_kl", "beta", "acc_rate",
+              "baseline_before", "baseline_after", "buffer_count", "gnorm")
 
 
 @dataclass
@@ -109,16 +134,19 @@ class _Slot:
 class ServingEngine:
     model: Model
     params: dict
-    dvi_params: dict
-    buf: Optional[dict] = None    # replay buffer (made on first use if None)
+    state: online_mod.OnlineTrainerState
     scheduler: str = "sync"       # "sync" | "continuous"
     num_slots: int = 8            # continuous: lanes in the decode batch
     batch_size: int = 8           # sync: requests per batch
     max_new: int = 64             # default / cap for generation length
     buckets: tuple = (16, 32, 64, 128)
+    updates_per_batch: int = 1    # sync: drafter updates after each batch
+    update_every: int = 4         # continuous: blocks between drafter updates
     sync_every: int = 1           # continuous: blocks fused per device sync
     latency_window: int = 4096    # rolling window of completion latencies
-    learn: bool = False
+    learn: bool = True
+    lr: float = 1e-3
+    mode: str = "full"            # the loss: "full" (KL->RL) | "kl" | "pg" | "ce"
     eos_id: int = 1               # continuous path (the sync path stops at 1)
     cache_len: int = 0            # continuous cache capacity (0 = derive)
     kv_pages: int = 0             # >0: paged KV pool with this many pages
@@ -140,9 +168,9 @@ class ServingEngine:
         K = cfg.dvi.k_spec
         if self.scheduler not in ("sync", "continuous"):
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
-        if self.learn:
-            raise NotImplementedError("online drafter updates (the Improve loop) "
-                                      "are a later slice of the port (ROADMAP item 7)")
+        if not isinstance(self.state, online_mod.OnlineTrainerState):
+            raise TypeError("the third argument is the drafter's OnlineTrainerState "
+                            "(core.online.init_trainer)")
         for name, on in (("prefill_chunk", self.prefill_chunk > 0),
                          ("prefix_cache", self.prefix_cache),
                          ("adaptive_k", self.adaptive_k)):
@@ -152,9 +180,20 @@ class ServingEngine:
         self._k_worst = K
         self._cap = self.cache_len or (max(self.buckets) + self.max_new + K + 2
                                        + tfm.RING_SLACK)
-        if self.buf is None:
-            self.buf = buffer_mod.init_buffer(cfg, device=self.model.device)
         self.sync_every = max(1, int(self.sync_every))
+        # the Improve loop: the update and its generator; the continuous
+        # path's staging tensors for A and B, made on first use
+        self._update_fn = online_mod.make_update_fn(self.model, self.mode, self.lr)
+        self._gen = torch.Generator(device=self.model.device).manual_seed(1234)
+        self._staging: Optional[dict] = None
+        self._blocks_since_update = 0
+        # (metrics vector, dispatch time, step) of an update not yet folded
+        self._update_inflight: Optional[tuple] = None
+        # host mirror of the optimizer step (drives the schedule gauges
+        # without touching the device) and a bounded per-update history
+        self._step_host = int(self.state.step)
+        self.train_history: deque = deque(maxlen=1024)
+        self._train_staged = None      # (metrics vector, t_disp, t_fold, step)
 
         # sync state: prompt-length buckets
         self._queue: Dict[int, List[Request]] = {}
@@ -250,6 +289,11 @@ class ServingEngine:
         if len(p) < bucket:                      # left-pad by repeating BOS
             p = np.concatenate([np.full(bucket - len(p), p[0], p.dtype), p])
         return p
+
+    @property
+    def buf(self) -> dict:
+        """The replay buffer (the trainer state's)."""
+        return self.state.buf
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the model's device without blocking the host:
@@ -360,6 +404,128 @@ class ServingEngine:
                 self._cancel_lane(s)
 
     # ------------------------------------------------------------------
+    # drafter updates (the Improve loop)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _pack(metrics: dict) -> torch.Tensor:
+        return torch.stack([metrics[k].to(torch.float32) for k in TRAIN_KEYS])
+
+    def _drafter_update(self, n: int) -> None:
+        """Sync path: `n` updates after a batch, written into the live A and
+        B in place.  The metrics stay on the device; ``train_telemetry()``
+        materialises the last one off the hot path."""
+        for _ in range(n):
+            t_disp = self.clock()
+            step_u = self._step_host
+            m = self._update_fn(self.params, self.state, self._gen)
+            self.stats["updates"] += 1
+            self._note_update_dispatched()
+            self._train_staged = (self._pack(m), t_disp, self.clock(), step_u)
+
+    def _dispatch_update(self, buf_count: int) -> None:
+        """Continuous path: dispatch one update without waiting for it.  The
+        new A and B go to the staging tensors; the next harvest folds them
+        in.  The optimizer's moments, the baseline and the step advance in
+        place now: nothing reads them before the fold."""
+        if self._staging is None:
+            self._staging = {k: torch.empty_like(t) for k, t in self.state.dvi_params.items()}
+        t_disp = self.clock()
+        step_u = self._step_host
+        m = self._update_fn(self.params, self.state, self._gen, out=self._staging)
+        self._update_inflight = (self._pack(m), t_disp, step_u)
+        self.stats["updates"] += 1
+        self._note_update_dispatched()
+        self.telem.g_buffer.set(buf_count)
+        tr = self.telem.tracer
+        if tr is not None:
+            tr.instant(self.telem.tid_train, "update_dispatch", t_disp,
+                       args={"step": step_u, "buffer": buf_count}, cat="train")
+
+    def _fold_update(self):
+        """Fold a dispatched update's A and B into the live tensors (queued
+        behind the superstep that decoded with the old ones).  Returns its
+        note (metrics vector, dispatch time, fold time, step), or None."""
+        if self._update_inflight is None:
+            return None
+        m_vec, t_disp, step_u = self._update_inflight
+        self._update_inflight = None
+        for k, t in self.state.dvi_params.items():
+            t.copy_(self._staging[k])
+        t_fold = self.clock()
+        # dispatch -> fold: how long the engine decoded on the old drafter
+        self.telem.h_update_span.observe(t_fold - t_disp)
+        tr = self.telem.tracer
+        if tr is not None:
+            tr.span(self.telem.tid_train, f"drafter_update t{step_u}", t_disp, t_fold,
+                    args={"step": step_u}, cat="train")
+        return m_vec, t_disp, t_fold, step_u
+
+    def _note_update_dispatched(self) -> None:
+        """Advance the host step mirror and the schedule gauges: host math
+        (``schedule.phase_info``), no device touch."""
+        self._step_host += 1
+        ph = schedule_mod.phase_info(self._step_host, self.model.cfg.dvi)
+        t = self.telem
+        t.g_step.set(self._step_host)
+        t.g_phase.set(ph["phase"])
+        t.g_lambda_pg.set(ph["lambda_pg"])
+        t.g_lambda_kl.set(ph["lambda_kl"])
+        t.g_beta.set(ph["beta"])
+
+    def _fold_train_metrics(self, m: dict, t_disp: float, t_fold: float,
+                            step_u: int) -> None:
+        """Publish one update's metrics (host floats) into the
+        ``dvi_train_*`` gauges and the bounded history."""
+        t = self.telem
+        t.g_loss.set(m["loss"])
+        t.g_loss_kl.set(m["kl"])
+        t.g_loss_ce.set(m["l_pg"])       # reward-masked CE component
+        t.g_loss_pg.set(m["pg_on"])      # on-policy policy-gradient term
+        t.g_lambda_pg.set(m["lam_pg"])
+        t.g_lambda_kl.set(m["lam_kl"])
+        t.g_beta.set(m["beta"])
+        t.g_acc_batch.set(m["acc_rate"])
+        t.g_ema_before.set(m["baseline_before"])
+        t.g_ema_after.set(m["baseline_after"])
+        t.g_buffer.set(m["buffer_count"])
+        t.g_gnorm.set(m["gnorm"])
+        self.train_history.append({
+            "step": step_u,
+            "phase": schedule_mod.phase_info(step_u, self.model.cfg.dvi)["phase"],
+            "loss": m["loss"], "loss_kl": m["kl"], "loss_ce": m["l_pg"],
+            "loss_pg": m["pg_on"], "acceptance_batch": m["acc_rate"],
+            "ema_before": m["baseline_before"], "ema_after": m["baseline_after"],
+            "buffer_count": m["buffer_count"], "span_s": t_fold - t_disp})
+
+    def train_telemetry(self) -> dict:
+        """The training loop's telemetry: schedule phase, the loss
+        components, the acceptance EMA around updates and the bounded
+        per-update ``history``.  Materialises a still-staged update's
+        metrics, which synchronises: call it off the serving hot path."""
+        if self._train_staged is not None:
+            m_vec, t_disp, t_fold, step_u = self._train_staged
+            self._train_staged = None
+            self._fold_train_metrics(dict(zip(TRAIN_KEYS, m_vec.cpu().tolist())),
+                                     t_disp, t_fold, step_u)
+        t = self.telem
+        ph = schedule_mod.phase_info(self._step_host, self.model.cfg.dvi)
+        return {
+            "updates": int(self.stats["updates"]),
+            "step": self._step_host,
+            "phase": ph["phase"], "phase_name": ph["phase_name"],
+            "lambda_pg": ph["lambda_pg"], "lambda_kl": ph["lambda_kl"],
+            "beta": ph["beta"],
+            "loss": t.g_loss.value, "loss_kl": t.g_loss_kl.value,
+            "loss_ce": t.g_loss_ce.value, "loss_pg": t.g_loss_pg.value,
+            "acceptance_batch": t.g_acc_batch.value,
+            "acceptance_ema_before": t.g_ema_before.value,
+            "acceptance_ema_after": t.g_ema_after.value,
+            "buffer_count": t.g_buffer.value,
+            "history": list(self.train_history),
+        }
+
+    # ------------------------------------------------------------------
     # the sync scheduler
     # ------------------------------------------------------------------
 
@@ -388,7 +554,9 @@ class ServingEngine:
                                   dtype=torch.int32, device=dev)
 
         t0 = self.clock()
-        res = self._ensure_runner().generate(prompts, live)
+        runner = self._ensure_runner()
+        graphs_mod.check_drafter(self.state.dvi_params, runner.drafter)
+        res = runner.generate(prompts, live)
         # copies: the result is the runner's static buffers, which the next
         # batch of this shape overwrites (on the CPU .cpu() would alias them)
         toks = res.tokens.cpu().numpy().copy()
@@ -403,6 +571,8 @@ class ServingEngine:
         self.stats["committed"] += committed
         self.stats["accepted"] += int(res.accepted_drafts)
         self.stats["drafted"] += int(res.drafted)
+        if self.learn:                   # in place: the next batch drafts with it
+            self._drafter_update(self.updates_per_batch)
 
         outs = []
         for i, r in enumerate(reqs[:n_real]):
@@ -618,6 +788,7 @@ class ServingEngine:
         # the runner advances the engine's pending tokens, cache and replay
         # buffer in place; every later device op of the engine is queued
         # behind the superstep on the same stream
+        graphs_mod.check_drafter(self.state.dvi_params, self._runner.drafter)
         res = self._runner.dispatch(self._done, budget, steps)
         lanes = [s for s, st in enumerate(self._slots) if st is not None]
         now = self.clock()
@@ -629,28 +800,46 @@ class ServingEngine:
     def _harvest(self) -> List[Completion]:
         """Bring the in-flight superstep's summary to the host in ONE packed
         device-to-host copy (the only sync of the continuous hot path), fold
-        it into the host bookkeeping and retire finished lanes."""
+        it into the host bookkeeping, retire finished lanes and manage the
+        drafter's updates.  A dispatched update is folded first, even with
+        no superstep in flight, so the last update of a burst is never
+        dropped; the buffer's count and a staged update's metrics ride the
+        same copy (they are materialised one harvest after their fold, when
+        the update has run)."""
+        fold_note = self._fold_update()
         if self._inflight is None:
+            if fold_note is not None:
+                self._train_staged = fold_note
             return []
         res, clock_mark, lanes, t_disp_wall = self._inflight
         self._inflight = None
+        staged = self._train_staged
         B, K = self.num_slots, self._k_worst
-        parts = (res.done, res.gen_count, res.lane_blocks, res.lane_committed,
-                 res.lane_accepted, res.lane_drafted, res.accept_hist, res.depth_hist,
-                 res.gen_buf)
+        parts = [p.reshape(-1).to(torch.int32) for p in (
+            res.done, res.gen_count, res.lane_blocks, res.lane_committed, res.lane_accepted,
+            res.lane_drafted, res.accept_hist, res.depth_hist, res.buffer["count"])]
+        n_train = 0 if staged is None else len(TRAIN_KEYS)
+        if staged is not None:           # float32 bits, read back as float32
+            parts.append(staged[0].view(torch.int32))
+        parts.append(res.gen_buf.reshape(-1))
         tr = self.telem.tracer
         t0 = self.clock()
-        flat = torch.cat([p.reshape(-1).to(torch.int32) for p in parts]).cpu().numpy()
+        flat = torch.cat(parts).cpu().numpy()
         now = self.clock()
         (done_np, cnt_np, blocks_np, committed_np, accepted_np, drafted_np,
-         ahist_np, dhist_np, gen_np) = np.split(
-            flat, np.cumsum([B, B, B, B, B, B, K + 1, K + 1]))
+         ahist_np, dhist_np, count_np, train_np, gen_np) = np.split(
+            flat, np.cumsum([B, B, B, B, B, B, K + 1, K + 1, 1, n_train]))
         gen_np = gen_np.reshape(B, -1)
+        buf_count = int(count_np[0])
         self.stats["host_syncs"] += 1
         self.stats["sync_wait_s"] += now - t0
         self.telem.h_sync_wait.observe(now - t0)
         if tr is not None:
             tr.span(self.telem.tid_engine, "sync_wait", t0, now)
+        if staged is not None:
+            self._fold_train_metrics(dict(zip(TRAIN_KEYS, train_np.view(np.float32).tolist())),
+                                     *staged[1:])
+            self._train_staged = None
         for i, n in enumerate(ahist_np):
             self.telem.h_block_accept.add(int(i), int(n))
         for i, n in enumerate(dhist_np):
@@ -704,6 +893,14 @@ class ServingEngine:
             km = float(np.mean(k_seen))
             self.stats["k_mean"].append(km)
             self.telem.g_depth_mean.set(km)
+        # the drafter's update cadence: dispatched now, folded at the next
+        # harvest; the superstep dispatched this tick decodes on the old A, B
+        self._blocks_since_update += int(blocks_np.max(initial=0))
+        if self.learn and self._blocks_since_update >= self.update_every and buf_count > 0:
+            self._blocks_since_update = 0
+            self._dispatch_update(buf_count)
+        if fold_note is not None:
+            self._train_staged = fold_note
         return outs
 
     def _step_continuous(self) -> List[Completion]:
@@ -766,14 +963,15 @@ class ServingEngine:
             return self._runner
         if self.scheduler == "sync":
             self._runner = graphs_mod.GenerateRunner(
-                self.model, self.params, self.dvi_params, self.buf,
+                self.model, self.params, self.state.dvi_params, self.state.buf,
                 max_new=int(self.max_new), graphs=self.graphs)
             return self._runner
         self._cache = (self.model.init_paged_cache(self.num_slots, self.kv_pages,
                                                    self.kv_page_size, self._mps)
                        if self.paged else self.model.init_cache(self.num_slots, self._cap))
         self._runner = graphs_mod.SuperstepRunner(
-            self.model, self.params, self.dvi_params, self._pending, self._cache, self.buf,
+            self.model, self.params, self.state.dvi_params, self._pending, self._cache,
+            self.state.buf,
             sync_every=self.sync_every, eos_id=self.eos_id, graphs=self.graphs)
         return self._runner
 
@@ -805,8 +1003,10 @@ class ServingEngine:
 
     @property
     def busy(self) -> bool:
+        # a dispatched update keeps the engine busy, so that run() steps
+        # once more and the burst's last update is folded
         return (bool(self._tq) or self.active_slots > 0 or self._inflight is not None
-                or any(self._queue.values()))
+                or self._update_inflight is not None or any(self._queue.values()))
 
     def run(self, max_steps: int = 10**9) -> List[Completion]:
         done: List[Completion] = []
@@ -821,10 +1021,12 @@ class ServingEngine:
     # ------------------------------------------------------------------
 
     def reset_stats(self) -> None:
-        """Zero every registry metric and rolling window (e.g. after a
-        warm-up run); live lanes are untouched."""
+        """Zero every registry metric, rolling window and the training
+        history (e.g. after a warm-up run); live lanes and the drafter's
+        state are untouched."""
         self.telem.registry.reset()
         self.stats.reset()
+        self.train_history.clear()
 
     @property
     def acceptance(self) -> float:
@@ -833,6 +1035,12 @@ class ServingEngine:
     def metrics_snapshot(self) -> dict:
         """JSON-able snapshot of every registry metric (schema: telemetry.py)."""
         return self.telem.snapshot()
+
+    def render_prometheus(self) -> str:
+        return self.telem.render_prometheus()
+
+    def write_metrics(self, path: str) -> None:
+        self.telem.write_metrics(path)
 
     def trace_dict(self) -> Optional[dict]:
         """The Chrome-trace dict (``telemetry=True`` runs only)."""

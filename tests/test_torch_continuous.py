@@ -25,6 +25,7 @@ from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
 from repro_torch import weights  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import online as tonline  # noqa: E402
 from repro_torch.core import spec as tspec  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -48,6 +49,11 @@ def _requests(cfg, n, seed=0):
                                           cfg.vocab_size), np.int32)
         reqs.append((i, p, mn))
     return reqs
+
+
+def _state(model, dvi):
+    """A trainer state around the drafter `dvi` (an empty replay buffer)."""
+    return tonline.init_trainer(model, dvi_params=dvi)
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +84,7 @@ def runs(setup):
     out = {}
     for cell, kw in CELLS.items():
         eng_j = JEngine(model_j, params_j, state, learn=False, **KW, **kw)
-        eng_t = ServingEngine(model_t, params_t, dvi_t, **KW, **kw)
+        eng_t = ServingEngine(model_t, params_t, _state(model_t, dvi_t), learn=False, **KW, **kw)
         for uid, p, mn in reqs:
             eng_j.submit_request(JRequest(uid, p, max_new=mn))
             eng_t.submit_request(Request(uid, p, max_new=mn))
@@ -132,7 +138,8 @@ def test_cancel_leaves_other_lanes_unchanged(setup, runs):
     at a superstep boundary; every other request's stream is the one of the
     run without cancels, and the pool ends empty."""
     _, _, _, _, _, model_t, params_t, dvi_t, reqs = setup
-    eng = ServingEngine(model_t, params_t, dvi_t, **KW, kv_pages=40)
+    eng = ServingEngine(model_t, params_t, _state(model_t, dvi_t), learn=False, **KW,
+                        kv_pages=40)
     handles = {uid: eng.submit_request(Request(uid, p, max_new=mn)) for uid, p, mn in reqs}
     outs = eng.step() + eng.step()             # uid 1 is live, uid 6 queued
     assert handles[1].cancel() and handles[6].cancel()
@@ -153,7 +160,8 @@ def test_tracer_changes_nothing(setup, runs):
     the same streams with the same host syncs, and the trace is valid."""
     from repro_torch.serving.telemetry import validate_trace
     _, _, _, _, _, model_t, params_t, dvi_t, reqs = setup
-    eng = ServingEngine(model_t, params_t, dvi_t, **KW, **CELLS["paged14"], telemetry=True)
+    eng = ServingEngine(model_t, params_t, _state(model_t, dvi_t), learn=False, **KW,
+                        **CELLS["paged14"], telemetry=True)
     for uid, p, mn in reqs:
         eng.submit_request(Request(uid, p, max_new=mn))
     outs = eng.run(max_steps=1000)
@@ -170,7 +178,7 @@ def test_tracer_changes_nothing(setup, runs):
 def test_engine_rejects_bad_config(setup):
     _, _, _, _, _, model_t, params_t, dvi_t, _ = setup
     with pytest.raises(ValueError):          # the sync scheduler has no pool
-        ServingEngine(model_t, params_t, dvi_t, scheduler="sync", kv_pages=8)
+        ServingEngine(model_t, params_t, _state(model_t, dvi_t), scheduler="sync", kv_pages=8)
     with pytest.raises(ValueError):          # one request must fit the pool
-        ServingEngine(model_t, params_t, dvi_t, scheduler="continuous", cache_len=40,
-                      kv_pages=2, kv_page_size=4)
+        ServingEngine(model_t, params_t, _state(model_t, dvi_t), scheduler="continuous",
+                      cache_len=40, kv_pages=2, kv_page_size=4)

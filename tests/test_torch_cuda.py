@@ -6,8 +6,12 @@ the attention kernels' split of a lane over 1, 2, 4 and 8 CTAs at its edges),
 in float32 and bfloat16, the SSD scan at odd chunk lengths, with padded
 rows, a carried h0, strided inputs and every slice width of its hd split,
 plus the greedy sync path and the continuous paged
-path on the card, mamba2-370m-tiny's greedy path in bfloat16, and the
-engines' block-step replayed from CUDA graphs against the eager block-step.
+path on the card, mamba2-370m-tiny's greedy path in bfloat16, the
+engines' block-step replayed from CUDA graphs against the eager block-step,
+and the Improve loop on the card: the differentiable ``lora_logits``
+against autograd through its plain version, one update step against the
+same step on the CPU, the update without a host sync, and a graphed
+learning engine against the eager one.
 
 These tests need an NVIDIA GPU and skip without one.  The machine with the
 card has no JAX, so run them there without the suite's conftest:
@@ -413,7 +417,7 @@ def test_continuous_paged_path_on_the_card(ops):
     synchronising operation, and every launch is accounted for by the
     per-block formula (no contiguous decode_attention)."""
     from repro_torch.configs import get_config
-    from repro_torch.core import lora, spec
+    from repro_torch.core import lora, online, spec
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Request, ServingEngine
     cfg = get_config("vicuna-7b", tiny=True).replace(dtype="float32")
@@ -424,8 +428,9 @@ def test_continuous_paged_path_on_the_card(ops):
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(2, cfg.vocab_size, size=int(rng.choice([6, 9, 12])))
                     .astype(np.int32), max_new=int(rng.choice([6, 10, 16]))) for i in range(7)]
-    eng = ServingEngine(model, params, dvi, scheduler="continuous", num_slots=3, max_new=16,
-                        cache_len=40, kv_pages=14, kv_page_size=4, sync_every=3)
+    eng = ServingEngine(model, params, online.init_trainer(model, dvi_params=dvi),
+                        scheduler="continuous", num_slots=3, max_new=16, cache_len=40,
+                        kv_pages=14, kv_page_size=4, sync_every=3, learn=False)
     eng.warmup()                   # the graph's capture and warm-up block, not counted
     inner, iters = eng._dispatch_superstep, []
 
@@ -613,7 +618,7 @@ def _graph_engine_run(name, kw, graphs_on, ops, around=None):
     `around()` when given): (streams, stats, launches, engine)."""
     import contextlib
     from repro_torch.configs import get_config
-    from repro_torch.core import lora
+    from repro_torch.core import lora, online
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Request, ServingEngine
     cfg = get_config(name, tiny=True)
@@ -626,7 +631,8 @@ def _graph_engine_run(name, kw, graphs_on, ops, around=None):
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(2, cfg.vocab_size, size=int(rng.choice([6, 9, 12])))
                     .astype(np.int32), max_new=int(rng.choice([6, 10, 16]))) for i in range(7)]
-    eng = ServingEngine(model, params, dvi, graphs=graphs_on, **kw)
+    eng = ServingEngine(model, params, online.init_trainer(model, dvi_params=dvi),
+                        graphs=graphs_on, learn=False, **kw)
     eng.warmup()
     for r in reqs:
         eng.submit_request(r)
@@ -708,3 +714,158 @@ def test_failed_capture_raises(ops):
         graphs.StepGraph(body, capture=True)
     torch.cuda.synchronize()
     assert ops.launches["verify_argmax"] == 1     # the warm-up's launch alone
+
+
+# ---------------------------------------------------------------------------
+# the Improve loop on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r", [1, 64])
+@pytest.mark.parametrize("T", [1, 8, 64, 65, 256, 512])
+def test_lora_logits_gradient(ops, T, r):
+    """The autograd.Function over the kernel (bf16 h and w, as the update
+    feeds it) against autograd through ref.lora_logits: the forward within
+    the kernel's bf16 tolerance, dA and dB within float32 summation order
+    (rtol 1e-4, atol 1e-4 x the gradient's largest entry); one launch."""
+    from repro_torch.kernels import ref
+    d, V = 1024, 4000
+    gen = torch.Generator(device="cuda").manual_seed(T * 7 + r)
+    h = _randn(gen, T, d, dtype=torch.bfloat16)
+    w = _randn(gen, d, V, dtype=torch.bfloat16, scale=d ** -0.5)
+    a = _randn(gen, d, r, scale=d ** -0.5).requires_grad_()
+    b = _randn(gen, r, V, scale=0.05).requires_grad_()
+    G = _randn(gen, T, V)
+    ops.reset_launches()
+    out = ops.lora_logits(h, w, a, b, 2.0)
+    assert ops.launches["lora_logits"] == 1 and out.requires_grad
+    (out * G).sum().backward()
+    da, db = a.grad.clone(), b.grad.clone()
+    a.grad = b.grad = None
+    plain = ref.lora_logits(h, w, a, b, 2.0)
+    (plain * G).sum().backward()
+    torch.testing.assert_close(out, plain.detach(), rtol=2e-3, atol=1e-3)
+    for got, want in ((da, a.grad), (db, b.grad)):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+    assert ops.launches["lora_logits"] == 1      # the backward launches none
+
+
+def _update_setup(device):
+    """Tiny vicuna in float32 with the same weights on `device` (drawn on the
+    card, copied), a LoRA head with B != 0 and a replay buffer of random
+    tuples; returns (model, params, state)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import online
+    from repro_torch.models.model import build_model
+    cfg = get_config("vicuna-7b", tiny=True).replace(dtype="float32")
+    model = build_model(cfg, device=device)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = build_model(cfg).init(gen)
+    params = {k: ({n: {kk: t.to(device) for kk, t in seg.items()} for n, seg in v.items()}
+                  if k == "segments" else v.to(device)) for k, v in params.items()}
+    rng = np.random.default_rng(0)
+    d, V, r, S = cfg.d_model, cfg.vocab_size, cfg.dvi.lora_rank, cfg.dvi.buffer_slots
+    dvi = {"A": torch.tensor(rng.standard_normal((d, r)) / np.sqrt(d), dtype=torch.float32),
+           "B": torch.tensor(rng.standard_normal((r, V)) * 0.05, dtype=torch.float32)}
+    state = online.init_trainer(model, dvi_params={k: v.to(device) for k, v in dvi.items()})
+    rows = {"h_k": rng.standard_normal((S, d)), "h_L": rng.standard_normal((S, d)),
+            "action": rng.integers(0, V, S), "reward": rng.random(S) < 0.6,
+            "pos": rng.integers(1, 5, S), "prev": rng.integers(0, V, S),
+            "age": rng.integers(3, 5, S)}
+    for k, v in rows.items():
+        state.buf[k].copy_(torch.tensor(v))
+    for k, v in (("ptr", 300), ("count", 300), ("gen", 5)):
+        state.buf[k].fill_(v)
+    state.step.fill_(350)                     # inside the KL->RL ramp
+    return model, params, state
+
+
+def test_update_step_on_the_card_matches_the_cpu(ops, monkeypatch):
+    """One make_update_fn step on the card (the lora_logits kernel in the
+    forward, two launches) against the same step on the CPU (the plain
+    version), the sampler pinned: metrics and the new A, B within float32
+    tolerance (rtol 1e-4: the card's and the CPU's summation orders)."""
+    from repro_torch.core import buffer, online
+
+    def pinned(buf, gen, n):
+        cnt = torch.clamp(buf["count"].long(), min=1)
+        return buffer.rows_at(buf, (torch.arange(n, device=cnt.device) * 37 + 11) % cnt)
+
+    monkeypatch.setattr(buffer, "sample", pinned)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model, params, state = _update_setup(device)
+        ops.reset_launches()
+        m = online.make_update_fn(model, "full", 1e-3)(params, state,
+                                                       torch.Generator(device=device))
+        out[device] = ({k: float(v) for k, v in m.items()},
+                       {k: v.cpu() for k, v in state.dvi_params.items()},
+                       dict(ops.launches))
+    (m_g, ab_g, launches), (m_c, ab_c, _) = out["cuda"], out["cpu"]
+    assert launches["lora_logits"] == 2
+    for k, v in m_c.items():
+        assert m_g[k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
+    for k in ("A", "B"):
+        torch.testing.assert_close(ab_g[k], ab_c[k], rtol=1e-4, atol=1e-6)
+
+
+def test_update_dispatch_adds_no_host_sync(ops):
+    """The update (the real sampler, its staging output) runs under sync
+    debug mode "error": no operation in it synchronises with the host."""
+    from repro_torch.core import online
+    model, params, state = _update_setup("cuda")
+    update = online.make_update_fn(model, "full", 1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    staging = {k: torch.empty_like(v) for k, v in state.dvi_params.items()}
+    before = {k: v.clone() for k, v in state.dvi_params.items()}
+    update(params, state, gen, out=staging)           # first call: lazy set-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = update(params, state, gen, out=staging)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(v)) for v in m.values()) and int(state.step) == 352
+    for k, v in state.dvi_params.items():
+        assert torch.equal(v, before[k])               # the live A, B wait for the fold
+        assert not torch.equal(staging[k], before[k])
+
+
+@pytest.mark.parametrize("cell", ["vicuna_paged", "vicuna_sync"])
+def test_graphed_learning_engine_matches_eager(ops, cell):
+    """learn=True with graphs on and off on the card: bit-identical streams,
+    update counts and final drafter state (A, B, moments, baseline, step);
+    A and B keep their addresses."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import graphs, lora, online
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    name, kw = GRAPH_CELLS[cell]
+    cfg = get_config(name, tiny=True).replace(dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    dvi = lora.init_draft_params(gen, cfg)
+    res = {}
+    for graphs_on in (False, True):
+        state = online.init_trainer(model, dvi_params={k: v.clone() for k, v in dvi.items()})
+        eng = ServingEngine(model, params, state, graphs=graphs_on, update_every=2, **kw)
+        ptrs = graphs.drafter_ptrs(state.dvi_params)
+        eng.warmup()
+        rng = np.random.default_rng(0)
+        for i in range(7):
+            eng.submit_request(Request(i, rng.integers(2, cfg.vocab_size,
+                                                       size=int(rng.choice([6, 9, 12])))
+                                       .astype(np.int32), max_new=int(rng.choice([6, 10, 16]))))
+        outs = {c.uid: c.gen_tokens.tolist() for c in eng.run(max_steps=1000)}
+        torch.cuda.synchronize()
+        assert graphs.drafter_ptrs(state.dvi_params) == ptrs and eng.stats["updates"] > 0
+        res[graphs_on] = (outs, eng.stats["updates"], state)
+    (o_e, u_e, s_e), (o_g, u_g, s_g) = res[False], res[True]
+    assert o_g == o_e and u_g == u_e
+    for k in ("A", "B"):
+        assert torch.equal(s_g.dvi_params[k], s_e.dvi_params[k]), k
+        assert torch.equal(s_g.opt_state["m"][k], s_e.opt_state["m"][k]), k
+        assert torch.equal(s_g.opt_state["v"][k], s_e.opt_state["v"][k]), k
+    assert torch.equal(s_g.baseline, s_e.baseline) and torch.equal(s_g.step, s_e.step)

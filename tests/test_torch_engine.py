@@ -15,6 +15,7 @@ from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
 from repro_torch import weights  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import online as tonline  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
@@ -37,7 +38,8 @@ def engines():
     params_t = weights.params_from_numpy(cfg_t, jax.tree.map(np.asarray, params_j), "cpu")
     dvi_t = weights.draft_params_from_numpy(jax.tree.map(np.asarray, state.dvi_params), "cpu")
     eng_j = JEngine(model_j, params_j, state, scheduler="sync", learn=False, **KW)
-    eng_t = ServingEngine(model_t, params_t, dvi_t, **KW)
+    eng_t = ServingEngine(model_t, params_t, tonline.init_trainer(model_t, dvi_params=dvi_t),
+                          learn=False, **KW)
     rng = np.random.default_rng(1)
     for uid, (n, max_new) in enumerate(PROMPTS):
         prompt = rng.integers(2, cfg_t.vocab_size, size=n).astype(np.int32)
@@ -75,9 +77,11 @@ def test_later_slices_raise():
     model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     dvi = {"A": torch.zeros(cfg.d_model, 1), "B": torch.zeros(1, cfg.vocab_size)}
-    for kw in (dict(learn=True), dict(prefill_chunk=8), dict(prefix_cache=True),
-               dict(adaptive_k=True)):
+    state = tonline.init_trainer(model, dvi_params=dvi)
+    for kw in (dict(prefill_chunk=8), dict(prefix_cache=True), dict(adaptive_k=True)):
         with pytest.raises(NotImplementedError):
-            ServingEngine(model, params, dvi, scheduler="continuous", kv_pages=64, **kw)
-    eng = ServingEngine(model, params, dvi, batch_size=2, max_new=3)
+            ServingEngine(model, params, state, scheduler="continuous", kv_pages=64, **kw)
+    with pytest.raises(TypeError):           # the drafter comes in a trainer state
+        ServingEngine(model, params, dvi)
+    eng = ServingEngine(model, params, state, batch_size=2, max_new=3)
     assert eng.step() == [] and eng.run() == []

@@ -36,6 +36,7 @@ from repro_torch import weights  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import buffer as buffer_mod  # noqa: E402
 from repro_torch.core import graphs, spec  # noqa: E402
+from repro_torch.core import online as tonline  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -246,7 +247,8 @@ ENGINE_CELLS = {
 def _serve(model, params, dvi, kw, reqs, graphs_on, cancel=()):
     """Serve `reqs`; after the first tick cancel the requests in `cancel`.
     Returns (engine, {uid: generated tokens}, handles)."""
-    eng = ServingEngine(model, params, dvi, graphs=graphs_on, **kw)
+    eng = ServingEngine(model, params, tonline.init_trainer(model, dvi_params=dvi),
+                        graphs=graphs_on, learn=False, **kw)
     eng.warmup()
     handles = {uid: eng.submit_request(Request(uid, p, max_new=mn)) for uid, p, mn in reqs}
     outs = eng.step()
@@ -307,7 +309,8 @@ def test_static_buffers_stay_put(models, monkeypatch):
     monkeypatch.setattr(graphs, "_cuda", FakeCuda())
     model, params, dvi = models["vicuna-7b"]
     kw = ENGINE_CELLS["vicuna_paged14"][1]
-    eng = ServingEngine(model, params, dvi, **kw)
+    eng = ServingEngine(model, params, tonline.init_trainer(model, dvi_params=dvi),
+                        learn=False, **kw)
     eng.warmup()
     runner = eng._runner
     before = _static_leaves(runner.state)
@@ -329,7 +332,8 @@ def test_static_buffers_stay_put(models, monkeypatch):
         for key, (t, ptr) in now.items():
             assert t is before[key][0] and ptr == before[key][1], key
     assert eng.stats["preemptions"] > 0 and eng.stats["cancelled"] == 1 and not eng.busy
-    eng = ServingEngine(model, params, dvi, **ENGINE_CELLS["vicuna_sync"][1])
+    eng = ServingEngine(model, params, tonline.init_trainer(model, dvi_params=dvi),
+                        learn=False, **ENGINE_CELLS["vicuna_sync"][1])
     for uid, p, mn in _requests(model.cfg.vocab_size, 5):
         eng.submit_request(Request(uid, p, max_new=mn))
     eng.step()
@@ -364,7 +368,8 @@ def test_engine_with_graphs_matches_jax_on_cancels():
     dvi_t = weights.draft_params_from_numpy(jax.tree.map(np.asarray, state.dvi_params), "cpu")
     kw = ENGINE_CELLS["vicuna_paged14"][1]
     eng_j = JEngine(model_j, params_j, state, learn=False, **kw)
-    eng_t = ServingEngine(model_t, params_t, dvi_t, **kw)
+    eng_t = ServingEngine(model_t, params_t, tonline.init_trainer(model_t, dvi_params=dvi_t),
+                          learn=False, **kw)
     assert eng_t.graphs
     reqs = _requests(cfg_t.vocab_size, 7)
     hj = {uid: eng_j.submit_request(JRequest(uid, p, max_new=mn)) for uid, p, mn in reqs}
@@ -495,6 +500,7 @@ def test_failed_capture_raises_through_the_engine(models, monkeypatch):
     model, params, dvi = models["vicuna-7b"]
     monkeypatch.setattr(graphs, "_cuda", FakeCuda(fail_capture=True))
     for _, kw in (ENGINE_CELLS["vicuna_paged14"], ENGINE_CELLS["vicuna_sync"]):
-        eng = ServingEngine(model, params, dvi, **kw)
+        eng = ServingEngine(model, params, tonline.init_trainer(model, dvi_params=dvi),
+                            learn=False, **kw)
         with pytest.raises(RuntimeError, match="capturing"):
             eng.warmup()

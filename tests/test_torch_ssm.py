@@ -38,6 +38,7 @@ from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
 from repro_torch import weights  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import online as tonline  # noqa: E402
 from repro_torch.core import spec as tspec  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
@@ -328,7 +329,9 @@ def test_engine_matches_jax(pair, cell):
     reqs = [(uid, rng.integers(2, s["cfg_t"].vocab_size, n).astype(np.int32), mn)
             for uid, (n, mn) in enumerate([(5, 8), (14, 6), (9, 8), (7, 4), (12, 8)])]
     eng_j = JEngine(s["model_j"], s["params_j"], s["state"], learn=False, **kw)
-    eng_t = ServingEngine(s["model_t"], s["params_t"], s["dvi_t"], **kw)
+    eng_t = ServingEngine(s["model_t"], s["params_t"],
+                          tonline.init_trainer(s["model_t"], dvi_params=s["dvi_t"]),
+                          learn=False, **kw)
     for uid, p, mn in reqs:
         eng_j.submit_request(JRequest(uid, p, max_new=mn))
         eng_t.submit_request(Request(uid, p, max_new=mn))
