@@ -3,7 +3,8 @@
 GPU through the port's five hand-written CUDA kernels: vicuna-7b on the
 batch-synchronous path and on the continuous-batching path over a paged KV
 pool, and mamba2-370m (attention-free, its prefill on the ``ssd_scan``
-kernel) through both schedulers.
+kernel) through both schedulers; then the training path (mamba2-370m
+pretraining, vicuna-7b's teacher-forced DVI step, the quickstart).
 
     python3 chip_smoke.py
 
@@ -45,7 +46,13 @@ Phases (any failure raises and exits non-zero):
    ``lora_logits`` at the online update's shape (T = 256 rows, 4 passes of
    64, bf16, r 64): its forward through the differentiable wrapper against
    the plain version, its dA and dB against autograd through the plain
-   version, and its device time beside ``gemm_ms`` at T = 256;
+   version, and its device time beside ``gemm_ms`` at T = 256; for the
+   training path (phase 11), ``ssd_scan`` at mamba2 pretraining's shape (B
+   8, T 256, Q 128, bf16) with inputs that require gradients (``ops.SsdScan``:
+   one kernel launch forward) and its gradients against autograd through
+   the plain version (``TOL["ssd_scan backward"]``), the backward timed
+   alone, and ``lora_logits`` at the DVI step's 8184 rows (forward, dA and
+   dB, its time beside ``gemm_ms`` and its bound);
 4. the sync path: vicuna-7b at full width and depth in bf16, random weights
    drawn on the card from a seed, a sync ``ServingEngine`` (drafter frozen,
    ``learn=False``, as in phases 8 and 9) answering 8
@@ -98,6 +105,26 @@ Phases (any failure raises and exits non-zero):
    first and last quarter of the blocks, an update's host and device ms,
    and the graphed path's wall and device ms a block-step and tokens/s
    against phase 8's;
+11. the training path, through the port's launcher (``launch/train.py``):
+   (b, after phase 10, on its vicuna-7b weights) ``--mode dvi-batch
+   --pretrain-steps 0``, 8 teacher-forced drafter steps of 8 x 1024 tokens
+   (8184 positions), with gates: the backbone's bits unchanged (checksummed
+   on the device), A and B changed, finite loss, gnorm and acc_rate, one
+   ``lora_logits`` launch a step, 0 synchronising operations in a step
+   after the first; (a, after phase 9) mamba2-370m at full width and depth
+   (48 layers, bf16, weights from the seed) ``--mode pretrain``, 40 steps
+   of 8 x 256 at lr 2e-3, with gates: step 1's gradient non-zero and finite
+   in every layer's A_log, dt_bias, in_proj and conv_w (the scan's
+   backward), finite losses and gnorms, 48 ``ssd_scan`` launches a step,
+   ``lm_head`` == ``embed.T`` at its address after every step, the
+   checkpoint loading back bit for bit with exactly the trained tree's
+   keys; then 5 steps on one batch alone, which must cut its loss by 0.5
+   nats (the streaming loss's first and last 5 steps are reported), the
+   last of them profiled; (c)
+   ``examples/torch_quickstart.py`` at its own tiny float32 size, lossless
+   against AR.  It reports each step's wall, host and device ms, tokens/s,
+   peak memory, the scan backward's share of a pretraining step, and the
+   quickstart's acceptance, MAT and AR / DVI wall ratio;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Phases 4, 8 and 9 run every path twice: eagerly (``graphs=False``) and
@@ -144,7 +171,11 @@ MAX_NEW = 32
 # computes in float32 on both sides, so only the order of summation differs
 TOL = {"verify_argmax": (2e-3, 1e-3), "lora_logits": (2e-3, 1e-3),
        "decode_attention": (2e-2, 2e-2), "paged_decode_attention": (2e-2, 2e-2),
-       "ssd_scan": (1e-4, 1e-4)}
+       "ssd_scan": (1e-4, 1e-4),
+       # the scan's gradient (ops.SsdScan: the plain version's recompute on the
+       # card) against autograd through the plain version: float32 on both
+       # sides, in other orders; (atol x the gradient's largest entry, rtol)
+       "ssd_scan backward": (1e-4, 1e-4)}
 GAP_RTOL = 2e-2                  # bf16 top-2 logit gap treated as a tie
 GEMM_NOTE = ("gemm_ms: cuBLAS torch.matmul(h, w) in bf16 alone, a yardstick: it writes "
              "the logits and computes neither the argmax nor the LoRA term")
@@ -164,6 +195,17 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4   # atol x the gradient's largest entry
 # the mamba2 paths (phase 9): the sync path's 8 requests and the continuous
 # path's 16, as for vicuna; the continuous cache is contiguous
 M_NAME = "mamba2-370m"
+# the training path (phase 11): mamba2-370m pretraining, B 8 x T 256 at the
+# reference launcher's lr, 40 steps (each batch one task category, in turn:
+# at this depth each step overshoots toward its batch's category, so the
+# streaming loss does not fall in 40 steps at any rate tried,
+# repro_torch/launch/lr_sweep.py), then P_DESCENT more steps on one batch,
+# which must cut that batch's loss by at least P_DROP nats; vicuna-7b
+# dvi-batch, 8 steps of B 8 x T 1024, whose 8 x 1023 = 8184 positions stay
+# under the reference's 8192
+P_STEPS, P_B, P_T, P_DESCENT, P_DROP = 40, 8, 256, 5, 0.5
+D_STEPS, D_B, D_T = 8, 8, 1024
+D_ROWS = D_B * (D_T - 1)
 
 
 def phase(n: int, msg: str) -> None:
@@ -340,7 +382,7 @@ def check_lora(ops, ref, gen, T, d, V, r, label):
     return (h, w, a, b, gamma), err
 
 
-def check_lora_update(ops, ref, gen, T, d, V, r, gamma):
+def check_lora_update(ops, ref, gen, T, d, V, r, gamma, label="the update"):
     """lora_logits at the online update's shape (T = dvi.batch_size rows in
     bf16, A and B requiring gradients): the forward through the
     differentiable wrapper (the kernel, on the fast loader) against the
@@ -369,13 +411,13 @@ def check_lora_update(ops, ref, gen, T, d, V, r, gamma):
         grad_ok &= bool((diff <= GRAD_ATOL * float(want.abs().max())
                          + GRAD_RTOL * want.abs()).all())
     atol, rtol = TOL["lora_logits"]
-    phase(3, f"lora_logits at the update (T={T}, {-(-T // VOCAB_PASS_ROWS)} row passes): d={d} "
+    phase(3, f"lora_logits at {label} (T={T}, {-(-T // VOCAB_PASS_ROWS)} row passes): d={d} "
              f"V={V} r={r} forward max abs err {err:.3e} rel {rel:.3e} (atol {atol} rtol "
              f"{rtol}); backward max abs err dA {grad_err['dA']:.3e}, dB {grad_err['dB']:.3e} "
              f"(rtol {GRAD_RTOL}, atol {GRAD_ATOL} x max |grad|), launches "
              f"{ops.launches['lora_logits']}; ok={ok and grad_ok}")
     check(ok and grad_ok and ops.launches["lora_logits"] == 1,
-          "lora_logits at the update's shape disagrees with its plain version")
+          f"lora_logits at {label}'s shape disagrees with its plain version")
     return (h, w, a.detach(), b.detach(), gamma), err, grad_err
 
 
@@ -698,6 +740,52 @@ def ssd_bound(xh, Bc, dt, Q, h0) -> dict:
     return dict(bound=(ms, by), f32_core_bound_ms=bound(nbytes, f32_flop / F32_FLOP_PER_S)[0])
 
 
+def check_ssd_grad(ops, ref, gen, B, T, Q, H, hd, ds):
+    """``ssd_scan`` at mamba2 pretraining's shape with inputs that require
+    gradients (``ops.SsdScan``): bf16 xh, Bc and Cc strided views of a conv
+    output, float32 dt and A, as ``ssm_forward_full`` hands them over.  The
+    forward (the kernel, one launch) against the plain version at ``TOL``,
+    the gradients in the conv output, dt and A against autograd through
+    ``ref.ssd_scan`` at ``TOL["ssd_scan backward"]``; the backward launches
+    no kernel.  Returns the forward's timing arguments, its max abs error,
+    the gradients' max abs errors and the backward as a call."""
+    xbc = torch.nn.functional.silu(
+        torch.randn((B, T, H * hd + 2 * ds), generator=gen, device=DEV)).to(torch.bfloat16)
+    xbc.requires_grad_()
+    dt = torch.nn.functional.softplus(torch.randn((B, T, H), generator=gen, device=DEV) - 2.0)
+    dt.requires_grad_()
+    A = (-torch.linspace(1.0, 16.0, H, device=DEV)).requires_grad_()
+    xh = xbc[..., :H * hd].reshape(B, T, H, hd)
+    Bc = xbc[..., H * hd:H * hd + ds].reshape(B, T, 1, ds)
+    Cc = xbc[..., H * hd + ds:].reshape(B, T, 1, ds)
+    gy = torch.randn((B, T, H, hd), generator=gen, device=DEV) / (B * T * H * hd) ** 0.5
+    leaves = (xbc, dt, A)
+    ops.reset_launches()
+    y, _ = ops.ssd_scan(xh, Bc, Cc, dt, A, Q)
+    check(y.requires_grad and ops.launches["ssd_scan"] == 1,
+          "ssd_scan with a gradient must run the kernel once (SsdScan)")
+    got = torch.autograd.grad(y, leaves, gy, retain_graph=True)
+    y_r, _ = ref.ssd_scan(xh, Bc, Cc, dt, A, Q)
+    want = torch.autograd.grad(y_r, leaves, gy)
+    err, _, ok = close("ssd_scan", y.detach(), y_r.detach())
+    atol, rtol = TOL["ssd_scan backward"]
+    grad_err, grad_ok = {}, True
+    for name, g, w in zip(("dxBC", "ddt", "dA"), got, want):
+        diff = (g.float() - w.float()).abs()
+        grad_err[name] = float(diff.max())
+        grad_ok &= bool(torch.isfinite(g).all()) and bool(
+            (diff <= atol * float(w.float().abs().max()) + rtol * w.float().abs()).all())
+    phase(3, f"ssd_scan with its gradient (training): B={B} T={T} Q={Q} H={H} hd={hd} ds={ds}, "
+             f"bf16 inputs; forward max abs err {err:.3e}, backward max abs err "
+             + ", ".join(f"{k} {v:.3e}" for k, v in grad_err.items())
+             + f" (atol {atol} x max |grad|, rtol {rtol}); launches "
+             f"{ops.launches['ssd_scan']}; ok={ok and grad_ok}")
+    check(ok and grad_ok and ops.launches["ssd_scan"] == 1,
+          "ssd_scan's gradient disagrees with autograd through its plain version")
+    fwd = (xh.detach(), Bc.detach(), Cc.detach(), dt.detach(), A.detach(), Q, None)
+    return fwd, err, grad_err, lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True)
+
+
 def kernels_phase(cfg, mcfg):
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -787,6 +875,15 @@ def kernels_phase(cfg, mcfg):
     check_ssd(ops, ref, gen, 2, 256, 128, mH, mhd, mds, "padded long prompt", pad_rows=56)
     check_ssd(ops, ref, gen, 2, 64, 64, mH, mhd, mds, "carried h0", with_h0=True)
     check_ssd(ops, ref, gen, 1, 63, 63, mH, mhd, mds, "continuous admission (64 tokens)")
+    # the training path (phase 11), each from a generator of its own: the
+    # scan with its gradient at mamba2 pretraining's shape, and lora_logits
+    # at the vicuna DVI step's 8184 rows (128 row passes)
+    ssd_train, _, ssd_grad_err, ssd_backward = check_ssd_grad(
+        ops, ref, torch.Generator(device=DEV).manual_seed(SEED + 7), P_B, P_T,
+        mcfg.ssm.chunk_size, mH, mhd, mds)
+    dvi_args, dvi_err, dvi_grad_err = check_lora_update(
+        ops, ref, torch.Generator(device=DEV).manual_seed(SEED + 8), D_ROWS, d, V,
+        cfg.dvi.lora_rank, cfg.dvi.lora_alpha / cfg.dvi.lora_rank, label="the DVI step")
 
     def verify_bound(T, d, V):
         return bound(T * d * e + d * V * e + T * 8, 2 * T * d * V / BF16_FLOP_PER_S)
@@ -828,6 +925,13 @@ def kernels_phase(cfg, mcfg):
                            lambda: ref.ssd_scan(xh, Bc, Cc, dt, A, Q, h0=h0), b["bound"]),
                     f32_core_bound_ms=b["f32_core_bound_ms"])
 
+    def backward_timing(backward) -> dict:
+        """The scan's backward alone (plain PyTorch: no kernel of the port)."""
+        ms, call_ms = time_ms(backward, iters=10)
+        return dict(backward_ms=ms, backward_call_ms=call_ms,
+                    backward_note="ops.SsdScan.backward: the plain version's recompute in "
+                                  "float32 differentiated by autograd; no backward kernel")
+
     # what the timer shows for a kernel that does nothing: the launch and
     # the two events around it
     floor_ms, _ = time_ms(lambda: torch.cuda._sleep(1))
@@ -858,6 +962,13 @@ def kernels_phase(cfg, mcfg):
                             **gemm(upd_args[0], upd_args[1]), max_abs_err=upd_err,
                             grad_max_abs_err=upd_grad_err,
                             row_passes=-(-cfg.dvi.batch_size // VOCAB_PASS_ROWS)),
+             # the teacher-forced DVI step's draft head (phase 11b): 8184 rows
+             at_dvi_step=dict(timing(lambda: ops.lora_logits(*dvi_args),
+                                     lambda: ref.lora_logits(*dvi_args),
+                                     lora_bound(D_ROWS, d, V, cfg.dvi.lora_rank)),
+                              **gemm(dvi_args[0], dvi_args[1]), max_abs_err=dvi_err,
+                              grad_max_abs_err=dvi_grad_err,
+                              row_passes=-(-D_ROWS // VOCAB_PASS_ROWS)),
              gemm_note=GEMM_NOTE),
         # attention at the verify pass (Tq = K+1), with the draft feed
         # (Tq = 1) beside it: 30 and 10 of the 40 launches of a block
@@ -876,7 +987,12 @@ def kernels_phase(cfg, mcfg):
         # continuous path beside it; no single PyTorch call scans
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:80", max_abs_err=err_s,
-             **ssd_timing(ssd_args), at_admission=ssd_timing(ssd_one)),
+             **ssd_timing(ssd_args), at_admission=ssd_timing(ssd_one),
+             # mamba2 pretraining (phase 11a): the forward is the kernel, the
+             # backward the plain version's recompute differentiated by
+             # autograd (ops.SsdScan; the reference has no backward kernel)
+             at_training=dict(ssd_timing(ssd_train), grad_max_abs_err=ssd_grad_err,
+                              **backward_timing(ssd_backward))),
     ]
     for row in rows:
         for label, t in [("main", row)] + [(k, v) for k, v in row.items()
@@ -888,6 +1004,9 @@ def kernels_phase(cfg, mcfg):
             if "f32_core_bound_ms" in t:
                 gm += (f", f32_core_bound {t['f32_core_bound_ms']:.4f} (computed: every "
                        f"product on the float32 CUDA cores)")
+            if "backward_ms" in t:
+                gm += (f", backward (plain PyTorch, no kernel) {t['backward_ms']:.4f} (call "
+                       f"{t['backward_call_ms']:.4f})")
             phase(3, f"{row['name']} {label}: kernel {t['ms']:.4f} ms (call "
                      f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f} (call "
                      f"{t['plain_call_ms']:.4f}), library {lib}{gm}, bound "
@@ -1794,6 +1913,277 @@ def mamba_phase(by_row):
             sync["eager"]["launches"], cont["eager"]["launches"])
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the training path
+# ---------------------------------------------------------------------------
+
+def bits_checksum(tree) -> torch.Tensor:
+    """Two sums over the raw bits of every leaf of `tree`, on the device, in
+    chunks of 16 M elements: the sum of the bits read as integers and the
+    sum of their squares (both wrap in int64).  Any changed bit changes
+    them, barring a collision in both."""
+    from repro_torch.tree import flatten
+    out = []
+    for p in flatten(tree).values():
+        flat = p.reshape(-1).view(torch.int16 if p.element_size() == 2 else torch.int32)
+        for c in flat.split(1 << 24):
+            b = c.long()
+            out.append(torch.stack([b.sum(), (b * b).sum()]))
+    return torch.stack(out)
+
+
+def pretrain_phase(ssd_backward_ms: float) -> dict:
+    """Phase 11a: mamba2-370m at full width and depth (48 layers, bf16,
+    weights from the seed) pretrained through the launcher (``--mode
+    pretrain``) for P_STEPS steps of P_B x P_T synthetic batches.  Gates:
+    step 1's gradient (its batch and weights, before the run) non-zero and
+    finite in A_log, dt_bias, in_proj and conv_w of every layer; finite
+    losses and gnorms; 48 ``ssd_scan`` launches a step; ``lm_head`` ==
+    ``embed.T`` bit for bit at its address after every step; the
+    checkpoint it writes loads back bit for bit through ``load_checkpoint``
+    and ``weights.load_npz`` and holds exactly the trained tree's keys;
+    then P_DESCENT steps on the first batch alone (fresh optimizer state,
+    the last one under torch.profiler for its device time) cut its loss by
+    at least P_DROP nats.  The streaming loss's first and last 5 steps are
+    reported.  Returns the launches of the launcher's run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import weights
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import TASK_CATEGORIES, SyntheticTasks
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model, trained_tree
+    from repro_torch.training import (init_pretrain_state, lm_loss, loss_and_grads,
+                                      make_pretrain_step)
+    from repro_torch.tree import flatten
+    cfg = get_config(M_NAME)
+    L = cfg.num_layers
+    model = build_model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    path = os.path.join(ROOT, "build", "phase11_mamba2_pretrain.npz")
+    args = train.parse_args(["--arch", M_NAME, "--mode", "pretrain", "--steps", str(P_STEPS),
+                             "--batch", str(P_B), "--seq", str(P_T), "--dtype", "bfloat16",
+                             "--seed", str(SEED), "--ckpt", path])
+    # step 1's gradient: the launcher's first batch (its stream at seed + 1)
+    first = next(SyntheticTasks(cfg.vocab_size, seed=SEED).stream(
+        TASK_CATEGORIES, 1, P_B, P_T, seed=SEED + 1))
+    _, _, grads = loss_and_grads(model, params, torch.as_tensor(first, device=DEV))
+    layers = {}
+    for name in ("A_log", "dt_bias", "in_proj", "conv_w"):
+        per = torch.cat([g.reshape(g.shape[0], -1).float().abs().amax(1)
+                         for k, g in sorted(grads.items()) if k.endswith("/" + name)])
+        fin = all(bool(torch.isfinite(g).all()) for k, g in grads.items()
+                  if k.endswith("/" + name))
+        layers[name] = (int((per > 0).sum()), len(per), fin)
+    del grads
+    phase(11, f"{M_NAME} pretraining, step 1's gradient: layers with a non-zero, finite "
+              f"gradient: " + ", ".join(f"{k} {n}/{m}" + ("" if f else " (NOT FINITE)")
+                                        for k, (n, m, f) in layers.items()))
+    check(all(n == m == L and f for n, m, f in layers.values()),
+          "a Mamba-2 layer got no gradient through the scan")
+    head, ptr = params["lm_head"], params["lm_head"].data_ptr()
+    rec = []
+
+    def on_step(i, m):
+        rec.append(dict(t=time.perf_counter(), loss=float(m["loss"]), gnorm=float(m["gnorm"]),
+                        ssd=ops.launches["ssd_scan"],
+                        head=bool(params["lm_head"] is head and head.data_ptr() == ptr
+                                  and torch.equal(head, params["embed"].T))))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    train.run(args, model, params, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses, gnorms = [r["loss"] for r in rec], [r["gnorm"] for r in rec]
+    per_step = [b["ssd"] - a for a, b in zip([0] + [r["ssd"] for r in rec], rec)]
+    walls = [b["t"] - a["t"] for a, b in zip(rec, rec[1:])]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    step_s = float(np.median(walls))
+    phase(11, f"{M_NAME} pretraining through the launcher: {len(rec)} steps of {P_B} x {P_T} in "
+              f"{wall:.1f} s (checkpoint included); loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+              f"mean of the first 5 {first5:.4f}, of the last 5 {last5:.4f} (drop "
+              f"{first5 - last5:.4f}, reported); gnorm {gnorms[0]:.3f} -> "
+              f"{gnorms[-1]:.3f}; ssd_scan launches a step {sorted(set(per_step))}; lm_head == "
+              f"embed.T at its address after every step: {all(r['head'] for r in rec)}; a "
+              f"step's wall (median of steps 2-{len(rec)}) {1e3 * step_s:.1f} ms, "
+              f"{P_B * P_T / step_s:.0f} tokens/s; peak {peak / 2**30:.2f} GiB")
+    check(len(rec) == P_STEPS and np.isfinite(losses).all() and np.isfinite(gnorms).all(),
+          "pretraining gave a non-finite loss or gnorm")
+    check(per_step == [L] * P_STEPS, "pretraining did not launch ssd_scan once a layer a step")
+    check(all(r["head"] for r in rec), "lm_head is not embed.T at its address after a step")
+    # the checkpoint: the trained tree's keys, bit for bit through both readers
+    with np.load(path) as data:
+        keys = set(data.files)
+    want = flatten(trained_tree(cfg, params))
+    back = flatten(load_checkpoint(path, trained_tree(cfg, params)))
+    same = keys == set(want) and "lm_head" not in keys and all(
+        torch.equal(back[k].view(-1).view(torch.uint8), v.reshape(-1).view(torch.uint8))
+        for k, v in want.items())
+    del back
+    bridged = flatten(weights.load_npz(cfg, path, DEV))
+    same_bridge = set(bridged) == set(flatten(params)) and all(
+        torch.equal(bridged[k], v) for k, v in flatten(params).items())
+    del bridged
+    os.remove(path)
+    phase(11, f"checkpoint: {len(keys)} keys == the trained tree's (no lm_head): "
+              f"{keys == set(want)}; load_checkpoint bit for bit: {same}; weights.load_npz "
+              f"(lm_head tied again) equal: {same_bridge}")
+    check(same and same_bridge, "the pretraining checkpoint does not load back bit for bit")
+    # descent: P_DESCENT steps on the first batch alone, the last profiled
+    step = make_pretrain_step(model, 2e-3)
+    st = init_pretrain_state(model, params)
+    tokens = torch.as_tensor(first, device=DEV)
+    with torch.no_grad():
+        before = float(lm_loss(model, params, tokens)[0])
+    seen = []
+    for _ in range(P_DESCENT - 1):
+        seen.append(float(step(params, st, tokens)[2]["loss"]))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, st, tokens)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    with torch.no_grad():
+        after = float(lm_loss(model, params, tokens)[0])
+    phase(11, f"{P_DESCENT} more steps on the first batch alone (lr 2e-3, fresh moments): its "
+              f"loss {before:.4f} -> " + " ".join(f"{x:.4f}" for x in seen[1:])
+              + f" -> {after:.4f} (drop {before - after:.4f}, gate >= {P_DROP})")
+    check(np.isfinite(after) and before - after >= P_DROP,
+          f"{P_DESCENT} steps on one batch cut its loss by {before - after:.4f} nats, "
+          f"less than {P_DROP}")
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = covered_ms(spans)
+    share = L * ssd_backward_ms / dev_ms
+    phase(11, f"{M_NAME} pretraining step, profiled: device busy {dev_ms:.1f} ms of "
+              f"{1e3 * prof_wall:.1f} ms wall ({len(spans)} device records); the scan's "
+              f"backward, {L} x {ssd_backward_ms:.3f} ms (phase 3, alone) = "
+              f"{L * ssd_backward_ms:.1f} ms, {100 * share:.1f}% of the step's device time")
+    del st, step
+    return dict(launches=counts, step_ms=1e3 * step_s, device_ms=dev_ms, peak=peak,
+                drop=first5 - last5, descent=before - after, backward_share=share)
+
+
+def dvi_batch_phase(model, params) -> dict:
+    """Phase 11b: vicuna-7b (phases 4-10's weights) through the launcher's
+    ``--mode dvi-batch --pretrain-steps 0``: D_STEPS teacher-forced drafter
+    steps over D_B x D_T synthetic batches (8184 positions each).  Each step
+    runs under sync debug mode "warn", its synchronising operations
+    counted, between CUDA events (its device span) and host clocks.  Gates:
+    the backbone's bits unchanged (``bits_checksum``); A and B changed;
+    finite loss, gnorm and acc_rate every step; one ``lora_logits`` launch
+    a step; 0 synchronising operations in every step after the first.
+    Returns the launches."""
+    import warnings
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    before = bits_checksum(params)
+    real = train.make_dvi_train_step
+    steps, first = [], {}
+
+    def make(*a, **kw):
+        inner = real(*a, **kw)
+
+        def step(*args):
+            if not first:
+                first.update({k: v.clone() for k, v in args[1].items()})
+            n0 = ops.launches["lora_logits"]
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    ev[0].record()
+                    t0 = time.perf_counter()
+                    out = inner(*args)
+                    host = time.perf_counter() - t0
+                    ev[1].record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            steps.append(dict(ev=ev, host=host, launches=ops.launches["lora_logits"] - n0,
+                              syncs=sum("synchroniz" in str(w.message) for w in caught),
+                              metrics=out[3]))
+            return out
+        return step
+
+    args = train.parse_args(["--arch", "vicuna-7b", "--mode", "dvi-batch", "--pretrain-steps",
+                             "0", "--steps", str(D_STEPS), "--batch", str(D_B), "--seq",
+                             str(D_T), "--dtype", "bfloat16", "--seed", str(SEED)])
+    reset_counts()
+    train.make_dvi_train_step = make
+    t0 = time.perf_counter()
+    try:
+        out = train.run(args, model, params)
+    finally:
+        train.make_dvi_train_step = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    same_backbone = torch.equal(before, bits_checksum(params))
+    dvi = out["state"].dvi_params
+    moved = {k: not torch.equal(first[k], dvi[k]) for k in ("A", "B")}
+    keys = ("loss", "gnorm", "acc_rate")
+    vals = [{k: float(s["metrics"][k]) for k in keys} for s in steps]
+    finite = all(np.isfinite(v[k]) for v in vals for k in keys)
+    dev = [s["ev"][0].elapsed_time(s["ev"][1]) for s in steps]
+    host = [1e3 * s["host"] for s in steps]
+    syncs = [s["syncs"] for s in steps]
+    phase(11, f"vicuna-7b dvi-batch through the launcher: {len(steps)} steps of {D_B} x {D_T} "
+              f"({D_ROWS} positions) in {wall:.1f} s; loss {vals[0]['loss']:.4f} -> "
+              f"{vals[-1]['loss']:.4f}, gnorm {vals[0]['gnorm']:.3f} -> {vals[-1]['gnorm']:.3f}, "
+              f"acc_rate {vals[0]['acc_rate']:.4f} -> {vals[-1]['acc_rate']:.4f}, baseline "
+              f"{float(out['baseline']):.4f}; a step (median of steps 2-{len(steps)}): host "
+              f"{np.median(host[1:]):.1f} ms, device span {np.median(dev[1:]):.1f} ms (CUDA "
+              f"events around the call); first step host {host[0]:.1f}, device {dev[0]:.1f}; "
+              f"lora_logits launches a step {[s['launches'] for s in steps]}; synchronising "
+              f"operations a step {syncs}; peak {peak / 2**30:.2f} GiB")
+    phase(11, f"backbone bit-identical before and after (checksums of {before.shape[0]} "
+              f"chunks): {same_backbone}; A changed {moved['A']}, B changed {moved['B']}")
+    check(len(steps) == D_STEPS and finite, "dvi-batch gave a non-finite loss, gnorm or acc_rate")
+    check(same_backbone, "the DVI step changed the backbone")
+    check(all(moved.values()), "the DVI step left A or B unchanged")
+    check(all(s["launches"] == 1 for s in steps), "dvi-batch did not launch lora_logits once a step")
+    check(all(n == 0 for n in syncs[1:]), "a dvi-batch step after the first synchronised")
+    del out, first
+    return dict(launches=counts, host_ms=float(np.median(host[1:])),
+                device_ms=float(np.median(dev[1:])), peak=peak)
+
+
+def quickstart_phase() -> dict:
+    """Phase 11c: ``examples/torch_quickstart.py`` on the card at its own
+    (tiny, float32) size: pretraining, AR, DVI with an untrained drafter,
+    the online KL->RL loop, the trained drafter against AR.  Gate: lossless
+    against AR.  Returns the launches."""
+    import importlib.util
+
+    from repro_torch.kernels import ops
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", os.path.join(ROOT, "examples", "torch_quickstart.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = mod.main([])
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    phase(11, f"quickstart on the card in {time.perf_counter() - t0:.1f} s: pretraining loss "
+              f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}; lossless vs AR "
+              f"{out['lossless']}; block acceptance over the first / last 8 batches "
+              f"{out['block_acc'][0]:.4f} / {out['block_acc'][1]:.4f}, MAT "
+              f"{out['mat'][0]:.4f} / {out['mat'][1]:.4f}; trained drafter: AR "
+              f"{out['ar_s']:.3f} s against DVI {out['dvi_s']:.3f} s (AR / DVI "
+              f"{out['speedup']:.3f}), MAT {out['mat_trained']:.4f}; launches {counts}")
+    check(out["lossless"] is True, "the quickstart's DVI stream differs from AR")
+    return dict(launches=counts, **{k: out[k] for k in ("block_acc", "mat", "speedup")})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1924,11 +2314,23 @@ def main() -> int:
     del pad
     marks["10"] = time.perf_counter() - t_start
 
+    # ---- phase 11b: the teacher-forced DVI step, on the same weights ----
+    release({})
+    t_dvi = dvi_batch_phase(model, params)
+    marks["11b"] = time.perf_counter() - t_start
+
     # ---- phase 9: mamba2-370m through both schedulers ----
     del model, params, dvi
     release({})                        # engines in reference cycles hold the weights
     m_sync, m_cont, m_sync_e, m_cont_e = mamba_phase(by_row)
     marks["9"] = time.perf_counter() - t_start
+
+    # ---- phase 11a and 11c: mamba2 pretraining, the quickstart ----
+    release({})
+    t_pre = pretrain_phase(by_row["ssd_scan"]["at_training"]["backward_ms"])
+    release({})
+    t_qs = quickstart_phase()
+    marks["11a,c"] = time.perf_counter() - t_start
 
     # ---- phase 7: result lines ----
     for row in rows:
@@ -1936,7 +2338,11 @@ def main() -> int:
         by_path = {"sync": launches.get(name, 0), "continuous": c_launches.get(name, 0),
                    "learn_sync": learn_s["graphed"]["launches"].get(name, 0),
                    "learn_continuous": learn_c["graphed"]["launches"].get(name, 0),
-                   "mamba2_sync": m_sync.get(name, 0), "mamba2_continuous": m_cont.get(name, 0)}
+                   "mamba2_sync": m_sync.get(name, 0), "mamba2_continuous": m_cont.get(name, 0),
+                   # the training paths (phase 11), eager
+                   "mamba2_pretrain": t_pre["launches"].get(name, 0),
+                   "dvi_batch": t_dvi["launches"].get(name, 0),
+                   "quickstart": t_qs["launches"].get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["launches_eager_by_path"] = {

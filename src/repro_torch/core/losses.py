@@ -51,13 +51,19 @@ def _take(logp: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def loss_terms(model: Model, params: dict, dvi_params: dict, batch: dict) -> dict:
     """Per-term losses on a buffer minibatch.  Returns a dict of scalars
-    (and the per-row ``act_logp``, ``mask``, ``reward``)."""
+    (and the per-row ``act_logp``, ``mask``, ``reward``).  The batch may
+    carry its rows' draft and verifier logits already (``logits_t``,
+    ``logits_v``); else both heads run here."""
     tau = model.cfg.dvi.kd_temperature
     mask = batch["mask"]                                   # (N,) 0/1
     r = batch["reward"]                                    # (N,) 1 accept / 0 first reject
 
-    logits_t = draft_logits(model, params, dvi_params, batch["h_k"])   # (N, V)
-    logits_v = verifier_logits(model, params, batch["h_L"])            # (N, V)
+    logits_t = batch.get("logits_t")
+    if logits_t is None:
+        logits_t = draft_logits(model, params, dvi_params, batch["h_k"])   # (N, V)
+    logits_v = batch.get("logits_v")
+    if logits_v is None:
+        logits_v = verifier_logits(model, params, batch["h_L"])            # (N, V)
 
     logp_t = torch.log_softmax(logits_t, dim=-1)
     p_t = torch.exp(logp_t)
@@ -159,6 +165,8 @@ def dense_train_losses(model: Model, params: dict, dvi_params: dict, tokens: tor
     a = torch.argmax(logits_t, dim=-1)
     y = torch.argmax(logits_v, dim=-1)
     reward = (a == y).to(torch.float32)
+    # the loss reuses both heads' logits: one lora_logits launch a call (the
+    # reference computes each head twice and leaves XLA to merge them)
     batch = {"h_k": hk, "h_L": hL, "action": a, "reward": reward,
-             "mask": torch.ones_like(reward)}
+             "mask": torch.ones_like(reward), "logits_t": logits_t, "logits_v": logits_v}
     return composite_loss(dvi_params, model, params, batch, None, t, baseline, mode)

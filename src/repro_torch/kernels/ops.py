@@ -416,7 +416,19 @@ def ssd_scan(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, dt: torch.Ten
     xh, Bc and Cc may be strided views of the conv output: the kernel takes
     their batch and time strides, so only their inner dimensions must be
     packed; dt, A and h0 must be contiguous.  hd and ds are multiples of 8
-    up to 128; ``ssd_plan`` splits each (head, lane) over P CTAs."""
+    up to 128; ``ssd_plan`` splits each (head, lane) over P CTAs.
+
+    Differentiable in every input (``SsdScan``) when autograd records and
+    one of them requires a gradient; otherwise exactly the call below."""
+    tensors = (xh, Bc, Cc, dt, A) + ((h0,) if h0 is not None else ())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return SsdScan.apply(xh, Bc, Cc, dt, A, chunk, h0)
+    return _ssd_forward(xh, Bc, Cc, dt, A, chunk, h0)
+
+
+def _ssd_forward(xh, Bc, Cc, dt, A, chunk, h0):
+    """(y, final state): the kernel on the card, the plain version on the
+    CPU."""
     tensors = (xh, Bc, Cc, dt, A) + ((h0,) if h0 is not None else ())
     if _device(*tensors).type == "cpu":
         return ref.ssd_scan(xh, Bc, Cc, dt, A, chunk, h0=h0)
@@ -452,3 +464,40 @@ def ssd_scan(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, dt: torch.Ten
             Cc.stride(1), B, T, H, hd, ds, chunk, is_bf16, splits, y.data_ptr(), hout.data_ptr(),
             _stream(xh.device))
     return y, hout
+
+
+class SsdScan(torch.autograd.Function):
+    """``ssd_scan`` with a backward in xh, Bc, Cc, dt, A and h0, for
+    training through a Mamba-2 layer.  The forward is ``_ssd_forward``: the
+    hand-written kernel on the card, unchanged.  The backward recomputes
+    the scan from the saved inputs with the plain version (``ref.ssd_scan``,
+    in float32, its decay masked inside the exp so the gradient stays
+    finite) and differentiates that with autograd.
+
+    There is no backward kernel: the reference has none either (JAX
+    differentiates its jnp ``ssd_chunked``).  The recomputation holds one
+    chunk's (B, Q, Q, H) decay tensors at a time per step of its graph."""
+
+    @staticmethod
+    def forward(ctx, xh, Bc, Cc, dt, A, chunk, h0):
+        y, h = _ssd_forward(xh, Bc, Cc, dt, A, chunk, h0)
+        ctx.chunk = chunk
+        ctx.has_h0 = h0 is not None
+        ctx.save_for_backward(xh, Bc, Cc, dt, A, h0 if h0 is not None else torch.empty(0))
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        *inputs, h0 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, need[:5])]
+            leaves.append(h0.detach().requires_grad_(need[6]) if ctx.has_h0 else None)
+            y, h = ref.ssd_scan(*leaves[:5], ctx.chunk, h0=leaves[5])
+            wanted = [t for t in leaves if t is not None and t.requires_grad]
+            outs = [(o, g) for o, g in ((y, gy), (h, gh)) if g is not None]
+            got = iter(torch.autograd.grad([o for o, _ in outs], wanted, [g for _, g in outs],
+                                           allow_unused=True) if outs else [None] * len(wanted))
+        grads = [next(got) if t is not None and t.requires_grad else None for t in leaves]
+        return (*grads[:5], None, grads[5])

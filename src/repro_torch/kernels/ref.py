@@ -87,7 +87,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
 def ssd_scan(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, dt: torch.Tensor,
              A: torch.Tensor, chunk: int, h0=None):
     """Mamba-2 chunked SSD scan, a line-for-line copy of
-    ``repro.models.ssm.ssd_chunked`` (one chunk in flight at a time).
+    ``repro.models.ssm.ssd_chunked`` (one chunk in flight at a time), its
+    values bit for bit; differentiable, with a finite gradient where the
+    reference's is NaN (the intra-chunk decay, below).
 
     xh (B,T,H,hd), Bc/Cc (B,T,G,ds), dt (B,T,H) after softplus, A (H,) < 0,
     h0 (B,H,hd,ds) or None; T % chunk == 0.  Returns (y (B,T,H,hd) float32,
@@ -113,9 +115,10 @@ def ssd_scan(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, dt: torch.Ten
         dA = dt_ * A[None, None, :]                                  # (B,Q,H)
         cum = torch.cumsum(dA, dim=1)
         seg = cum[:, :, None, :] - cum[:, None, :, :]                # (B,Q,Q,H)
-        # a select, never a product with the mask: exp(seg) overflows above
-        # the diagonal and inf * 0 is NaN
-        decay = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+        # the mask goes inside the exp: seg overflows exp above the diagonal,
+        # and the reference's where(tri, exp(seg), 0) gives the same values
+        # but a NaN gradient there (0 * inf; ROADMAP §3)
+        decay = torch.exp(torch.where(tri[None, :, :, None], seg, -torch.inf))
         cb = torch.einsum("bihs,bjhs->bijh", C__, B__)
         att = cb * decay * dt_[:, None, :, :]
         y = torch.einsum("bijh,bjhd->bihd", att, x_)

@@ -5,6 +5,7 @@ Mamba-2 stacks).
     params = model.init(torch.Generator(model.device).manual_seed(0))
     h, contribs = model.hidden(params, x, lo=0, hi=L)
     logits = model.logits(params, h)          # frozen head
+    logits, aux = model.forward_train(params, tokens)   # training (autograd)
     h, cache = model.prefill(params, tokens, max_len=...)
     h, cache, cands = model.step(params, x_blk, cache, lo, hi)
     cache = model.commit(cache, cands, accept)
@@ -30,9 +31,28 @@ from repro_torch.models.layers import dense_init, rms_norm
 def tie_head(cfg: ModelConfig, params: dict) -> dict:
     """For a tied head, store a contiguous (d, V) copy of ``embed.T`` under
     ``lm_head``, once, at load time: the head kernels take w (d, V) and must
-    not be handed a strided view on every call.  A copy, not a new weight."""
+    not be handed a strided view on every call.  A copy, not a new weight:
+    training leaves it out (``trained_tree``) and refreshes it in place
+    after every step (``refresh_head``)."""
     if cfg.tie_embeddings:
         params["lm_head"] = params["embed"].T.contiguous()
+    return params
+
+
+def refresh_head(cfg: ModelConfig, params: dict) -> None:
+    """After `embed` changed, copy ``embed.T`` into a tied ``lm_head`` in
+    place: the tensor keeps its address, which the serving path's CUDA
+    graphs hold."""
+    if cfg.tie_embeddings:
+        params["lm_head"].copy_(params["embed"].T)
+
+
+def trained_tree(cfg: ModelConfig, params: dict) -> dict:
+    """The parameters training updates and checkpoints write: the
+    reference's tree, which for a tied head has no ``lm_head`` (its copy of
+    ``embed.T`` is derived, not trained)."""
+    if cfg.tie_embeddings:
+        return {k: v for k, v in params.items() if k != "lm_head"}
     return params
 
 
@@ -72,10 +92,11 @@ class Model:
 
     # ---------------- full-sequence ----------------
     def hidden(self, params, x, lo: int = 0, hi: Optional[int] = None,
-               collect: bool = False):
-        """Layers [lo, hi) over a full causal sequence.  Returns (h, contribs)."""
+               collect: bool = False, remat: bool = False):
+        """Layers [lo, hi) over a full causal sequence, each layer under
+        ``torch.utils.checkpoint`` when `remat`.  Returns (h, contribs)."""
         hi = self.cfg.num_layers if hi is None else hi
-        return tfm.forward_full(params["segments"], x, self.cfg, lo, hi, collect)
+        return tfm.forward_full(params["segments"], x, self.cfg, lo, hi, collect, remat)
 
     def logits(self, params, h):
         """Frozen verifier head (final norm + unembed), full (..., V) logits."""
@@ -86,6 +107,19 @@ class Model:
         """The (d, V) unembedding, contiguous (a materialised copy of
         ``embed.T`` for tied heads, see ``tie_head``)."""
         return params["lm_head"]
+
+    def forward_train(self, params, tokens: torch.Tensor, remat: bool = False):
+        """Full-model LM forward for training: tokens (B, T) -> (logits
+        (B, T, V), aux) with aux a float32 zero (dense and SSM stacks carry
+        no auxiliary loss).  A tied head multiplies by ``embed.T`` itself,
+        as the reference's ``head_matrix`` does, so autograd sends the
+        head's gradient to ``embed``; `params` may be ``trained_tree``'s,
+        without ``lm_head``."""
+        x = self.embed(params, tokens)
+        h, _ = self.hidden(params, x, remat=remat)
+        hn = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        return hn @ w, torch.zeros((), dtype=torch.float32, device=x.device)
 
     # ---------------- cache / decode ----------------
     def init_cache(self, B: int, max_len: int) -> dict:

@@ -9,8 +9,9 @@ its parameters stacked on a leading layer axis, and segments are cut at
 
 Two execution modes:
 
-* ``forward_full`` — a whole sequence without a cache (prefill); optionally
-  returns each layer's K/V so prefill can fill the decode cache.
+* ``forward_full`` — a whole sequence without a cache (prefill and
+  training); optionally returns each layer's K/V so prefill can fill the
+  decode cache.
 * ``forward_step`` — a block of T tokens (K+1 during speculation, 1 for AR)
   against the cache.  K/V are written into the cache in place at slots
   ``lengths + i`` before attention reads it; rollback is length truncation
@@ -52,6 +53,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -282,28 +284,40 @@ def attn_layer_step_paged(p, x, kpages, vpages, tbl, lengths, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def run_segment_full(sp, x, cfg: ModelConfig, seg: Segment, positions,
-                     collect: bool = False):
+                     collect: bool = False, remat: bool = False):
     """The segment over the whole sequence.  Returns (x, contribs) with
     contribs, when `collect` (else {}), stacked on the layer axis: {"k", "v"}
     (n, B, T, KV, hd) for attention, {"conv", "state"} (n, B, cw-1,
-    conv_dim) / (n, B, H, hd, ds) float32 for SSM segments."""
+    conv_dim) / (n, B, H, hd, ds) float32 for SSM segments.
+
+    Nothing here writes in place, so autograd can differentiate the whole
+    segment.  With `remat` each layer's body runs under non-reentrant
+    ``torch.utils.checkpoint`` (the reference wraps its scan body in
+    ``jax.checkpoint``): the backward recomputes a layer's activations from
+    its input instead of keeping them."""
     if seg.kind == "ssm":
-        convs, states = [], []
-        for i in range(seg.n):
-            x, con = ssm_mod.ssm_forward_full(_layer(sp, i), x, cfg.ssm, cfg.norm_eps)
-            if collect:
-                convs.append(con["conv"])
-                states.append(con["state"])
-        return x, ({"conv": torch.stack(convs), "state": torch.stack(states)}
-                   if collect else {})
-    spec = MaskSpec()
-    ks, vs = [], []
+        def body(lp, x):
+            return ssm_mod.ssm_forward_full(lp, x, cfg.ssm, cfg.norm_eps)
+        names = ("conv", "state")
+    else:
+        spec = MaskSpec()
+
+        def body(lp, x):
+            x, k, v = attn_layer_full(lp, x, cfg, positions, spec)
+            return x, {"k": k, "v": v}
+        names = ("k", "v")
+    if remat:
+        plain = body
+
+        def body(lp, x):
+            return checkpoint(plain, lp, x, use_reentrant=False)
+    got = {name: [] for name in names}
     for i in range(seg.n):
-        x, k, v = attn_layer_full(_layer(sp, i), x, cfg, positions, spec)
+        x, con = body(_layer(sp, i), x)
         if collect:
-            ks.append(k)
-            vs.append(v)
-    return x, ({"k": torch.stack(ks), "v": torch.stack(vs)} if collect else {})
+            for name in names:
+                got[name].append(con[name])
+    return x, ({name: torch.stack(v) for name, v in got.items()} if collect else {})
 
 
 def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
@@ -504,15 +518,16 @@ def commit_cache(cfg: ModelConfig, cache: dict, cands: dict, accept: torch.Tenso
 # ---------------------------------------------------------------------------
 
 def forward_full(params_segs: dict, x: torch.Tensor, cfg: ModelConfig, lo: int,
-                 hi: int, collect: bool = False):
-    """Run layers [lo, hi) over a full sequence at positions 0..T-1.
-    Returns (x, contribs)."""
+                 hi: int, collect: bool = False, remat: bool = False):
+    """Run layers [lo, hi) over a full sequence at positions 0..T-1, each
+    layer under ``torch.utils.checkpoint`` when `remat`.  Returns
+    (x, contribs)."""
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
     contribs = {}
     for seg in segments_in_range(cfg, lo, hi):
         x, contribs[seg.name] = run_segment_full(params_segs[seg.name], x, cfg, seg,
-                                                 positions, collect)
+                                                 positions, collect, remat)
     return x, contribs
 
 

@@ -9,8 +9,10 @@ straight copy of every leaf.  Two sources:
 * a ``.npz`` written by ``repro.checkpoint.ckpt.save_checkpoint``, whose keys
   are the pytree paths joined with "/" (``segments/s1/wq``).
 
-``bfloat16`` leaves arrive as ``ml_dtypes`` arrays, which torch cannot take
-directly; they are reinterpreted bit for bit through ``uint16``.
+``bfloat16`` leaves arrive either as ``ml_dtypes`` arrays (a live pytree) or,
+read back from a ``.npz``, as 2-byte void arrays (``|V2``: ``np.savez``
+stores the ``ml_dtypes`` type by its size alone); torch takes neither, so
+both are reinterpreted bit for bit through ``uint16``.
 """
 from __future__ import annotations
 
@@ -22,13 +24,20 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import tie_head
+from repro_torch.tree import unflatten
+
+
+def is_bf16_bits(arr: np.ndarray) -> bool:
+    """Whether `arr` holds bfloat16 values: an ``ml_dtypes`` array, or the
+    2-byte void array a ``.npz`` gives back for one."""
+    return arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V" and arr.dtype.itemsize == 2)
 
 
 def _tensor(arr, device) -> torch.Tensor:
     arr = np.ascontiguousarray(np.asarray(arr))
     if not arr.flags.writeable:          # torch.from_numpy shares memory
         arr = arr.copy()
-    if arr.dtype.name == "bfloat16":
+    if is_bf16_bits(arr):
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
 
@@ -52,13 +61,8 @@ def draft_params_from_numpy(tree: Mapping, device=None) -> dict:
 
 
 def load_npz(cfg: ModelConfig, path: str, device=None) -> dict:
-    """Model parameters from a ``save_checkpoint`` ``.npz`` ("/"-joined keys)."""
-    tree: dict = {}
+    """Model parameters from a ``save_checkpoint`` ``.npz`` ("/"-joined keys),
+    written by either package."""
     with np.load(path if path.endswith(".npz") else path + ".npz") as data:
-        for key in data.files:
-            *parents, leaf = key.split("/")
-            node = tree
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = data[key]
+        tree = unflatten({key: data[key] for key in data.files})
     return params_from_numpy(cfg, tree, device)

@@ -11,7 +11,9 @@ engines' block-step replayed from CUDA graphs against the eager block-step,
 and the Improve loop on the card: the differentiable ``lora_logits``
 against autograd through its plain version, one update step against the
 same step on the CPU, the update without a host sync, and a graphed
-learning engine against the eager one.
+learning engine against the eager one; the training path: ``ssd_scan``'s
+gradient (``SsdScan``) against autograd through the plain version, and two
+pretraining steps of a narrow mamba2 against the same steps on the CPU.
 
 These tests need an NVIDIA GPU and skip without one.  The machine with the
 card has no JAX, so run them there without the suite's conftest:
@@ -869,3 +871,80 @@ def test_graphed_learning_engine_matches_eager(ops, cell):
         assert torch.equal(s_g.opt_state["m"][k], s_e.opt_state["m"][k]), k
         assert torch.equal(s_g.opt_state["v"][k], s_e.opt_state["v"][k]), k
     assert torch.equal(s_g.baseline, s_e.baseline) and torch.equal(s_g.step, s_e.step)
+
+
+# ---------------------------------------------------------------------------
+# the training path: the scan's gradient and a pretraining step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,Q,H,with_h0", [(8, 256, 128, 32, False), (2, 40, 8, 8, True)])
+def test_ssd_scan_gradient(ops, dtype, B, T, Q, H, with_h0):
+    """ops.ssd_scan with inputs requiring gradients (SsdScan): the forward
+    is one kernel launch, within SSD_TOL of the plain version, and the
+    backward's gradients in the conv output, dt's pre-activation, A_log and
+    h0 equal autograd through ref.ssd_scan in float32 up to summation order
+    (rtol 1e-4, atol 1e-4 x the gradient's largest entry); the backward
+    launches no kernel."""
+    from repro_torch.kernels import ref
+    hd, ds = 64, 128 if H == 32 else 32
+    gen = torch.Generator(device="cuda").manual_seed(B * T)
+    xbc = _randn(gen, B, T, H * hd + 2 * ds, dtype=dtype).requires_grad_()
+    dt_raw = _randn(gen, B, T, H).requires_grad_()
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device="cuda")).requires_grad_()
+    h0 = _randn(gen, B, H, hd, ds).requires_grad_() if with_h0 else None
+    gy = _randn(gen, B, T, H, hd)
+
+    def run(scan):
+        xh = xbc[..., :H * hd].reshape(B, T, H, hd)
+        Bc = xbc[..., H * hd:H * hd + ds].reshape(B, T, 1, ds)
+        Cc = xbc[..., H * hd + ds:].reshape(B, T, 1, ds)
+        y, _ = scan(xh, Bc, Cc, torch.nn.functional.softplus(dt_raw - 2.0), -torch.exp(a_log),
+                    Q, h0=h0)
+        leaves = [xbc, dt_raw, a_log] + ([h0] if with_h0 else [])
+        return y, torch.autograd.grad((y * gy).sum(), leaves)
+
+    ops.reset_launches()
+    y, got = run(ops.ssd_scan)
+    assert ops.launches["ssd_scan"] == 1
+    y_r, want = run(ref.ssd_scan)
+    torch.testing.assert_close(y.detach(), y_r.detach(), **SSD_TOL)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+    assert ops.launches["ssd_scan"] == 1
+
+
+def test_pretrain_two_steps_on_the_card_match_the_cpu(ops):
+    """Two make_pretrain_step steps of a narrow mamba2 (4 layers, d 256,
+    float32) on the card (the ssd_scan kernel forward, SsdScan backward)
+    against the same steps on the CPU from the same weights: losses and
+    gnorms within rtol 1e-4, one scan launch a layer a step, lm_head equal
+    to embed.T at its address after each step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training import init_pretrain_state, make_pretrain_step
+    cfg = get_config("mamba2-370m", tiny=True).replace(dtype="float32", num_layers=4)
+    params_c = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab_size, (4, 64)))
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device)
+        params = {k: (v.to(device) if torch.is_tensor(v) else
+                      {s: {n: w.to(device) for n, w in sp.items()} for s, sp in v.items()})
+                  for k, v in params_c.items()}
+        head, ptr = params["lm_head"], params["lm_head"].data_ptr()
+        step = make_pretrain_step(model, 2e-3)
+        st = init_pretrain_state(model, params)
+        ops.reset_launches()
+        losses = []
+        for _ in range(2):
+            _, _, m = step(params, st, tokens.to(device))
+            losses.append((float(m["loss"]), float(m["gnorm"])))
+            assert params["lm_head"] is head and head.data_ptr() == ptr
+            assert torch.equal(head, params["embed"].T)
+        out[device] = (losses, ops.launches["ssd_scan"])
+    (l_g, n_g), (l_c, n_c) = out["cuda"], out["cpu"]
+    assert n_g == 2 * cfg.num_layers and n_c == 0
+    for (a, b), (c, d) in zip(l_g, l_c):
+        assert a == pytest.approx(c, rel=1e-4) and b == pytest.approx(d, rel=1e-4)

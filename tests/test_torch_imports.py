@@ -1,7 +1,9 @@
 """The port's import rule, checked on the source: nothing under
-src/repro_torch/ and not chip_smoke.py imports JAX or the JAX package, and
-chip_smoke.py needs nothing beyond the standard library, torch, numpy and
-the port (the machine with the card has no JAX)."""
+src/repro_torch/ (its data, training, checkpoint and launch packages
+included), not chip_smoke.py and not examples/torch_quickstart.py imports
+JAX, the JAX package or ``ml_dtypes``, and chip_smoke.py and the quickstart
+need nothing beyond the standard library, torch, numpy and the port (the
+machine with the card has no JAX and no ``ml_dtypes``)."""
 import ast
 import pathlib
 import sys
@@ -11,6 +13,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 SMOKE = ROOT / "chip_smoke.py"
+QUICKSTART = ROOT / "examples" / "torch_quickstart.py"
 
 
 def _imported(path: pathlib.Path):
@@ -25,20 +28,32 @@ def _imported(path: pathlib.Path):
 
 
 def test_port_has_modules():
-    assert len(PORT_FILES) >= 15 and SMOKE.exists()
+    assert len(PORT_FILES) >= 15 and SMOKE.exists() and QUICKSTART.exists()
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
+    assert {"data/synthetic.py", "data/sharegpt.py", "training/pretrain.py",
+            "checkpoint/ckpt.py", "launch/train.py"} <= names
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [SMOKE],
+@pytest.mark.parametrize("path", PORT_FILES + [SMOKE, QUICKSTART],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_no_reference_package(path):
-    bad = _imported(path) & {"jax", "jaxlib", "repro", "flax", "optax"}
+    bad = _imported(path) & {"jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes"}
     assert not bad, f"{path} imports {bad}"
 
 
-def test_smoke_imports_only_torch_numpy_and_the_port():
-    extra = _imported(SMOKE) - set(sys.stdlib_module_names) - {
+def _beyond_torch_numpy_and_the_port(path: pathlib.Path) -> set:
+    return _imported(path) - set(sys.stdlib_module_names) - {
         "__future__", "torch", "numpy", "repro_torch"}
+
+
+def test_smoke_imports_only_torch_numpy_and_the_port():
+    extra = _beyond_torch_numpy_and_the_port(SMOKE)
     assert not extra, f"chip_smoke.py imports {extra}"
+
+
+def test_quickstart_imports_only_torch_numpy_and_the_port():
+    extra = _beyond_torch_numpy_and_the_port(QUICKSTART)
+    assert not extra, f"torch_quickstart.py imports {extra}"
 
 
 def test_triton_and_kernels_load_lazily():

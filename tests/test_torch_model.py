@@ -119,6 +119,30 @@ def test_load_npz_roundtrip(pair, tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
+def test_load_npz_reads_reference_bf16_checkpoints(tmp_path):
+    """The reference's save_checkpoint writes bf16 leaves as 2-byte void
+    (|V2); load_npz gives them back as bf16 tensors, bit for bit."""
+    cfg_j = jax_get_config("vicuna-7b", tiny=True)
+    assert cfg_j.dtype == "bfloat16"
+    params_j = jax_build_model(cfg_j).init(jax.random.PRNGKey(0))
+    path = str(tmp_path / "bf16.npz")
+    save_checkpoint(path, params_j)
+    with np.load(path) as data:
+        assert data["embed"].dtype.str == "|V2"
+    loaded = weights.load_npz(get_config("vicuna-7b", tiny=True), path, "cpu")
+    flat_j = {jax.tree_util.keystr(k): np.asarray(v)
+              for k, v in jax.tree_util.tree_flatten_with_path(params_j)[0]}
+    for key, arr in flat_j.items():
+        node = loaded
+        for part in key.strip("[]'").split("']['"):
+            node = node[part]
+        assert str(node.dtype).split(".")[-1] == arr.dtype.name, key
+        if arr.dtype.name == "bfloat16":
+            np.testing.assert_array_equal(node.view(torch.uint16).numpy(), arr.view(np.uint16))
+        else:
+            np.testing.assert_array_equal(node.numpy(), arr)
+
+
 def test_bf16_leaves_are_bit_exact():
     x = jax.random.normal(jax.random.PRNGKey(0), (3, 5)).astype(jnp.bfloat16)
     t = weights.params_from_numpy(get_config("vicuna-7b", tiny=True),

@@ -179,3 +179,106 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     y_r, h_r = ref.ssd_scan(xh, Bc, Cc, dt.abs(), -A.abs(), 8)
     assert torch.equal(y, y_r) and torch.equal(h, h_r)
     assert ops.launches["ssd_scan"] == 0
+
+
+# ---------------------------------------------------------------------------
+# SsdScan: the gradient wrapper around the CUDA branch
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def filled(monkeypatch):
+    """The CUDA branch with a launch that fills y and the final state from
+    the plain version on the inputs the test registers in ``inputs``."""
+    from repro_torch.kernels import ref
+    made, inputs, calls = {}, {}, []
+    real_empty = torch.empty
+
+    def spy(shape, *args, **kw):
+        t = real_empty(shape, *args, **kw)
+        made[t.data_ptr()] = t
+        return t
+
+    def launch(name, *args):
+        a = dict(zip(ARGS, args))
+        assert a["xh"] == inputs["xh"].data_ptr() and a["dt"] == inputs["dt"].data_ptr()
+        y, h = ref.ssd_scan(*(inputs[k].detach() for k in ("xh", "Bc", "Cc", "dt", "A")),
+                            a["Q"], h0=None if inputs["h0"] is None else inputs["h0"].detach())
+        made[a["y"]].copy_(y)
+        made[a["hout"]].copy_(h)
+        calls.append(name)
+
+    monkeypatch.setattr(ops, "_device", lambda *ts: torch.device("cuda"))
+    monkeypatch.setattr(ops, "_stream", lambda dev: None)
+    monkeypatch.setattr(ops, "_launch", launch)
+    monkeypatch.setattr(ops.torch, "empty", spy)
+    yield inputs, calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,Q,with_h0", [(40, 8, False), (64, 64, True), (24, 24, False)])
+def test_gradients_through_the_cuda_branch(filled, dtype, T, Q, with_h0):
+    """ops.ssd_scan with an input requiring a gradient takes SsdScan: one
+    launch forward, and the backward's gradients in the conv output (xh,
+    Bc, Cc are its strided views), dt's pre-activation, A_log and h0 equal
+    autograd through ref.ssd_scan on the same inputs (the backward
+    recomputes with the plain version: equal up to float32 summation order,
+    rtol 1e-5, atol 1e-6 x the gradient's largest entry)."""
+    from repro_torch.kernels import ref
+    inputs, calls = filled
+    B, H, hd, ds = 2, TH, THD, TDS
+    gen = torch.Generator().manual_seed(T)
+    xbc = torch.randn((B, T, H * hd + 2 * ds), generator=gen).to(dtype).requires_grad_()
+    dt_raw = torch.randn((B, T, H), generator=gen).requires_grad_()
+    a_log = torch.log(torch.linspace(1.0, 16.0, H)).requires_grad_()
+    h0 = torch.randn((B, H, hd, ds), generator=gen).requires_grad_() if with_h0 else None
+    gy = torch.randn((B, T, H, hd), generator=gen)
+    gh = torch.randn((B, H, hd, ds), generator=gen)
+
+    def run(scan):
+        xh = xbc[..., :H * hd].reshape(B, T, H, hd)
+        Bc = xbc[..., H * hd:H * hd + ds].reshape(B, T, 1, ds)
+        Cc = xbc[..., H * hd + ds:].reshape(B, T, 1, ds)
+        dt = torch.nn.functional.softplus(dt_raw - 2.0)
+        A = -torch.exp(a_log)
+        inputs.update(xh=xh, Bc=Bc, Cc=Cc, dt=dt, A=A, h0=h0)
+        y, h = scan(xh, Bc, Cc, dt, A, Q, h0=h0)
+        leaves = [xbc, dt_raw, a_log] + ([h0] if with_h0 else [])
+        return y, h, torch.autograd.grad((y * gy).sum() + (h * gh).sum(), leaves)
+
+    y, h, got = run(ops.ssd_scan)
+    assert calls == ["ssd_scan"] and y.requires_grad and h.requires_grad
+    y_r, h_r, want = run(ref.ssd_scan)
+    assert torch.equal(y.detach(), y_r.detach()) and torch.equal(h.detach(), h_r.detach())
+    for g, w, name in zip(got, want, ("xBC", "dt", "A_log", "h0")):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()),
+                                   msg=name)
+    assert calls == ["ssd_scan"]                     # the backward launches nothing
+
+
+def test_no_gradient_takes_the_plain_call(filled):
+    """Without autograd recording, or with no input requiring a gradient,
+    ops.ssd_scan is the call it was: outputs without a grad_fn."""
+    inputs, calls = filled
+    xh, Bc, Cc, dt, A = _inputs(1, 16, TH, THD, TDS, dtype=torch.float32, device="cpu")
+    inputs.update(xh=xh, Bc=Bc, Cc=Cc, dt=dt.zero_(), A=A.fill_(-1.0), h0=None)
+    y, h = ops.ssd_scan(xh, Bc, Cc, dt, A, 16)
+    assert y.grad_fn is None and h.grad_fn is None
+    with torch.no_grad():
+        y, _ = ops.ssd_scan(xh, Bc, Cc, dt, A.requires_grad_(), 16)
+    assert y.grad_fn is None and calls == ["ssd_scan", "ssd_scan"]
+
+
+def test_plain_scan_gradient_stays_finite_where_the_decay_overflows():
+    """A chunk of 128 with dt * |A| large: exp(seg) above the diagonal is
+    inf.  The plain version masks inside the exp, so its gradient is
+    finite."""
+    from repro_torch.kernels import ref
+    H = 4
+    xh = torch.randn((1, 128, H, 8), generator=torch.Generator().manual_seed(0))
+    Bc = torch.randn((1, 128, 1, 8), generator=torch.Generator().manual_seed(1))
+    dt = torch.full((1, 128, H), 0.5, requires_grad=True)
+    A = -torch.linspace(1.0, 16.0, H)
+    y, _ = ref.ssd_scan(xh, Bc, Bc, dt, A, 128)
+    (g,) = torch.autograd.grad(y.sum(), (dt,))
+    assert bool(torch.isfinite(g).all()) and bool(torch.isfinite(y).all())
