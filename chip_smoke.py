@@ -4,7 +4,8 @@ GPU through the port's five hand-written CUDA kernels: vicuna-7b on the
 batch-synchronous path and on the continuous-batching path over a paged KV
 pool, and mamba2-370m (attention-free, its prefill on the ``ssd_scan``
 kernel) through both schedulers; then the training path (mamba2-370m
-pretraining, vicuna-7b's teacher-forced DVI step, the quickstart).
+pretraining, vicuna-7b's teacher-forced DVI step, the quickstart), and
+vicuna-7b's speculative sampling and per-lane adaptive depth.
 
     python3 chip_smoke.py
 
@@ -52,7 +53,9 @@ Phases (any failure raises and exits non-zero):
    one kernel launch forward) and its gradients against autograd through
    the plain version (``TOL["ssd_scan backward"]``), the backward timed
    alone, and ``lora_logits`` at the DVI step's 8184 rows (forward, dA and
-   dB, its time beside ``gemm_ms`` and its bound);
+   dB, its time beside ``gemm_ms`` and its bound); for adaptive depth
+   (phase 12), both attention kernels at the verify pass's Tq = K_blk + 1
+   = 2, 3 and 4 with the split's edge cases, timed at Tq 2 and 3;
 4. the sync path: vicuna-7b at full width and depth in bf16, random weights
    drawn on the card from a seed, a sync ``ServingEngine`` (drafter frozen,
    ``learn=False``, as in phases 8 and 9) answering 8
@@ -125,6 +128,31 @@ Phases (any failure raises and exits non-zero):
    against AR.  It reports each step's wall, host and device ms, tokens/s,
    peak memory, the scan backward's share of a pretraining step, and the
    quickstart's acceptance, MAT and AR / DVI wall ratio;
+12. speculative sampling and adaptive depth on vicuna-7b, after phase 11b
+   on the same weights: (a) ``speculative_generate`` at temperature 0.8 on
+   phase 4's 8 requests (padded to 128, 32 new tokens) from a generator
+   seeded from SEED, with gates: tokens in the vocabulary, lengths as
+   asked, tuples logged, the same seed giving the same streams bit for bit
+   and another seed other streams, one sampled block under sync debug mode
+   "error", 40 ``decode_attention``, 5 ``lora_logits`` and 0
+   ``verify_argmax`` launches a block; ``rejection_commit`` alone at V 64
+   over 2^20 lanes, the emitted token within total variation 0.01 of p;
+   a sampled and a greedy block's device ms on one cache.  (b) phase 8's
+   continuous engine (ample pool, its 16 requests, graphed) with
+   ``adaptive_k``: pinned at K (k_min = k_max = k_init = 4) equal to phase
+   8's graphed run bit for bit (streams, drafted, blocks); the default
+   controller (k_min 1, k_max 4) with gates: each completion equal to
+   phase 8's or passing the AR near-tie rule, every lane's depth within
+   [k_min, its ceiling k_cap] after each harvest, the launch formula at
+   each dispatched draft width (2 K_blk + 32 ``paged_decode_attention``,
+   K_blk + 1 ``lora_logits``, 1 ``verify_argmax`` a block), each graph's
+   kernel nodes equal to its capture's launches, at most 4 captures, 0
+   synchronising operations in a dispatch, host syncs == dispatches, the
+   pool empty; then an adversarial swing (cooldown 1, k_init 1, hi 0.1)
+   from phase 8's tight pool size down until it preempts, lossless, the
+   pool drained.  It reports each mode's wall and device ms a block-step,
+   tokens/s, busy share, mean depth, draft efficiency, captures, graph
+   pool and peak memory beside phase 8's fixed-K run;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Phases 4, 8 and 9 run every path twice: eagerly (``graphs=False``) and
@@ -206,6 +234,11 @@ M_NAME = "mamba2-370m"
 P_STEPS, P_B, P_T, P_DESCENT, P_DROP = 40, 8, 256, 5, 0.5
 D_STEPS, D_B, D_T = 8, 8, 1024
 D_ROWS = D_B * (D_T - 1)
+# speculative sampling (phase 12a): phase 4's requests at this temperature;
+# rejection_commit alone over 2^20 lanes at V = 64, in chunks of 2^18
+S_TEMP, S_TV_V, S_TV_LANES, S_TV_CHUNK = 0.8, 64, 1 << 20, 1 << 18
+# adaptive depth (phase 12b): the default controller's depth range
+A_KMIN, A_KMAX = 1, 4
 
 
 def phase(n: int, msg: str) -> None:
@@ -862,6 +895,30 @@ def kernels_phase(cfg, mcfg):
     for Tq in (K + 1, 1):
         check_paged_counts(ops, ref, cgen, crng, B, Tq, H, KV, hd, C_PAGE, mps,
                            paged_lens, f"at the main widths, Tq={Tq}")
+    # adaptive depth's verify pass (phase 12b): Tq = K_blk + 1 in 2..K at the
+    # main widths and post-write lengths, with the split's edge cases as
+    # above, from generators of their own so the cases above keep their inputs
+    agen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    arng = np.random.RandomState(SEED + 9)
+    adapt = {}
+    for Tq in range(2, K + 1):
+        lens_q = [n - (K + 1) + Tq for n in main_lens]
+        plens_q = [n - (K + 1) + Tq for n in paged_lens]
+        a_args, _ = check_attention(ops, ref, agen, B, Tq, H, KV, hd, cap, lens_q,
+                                    f"adaptive verify pass Tq={Tq}")
+        p_args, _ = check_paged(ops, ref, agen, arng, B, Tq, H, KV, hd, C_PAGE, mps, plens_q,
+                                f"adaptive verify pass Tq={Tq}")
+        adapt[Tq] = (a_args, lens_q, p_args, plens_q)
+        for lanes in (list(range(B)), [1, 5], [3, 0], [4, 2]):
+            nb = len(lanes)
+            sh = ops.attn_share(pedges[5], ops.attn_splits(pcap, nb * KV))
+            border = sh // C_PAGE if sh < pedges[5] else 1
+            holes = ((lanes.index(5), border - 1), (lanes.index(5), border)) if 5 in lanes else ()
+            check_attention(ops, ref, agen, nb, Tq, H, KV, hd, cap, [edges[i] for i in lanes],
+                            f"split edges, {nb} lanes, Tq={Tq}")
+            check_paged(ops, ref, agen, arng, nb, Tq, H, KV, hd, C_PAGE, mps,
+                        [pedges[i] for i in lanes], f"split edges, {nb} lanes, Tq={Tq}",
+                        holes=holes, unmapped=(lanes.index(4),) if 4 in lanes else ())
     # the mamba2 paths: the tied vocab (not a multiple of 64 columns) and the
     # scan at the prefill shapes of both schedulers
     md, mV, mK = mcfg.d_model, mcfg.vocab_size, mcfg.dvi.k_spec
@@ -976,12 +1033,17 @@ def kernels_phase(cfg, mcfg):
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:83", max_abs_err=err_a,
              **attn_timing(att_args, main_lens),
-             at_draft_feed=attn_timing(feed_args, feed_lens)),
+             at_draft_feed=attn_timing(feed_args, feed_lens),
+             # adaptive depth's verify pass (phase 12b) at K_blk = 1 and 2
+             at_verify_tq2=attn_timing(adapt[2][0], adapt[2][1]),
+             at_verify_tq3=attn_timing(adapt[3][0], adapt[3][1])),
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/csrc/paged_decode_attention.cu",
              replaces="src/repro/kernels/paged_decode_attention.py:127", max_abs_err=err_p,
              **paged_timing(paged_args, paged_lens),
              at_draft_feed=paged_timing(paged_feed_args, paged_feed_lens),
+             at_verify_tq2=paged_timing(adapt[2][2], adapt[2][3]),
+             at_verify_tq3=paged_timing(adapt[3][2], adapt[3][3]),
              library_note="SDPA over the pre-gathered contiguous view; gather not timed"),
         # the scan at the sync path's prefill, with a B = 1 admission of the
         # continuous path beside it; no single PyTorch call scans
@@ -1330,7 +1392,7 @@ def finish_run(eng, n, label, comps, wall, g0, prefills=None) -> dict:
     g, st = eng.graph_stats(), eng.stats
     return dict(eng=eng, comps=comps, wall=wall, launches=dict(ops.launches),
                 steps=st["steps"], blocks=st["blocks"], committed=st["committed"],
-                dispatches=st["dispatches"], host_syncs=st["host_syncs"],
+                drafted=st["drafted"], dispatches=st["dispatches"], host_syncs=st["host_syncs"],
                 peak=torch.cuda.max_memory_allocated(),
                 peak_reserved=torch.cuda.max_memory_reserved(),
                 replays=g["replays"] - g0["replays"], graph=g,
@@ -1545,6 +1607,7 @@ def continuous_phase(cfg, model, params, dvi, paged_row, vocab_rows):
     del eng
     release({})
     check_against_ar(model, params, spec, reqs, comps_t, f"tight pool ({pages} pages)")
+    runs["graphed"]["tight_pages"] = pages
     return runs["graphed"]["launches"], runs["eager"]["launches"], runs["graphed"]
 
 
@@ -1755,7 +1818,8 @@ def learn_sync(cfg, model, params, reqs, base: dict) -> dict:
     return runs
 
 
-def against_frozen(model, params, spec, reqs, comps, frozen_comps, label, padded=None):
+def against_frozen(model, params, spec, reqs, comps, frozen_comps, label, padded=None,
+                   n_phase=10):
     """Each learning completion equals the frozen drafter's (greedy
     decoding is lossless whatever the drafter); where one does not, it must
     pass ``check_against_ar`` (AR on the prompt the engine decoded, the
@@ -1763,12 +1827,284 @@ def against_frozen(model, params, spec, reqs, comps, frozen_comps, label, padded
     want = streams(frozen_comps)
     differ = [r for r in reqs if streams([c for c in comps if c.uid == r.uid])[r.uid]
               != want[r.uid]]
-    phase(10, f"{label}: {len(reqs) - len(differ)} of {len(reqs)} completions equal the frozen "
-              f"drafter's; {len(differ)} go to the AR check")
+    phase(n_phase, f"{label}: {len(reqs) - len(differ)} of {len(reqs)} completions equal the "
+                   f"frozen drafter's; {len(differ)} go to the AR check")
     if differ:
         uids = {r.uid for r in differ}
         check_against_ar(model, params, spec, [(padded or {}).get(r.uid, r) for r in differ],
-                         [c for c in comps if c.uid in uids], label, n_phase=10)
+                         [c for c in comps if c.uid in uids], label, n_phase=n_phase)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: speculative sampling and adaptive depth on vicuna-7b
+# ---------------------------------------------------------------------------
+
+def pad_prompt(req, bucket: int) -> np.ndarray:
+    """The sync engine's padding: the prompt's last `bucket` tokens, left
+    padded by repeating its first."""
+    p = req.prompt[-bucket:]
+    return np.concatenate([np.full(bucket - len(p), p[0], p.dtype), p]) if len(p) < bucket else p
+
+
+def sampled_phase(cfg, model, params, dvi, reqs) -> dict:
+    """Phase 12a: ``speculative_generate`` at temperature S_TEMP on phase 4's
+    8 requests (padded to 128), from a generator seeded from SEED; one
+    sampled block under sync debug mode "error"; a sampled and a greedy
+    block's device time on the same cache; ``rejection_commit`` alone over
+    S_TV_LANES lanes at V = S_TV_V.  Returns the launches and figures."""
+    from repro_torch.core import spec
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    K, k, L, V = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers, cfg.vocab_size
+    Tp = 128
+    prompts = torch.as_tensor(np.stack([pad_prompt(r, Tp) for r in reqs]), device=DEV)
+
+    def run(seed, collect=False):
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        return spec.speculative_generate(model, params, dvi, prompts, MAX_NEW,
+                                         temperature=S_TEMP, generator=gen, collect=collect)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run(SEED, collect=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, n = dict(ops.launches), res.steps
+    want = {"decode_attention": ((K + 1) * k + (L - k)) * n, "lora_logits": (K + 1) * n,
+            "verify_argmax": 0, "paged_decode_attention": 0, "ssd_scan": 0}
+    phase(12, f"sampled speculative_generate (T {S_TEMP}, {N_REQUESTS} lanes, prompts of {Tp}, "
+              f"{MAX_NEW} new tokens): {n} blocks in {wall:.3f} s, MAT "
+              f"{int(res.committed) / max(int(res.blocks), 1):.4f}, acceptance "
+              f"{int(res.accepted_drafts) / max(int(res.drafted), 1):.4f}, "
+              f"{int(res.committed) / wall:.1f} committed tokens/s (eager), tuples logged "
+              f"{int(res.buffer['count'])}; launches {launches}; expected {want}")
+    check(launches == want, "the sampled path did not run the kernels as the formula says")
+    toks, lens = res.tokens.cpu(), res.lengths.cpu()
+    for b in range(N_REQUESTS):
+        gen_b = toks[b, Tp:int(lens[b])]
+        check(bool((gen_b >= 0).all()) and bool((gen_b < V).all()),
+              f"sampled lane {b}: a token outside the vocabulary")
+        check(Tp + MAX_NEW <= int(lens[b]) <= Tp + MAX_NEW + K or 1 in gen_b.tolist(),
+              f"sampled lane {b}: length {int(lens[b])} for {MAX_NEW} new tokens")
+    check(int(res.buffer["count"]) > 0, "the sampled path logged no tuples")
+    again, other = run(SEED), run(SEED + 1)
+    same = torch.equal(again.tokens, res.tokens) and torch.equal(again.lengths, res.lengths)
+    differ = not torch.equal(other.tokens, res.tokens)
+    phase(12, f"the same seed gives the same streams bit for bit: {same}; another seed changes "
+              f"them: {differ}")
+    check(same and differ, "sampling is not reproducible from its seed, or ignores it")
+
+    # one sampled block with no synchronising operation
+    _, cache = model.prefill(params, prompts[:, :-1],
+                             max_len=Tp + MAX_NEW + K + 2 + tfm.RING_SLACK)
+    pend = prompts[:, -1].to(torch.int32)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        spec.spec_block_step(model, params, dvi, pend, cache, temperature=S_TEMP, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    phase(12, "one sampled spec_block_step under sync debug mode 'error': 0 synchronising "
+              "operations")
+    # an eager block's 4.4 k launches overflow the launch queue behind
+    # time_ms's spin, so the profiler gives its device time
+    samp_ms = block_device_ms(lambda: spec.spec_block_step(
+        model, params, dvi, pend, cache, temperature=S_TEMP, generator=gen))
+    greedy_ms = block_device_ms(lambda: spec.spec_block_step(model, params, dvi, pend, cache))
+    phase(12, f"an eager block on the 8 lanes at length {Tp - 1}, device ms (the time some "
+              f"kernel ran, torch.profiler, mean of {BLOCK_REPS}): sampled {samp_ms:.3f}, greedy "
+              f"{greedy_ms:.3f}; sampled - greedy {samp_ms - greedy_ms:.3f} ms")
+
+    # rejection_commit alone: the emitted token against p
+    rng = np.random.RandomState(SEED + 10)
+    p = torch.as_tensor(rng.dirichlet(np.full(S_TV_V, 0.5)).astype(np.float32), device=DEV)
+    q = torch.as_tensor(rng.dirichlet(np.full(S_TV_V, 0.5)).astype(np.float32), device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    counts = torch.zeros(S_TV_V, dtype=torch.float64, device=DEV)
+    C = S_TV_CHUNK
+
+    def chunk():
+        d = torch.argmax(torch.log(q)[None] + spec.gumbel((C, S_TV_V), gen, DEV), dim=-1)
+        d_blk = torch.stack([d, d], dim=1).to(torch.int32)
+        m, corr = spec.rejection_commit(d_blk, q.expand(C, 2, S_TV_V), p.expand(C, 2, S_TV_V),
+                                        generator=gen)
+        return torch.where(m >= 1, d_blk[:, 0], corr)
+
+    for _ in range(S_TV_LANES // C):
+        counts += torch.bincount(chunk(), minlength=S_TV_V)
+    tv = 0.5 * float((counts / S_TV_LANES - p.double()).abs().sum())
+    chunk_ms, _ = time_ms(chunk, iters=5)
+    phase(12, f"rejection_commit alone at V={S_TV_V} over {S_TV_LANES} lanes (K = 1, q != p): "
+              f"total variation of the emitted token from p {tv:.5f} (limit 0.01); "
+              f"{chunk_ms:.3f} device ms a chunk of {C} lanes (draft draw included)")
+    check(tv < 0.01, f"rejection_commit: total variation {tv:.5f} from the target")
+    return dict(launches=launches, blocks=n, wall=wall, sampled_ms=samp_ms,
+                greedy_ms=greedy_ms, tv=tv)
+
+
+BLOCK_REPS = 5
+
+
+def block_device_ms(fn) -> float:
+    """Device ms of one call of `fn` (an eager block): the time some kernel
+    ran (``covered_ms``) over BLOCK_REPS calls under torch.profiler, after
+    one call outside it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(BLOCK_REPS):
+            fn()
+        torch.cuda.synchronize()
+    busy = covered_ms([(e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA])
+    check(busy > 0.0, "profile: the profiler saw no device time")
+    return busy / BLOCK_REPS
+
+
+def record_depths(eng, k_min: int) -> dict:
+    """Wrap the runner's dispatch and the engine's harvest: each dispatch's
+    draft width and blocks, and after each harvest every lane of that
+    dispatch's depth against [k_min, its ceiling k_cap].  ``close()`` puts
+    the methods back."""
+    runner = eng._runner
+    rec = dict(dispatches=[], bad=[], last=None)
+    inner_d, inner_h = runner.dispatch, eng._harvest
+
+    def dispatch(done, budget, steps, k_blk=None, depth_state=None):
+        rec["dispatches"].append((k_blk, steps))
+        rec["last"] = (np.array(depth_state[3]), [s for s, st in enumerate(eng._slots)
+                                                  if st is not None])
+        return inner_d(done, budget, steps, k_blk=k_blk, depth_state=depth_state)
+
+    def harvest():
+        last, rec["last"] = rec["last"], None
+        outs = inner_h()
+        if last is not None:
+            kcap, lanes = last
+            rec["bad"] += [(s, int(eng._k_host[s]), int(kcap[s])) for s in lanes
+                           if not k_min <= int(eng._k_host[s]) <= int(kcap[s])]
+        return outs
+
+    def close():
+        del runner.dispatch, eng._harvest            # the class's methods; no cycle
+
+    runner.dispatch, eng._harvest = dispatch, harvest
+    rec["close"] = close
+    return rec
+
+
+def adaptive_run(model, params, dvi, reqs, pages: int, label: str, floor: int,
+                 **kw) -> dict:
+    """A graphed continuous engine with ``adaptive_k`` (its graphs of every
+    draft width captured ahead) and one warm-up request, then `reqs` served
+    at once under ``serve_checked``'s zero-sync gate, the depths recorded."""
+    eng = continuous_engine(model, params, dvi, pages, True, adaptive_k=True, **kw)
+    eng.submit_request(reqs[0])                  # warm-up, not counted
+    eng.run()
+    eng.reset_stats()
+    reset_counts()
+    g0 = eng.graph_stats()
+    rec = record_depths(eng, floor)
+    try:
+        comps, wall, blocks_run, per_tick = serve_checked(eng, reqs)
+    finally:
+        rec["close"]()
+    run = finish_run(eng, 12, label, comps, wall, g0)
+    run.update(blocks_run=blocks_run, per_tick=per_tick, dispatch_log=rec["dispatches"],
+               bad=rec["bad"], adaptive=eng.adaptive_stats(), kv=eng.kv_stats())
+    return run
+
+
+def adaptive_phase(cfg, model, params, dvi, base: dict) -> dict:
+    """Phase 12b: phase 8's graphed continuous path (ample pool, its 16
+    requests) with adaptive depth: pinned at K (== phase 8 bit for bit), the
+    default controller (k_min A_KMIN, k_max A_KMAX), and an adversarial
+    swing over phase 8's tight pool.  Returns the runs."""
+    from repro_torch.core import spec
+    from repro_torch.core.schedule import DepthConfig
+    K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
+    reqs = continuous_requests(cfg)
+    runs = {}
+    for mode, floor, kw in (("pinned", K, dict(depth_cfg=DepthConfig(k_min=K, k_max=K,
+                                                                     k_init=K))),
+                            ("controller", A_KMIN, dict(k_min=A_KMIN, k_max=A_KMAX))):
+        label = f"adaptive {mode}"
+        r = runs[mode] = adaptive_run(model, params, dvi, reqs, C_PAGES_AMPLE, label, floor, **kw)
+        widths = sorted({kb for kb, _ in r["dispatch_log"]})
+        want = {"paged_decode_attention": sum(n * ((kb + 1) * k + (L - k))
+                                              for kb, n in r["dispatch_log"]),
+                "lora_logits": sum(n * (kb + 1) for kb, n in r["dispatch_log"]),
+                "verify_argmax": r["blocks_run"], "decode_attention": 0, "ssd_scan": 0}
+        g, a, kv = r["graph"], r["adaptive"], r["kv"]
+        phase(12, f"{label}: {len(r['comps'])} requests in {r['wall']:.3f} s, {r['steps']} "
+                  f"block-steps, {r['dispatches']} dispatches, {r['host_syncs']} host syncs, "
+                  f"draft widths dispatched {widths}, mean depth {a['mean_depth']:.3f}, draft "
+                  f"efficiency {a['draft_efficiency']:.4f}, drafted {r['drafted']}, lanes out of "
+                  f"[k_min, k_cap] {r['bad']}, used pages at the end {kv['used_pages']}, "
+                  f"captures {g['captures']}, syncs per tick {r['per_tick']} (0 inside every "
+                  f"dispatch)")
+        phase(12, f"{label}: launches {r['launches']}; expected {want} (per block {k} K_blk + "
+                  f"{L} paged_decode_attention, K_blk + 1 lora_logits, 1 verify_argmax)")
+        check(r["launches"] == want, f"{label}: the launches disagree with the formula")
+        check(not r["bad"], f"{label}: a lane's depth left [k_min, k_cap]")
+        check(r["host_syncs"] == r["dispatches"], f"{label}: host syncs != dispatches")
+        check(kv["used_pages"] == 0, f"{label}: pages left in use")
+        check(g["captures"] <= A_KMAX - A_KMIN + 1, f"{label}: {g['captures']} captures")
+        check_census(12, label, g)
+        r["profile"] = profile_batch(r["eng"], reqs, r["wall"] * 1e3, n=12)
+        release(r)
+    pin = runs["pinned"]
+    same = (streams(pin["comps"]) == streams(base["comps"]) and pin["drafted"] == base["drafted"]
+            and pin["blocks"] == base["blocks"])
+    phase(12, f"pinned (k_min = k_max = k_init = {K}) == phase 8's graphed run bit for bit "
+              f"(streams, drafted {pin['drafted']} / {base['drafted']}, blocks {pin['blocks']} / "
+              f"{base['blocks']}): {same}")
+    check(same, "pinned adaptive depth differs from fixed K")
+    check(len({kb for kb, _ in runs["controller"]["dispatch_log"]}) >= 1
+          and runs["controller"]["adaptive"]["mean_depth"] < K,
+          "the default controller never lowered the depth")
+    against_frozen(model, params, spec, reqs, runs["controller"]["comps"], base["comps"],
+                   "adaptive controller", n_phase=12)
+
+    # the adversarial swing: lanes admitted at depth 1 climb every block
+    dc = DepthConfig(k_min=1, k_max=K, k_init=1, cooldown=1, hi=0.1, lo=0.05, ema_init=0.9)
+    pages = base["tight_pages"]
+    while True:
+        eng = continuous_engine(model, params, dvi, pages, True, adaptive_k=True, depth_cfg=dc)
+        comps, wall, _, per_tick = serve_checked(eng, reqs)
+        kv, a = eng.kv_stats(), eng.adaptive_stats()
+        phase(12, f"adaptive swing over a tight pool of {pages} pages: {len(comps)} requests in "
+                  f"{wall:.3f} s, {kv['preemptions']} preemptions, mean depth "
+                  f"{a['mean_depth']:.3f}, used pages at the end {kv['used_pages']}, syncs per "
+                  f"tick max {max(per_tick)}")
+        check(kv["used_pages"] == 0, "the swing left pages in use")
+        check(a["mean_depth"] > 1.0, "the swing never rose above depth 1")
+        if kv["preemptions"] >= 1 or pages <= eng._mps:
+            break
+        pages -= 1
+        del eng
+        release({})
+    check(kv["preemptions"] >= 1, "the swing never preempted")
+    del eng
+    release({})
+    against_frozen(model, params, spec, reqs, comps, base["comps"],
+                   f"adaptive swing ({pages} pages)", n_phase=12)
+    for mode, r in list(runs.items()) + [("phase 8 fixed K", base)]:
+        steps, g, p = max(r["steps"], 1), r["graph"], r["profile"]
+        depth = (f"mean depth {r['adaptive']['mean_depth']:.3f}, draft efficiency "
+                 f"{r['adaptive']['draft_efficiency']:.4f}" if "adaptive" in r else
+                 f"mean depth {r['drafted'] / max(r['blocks'], 1):.3f}, draft efficiency "
+                 f"{r['committed'] / max(r['drafted'], 1):.4f}")
+        phase(12, f"{mode}: wall per block-step {1e3 * r['wall'] / steps:.2f} ms, device "
+                  f"{p['device_ms']:.2f} ms a block-step, busy {100 * p['busy']:.1f}%, "
+                  f"{r['committed'] / r['wall']:.1f} committed tokens/s, {depth}, "
+                  f"{g['captures']} captures, graph pool {g['pool_bytes'] / 2**30:.3f} GiB, peak "
+                  f"memory {r['peak'] / 2**30:.2f} GiB")
+    runs["swing_pages"] = pages
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2319,6 +2655,13 @@ def main() -> int:
     t_dvi = dvi_batch_phase(model, params)
     marks["11b"] = time.perf_counter() - t_start
 
+    # ---- phase 12: speculative sampling and adaptive depth, on the same weights ----
+    release({})
+    t_samp = sampled_phase(cfg, model, params, dvi, reqs)
+    release({})
+    a_runs = adaptive_phase(cfg, model, params, dvi, c_frozen)
+    marks["12"] = time.perf_counter() - t_start
+
     # ---- phase 9: mamba2-370m through both schedulers ----
     del model, params, dvi
     release({})                        # engines in reference cycles hold the weights
@@ -2342,7 +2685,11 @@ def main() -> int:
                    # the training paths (phase 11), eager
                    "mamba2_pretrain": t_pre["launches"].get(name, 0),
                    "dvi_batch": t_dvi["launches"].get(name, 0),
-                   "quickstart": t_qs["launches"].get(name, 0)}
+                   "quickstart": t_qs["launches"].get(name, 0),
+                   # phase 12: the sampled path (eager) and adaptive depth (graphed)
+                   "sampled": t_samp["launches"].get(name, 0),
+                   "adaptive_pinned": a_runs["pinned"]["launches"].get(name, 0),
+                   "adaptive": a_runs["controller"]["launches"].get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["launches_eager_by_path"] = {

@@ -25,10 +25,11 @@ they are still the tensors the runner was made with (``check_drafter``).
 * On CUDA with ``graphs=True`` the body first runs once eagerly on a side
   stream (torch's documented warm-up) with every lane done, which changes
   nothing a later block reads: the replay buffer's ``ptr`` and ``count``
-  stay, and its generation stays or is put back.  So each kernel library's first-call setup (its
+  stay, its generation stays or is put back, and a depth controller's
+  state stays.  So each kernel library's first-call setup (its
   attributes, occupancy, the TMA entry point, lazy module loading) happens
-  before the capture.  Then the body is captured once per shape key and
-  replayed.
+  before the capture.  Then the body is captured once per shape key (and
+  per draft width with adaptive depth) and replayed.
 * On the CPU, or with ``graphs=False``, the same body runs eagerly over the
   same buffers.
 
@@ -57,7 +58,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import spec
-from repro_torch.core.spec import GEN_COUNTERS, LANE_COUNTERS, GenResult, SuperstepResult
+from repro_torch.core.schedule import DepthConfig
+from repro_torch.core.spec import (DEPTH_STATE, GEN_COUNTERS, LANE_COUNTERS, GenResult,
+                                   SuperstepResult)
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model import Model
@@ -269,64 +272,118 @@ def check_drafter(dvi_params: dict, ptrs: dict) -> None:
 class SuperstepRunner:
     """The continuous scheduler's block-step over static buffers.
     ``dispatch`` runs a superstep of ``steps`` blocks as ``steps`` calls of
-    one block-step: one graph per engine, whose shape is the engine's lanes,
-    its cache (capacity, or pages and table width) and ``sync_every``.
+    one block-step, whose shape is the engine's lanes, its cache (capacity,
+    or pages and table width), ``sync_every`` and the draft width: one
+    graph at depth K, or with a depth controller (`depth`) one graph per
+    draft width ``K_blk`` in [k_min, k_max] that a dispatch asks for
+    (captured at its first use, or all at once by ``capture_all``), the
+    port's counterpart of the reference re-specialising its jitted
+    superstep on the static ``K_blk``.  All of them read and write the same
+    static buffers and share one memory pool.
 
     `pending` (B,), `cache` and `buf` become static buffers as they are:
     the engine keeps the same tensors and edits them in place between
-    dispatches.  The counters, histograms and the committed-token buffer
-    (``sync_every * (K+1)`` a lane, plus a spare slot) are views of one
-    int32 buffer, zeroed once a dispatch."""
+    dispatches.  So do the controller's per-lane depth, EMA, cooldown and
+    ceiling (``DEPTH_STATE`` and "k_cap"), uploaded at each dispatch.  The
+    counters, histograms (``k_max + 1`` buckets) and the committed-token
+    buffer (``sync_every * (k_max + 1)`` a lane, plus a spare slot) are
+    views of one int32 buffer, zeroed once a dispatch."""
 
     def __init__(self, model: Model, params: dict, dvi_params: dict, pending: torch.Tensor,
-                 cache: dict, buf: dict, *, sync_every: int, eos_id: int, graphs: bool):
+                 cache: dict, buf: dict, *, sync_every: int, eos_id: int, graphs: bool,
+                 depth: Optional[DepthConfig] = None):
         K = model.cfg.dvi.k_spec
         B = pending.shape[0]
         dev = pending.device
+        self.k_spec, self.depth = K, depth
+        k_max = K if depth is None else depth.k_max
         self.dvi_params, self.drafter = dvi_params, drafter_ptrs(dvi_params)
-        self.cap = cap = sync_every * (K + 1)
-        sizes = [B] * len(LANE_COUNTERS) + [K + 1, K + 1, B * cap + 1]
+        self.cap = cap = sync_every * (k_max + 1)
+        sizes = [B] * len(LANE_COUNTERS) + [k_max + 1, k_max + 1, B * cap + 1]
         self.acc = torch.zeros((sum(sizes),), dtype=torch.int32, device=dev)
         *counters, a_hist, d_hist, self.gen_flat = self.acc.split(sizes)
         self.state = st = dict(
             pending=pending, done=torch.ones((B,), dtype=torch.bool, device=dev),
             budget=torch.zeros((B,), dtype=torch.int32, device=dev), cache=cache, buf=buf,
-            **dict(zip(LANE_COUNTERS, counters)), accept_hist=a_hist, depth_hist=d_hist)
+            **dict(zip(LANE_COUNTERS, counters)),
+            k_lane=torch.full((B,), K if depth is None else depth.k_init, dtype=torch.int32,
+                              device=dev),
+            accept_ema=torch.zeros((B,), dtype=torch.float32, device=dev),
+            k_cool=torch.zeros((B,), dtype=torch.int32, device=dev),
+            k_cap=torch.full((B,), k_max, dtype=torch.int32, device=dev),
+            accept_hist=a_hist, depth_hist=d_hist)
         gen_flat = self.gen_flat
 
         # the body holds the buffers, not the runner: no reference cycle
-        def body():
-            write_back(st, spec.superstep_block(model, params, dvi_params, st, gen_flat, cap,
-                                                k_spec=K, eos_id=eos_id, collect=True))
+        def make_body(k_blk: int):
+            def body():
+                k_hi = None if depth is None else torch.clamp(st["k_cap"], max=k_blk)
+                write_back(st, spec.superstep_block(
+                    model, params, dvi_params, st, gen_flat, cap, k_spec=k_blk, eos_id=eos_id,
+                    collect=True, ragged=depth is not None, depth_cfg=depth, k_hi=k_hi))
 
-        def warmup():                    # no live lane: the buffer's gen stays
-            st["done"].fill_(True)
-            body()
+            def warmup():                # no live lane: the buffer's gen stays
+                st["done"].fill_(True)
+                body()
+            return body, warmup
 
-        capture = graphs and _cuda.captures(dev)
-        self.step = StepGraph(body, capture=capture,
-                              pool=_cuda.new_pool() if capture else None, warmup=warmup)
+        self._make_body = make_body
+        self._capture = graphs and _cuda.captures(dev)
+        self._pool = _cuda.new_pool() if self._capture else None
+        self.steps: Dict[int, StepGraph] = {}          # K_blk -> its block-step
+        if depth is None:
+            self.step_for(K)
 
-    def dispatch(self, done: np.ndarray, budget: np.ndarray, steps: int) -> SuperstepResult:
-        """Upload the host's done mask and REMAINING budgets, zero the
-        accumulators and run `steps` blocks.  Returns without waiting for
-        the device; the result's tensors are the static buffers, which the
-        next dispatch overwrites."""
+    def step_for(self, k_blk: int) -> StepGraph:
+        """The block-step at draft width `k_blk`, made (and captured) on
+        first use.  Capturing runs a warm-up block with every lane done, so
+        a dispatch asks for its step before it uploads the done mask."""
+        if k_blk not in self.steps:
+            lo, hi = ((self.k_spec, self.k_spec) if self.depth is None
+                      else (self.depth.k_min, self.depth.k_max))
+            if not lo <= k_blk <= hi:
+                raise ValueError(f"draft width {k_blk} outside [{lo}, {hi}]")
+            body, warmup = self._make_body(k_blk)
+            self.steps[k_blk] = StepGraph(body, capture=self._capture, pool=self._pool,
+                                          warmup=warmup)
+        return self.steps[k_blk]
+
+    def capture_all(self) -> None:
+        """Make every block-step the runner may dispatch: each draft width in
+        [k_min, k_max] with a depth controller."""
+        if self.depth is not None:
+            for k_blk in range(self.depth.k_min, self.depth.k_max + 1):
+                self.step_for(k_blk)
+
+    def dispatch(self, done: np.ndarray, budget: np.ndarray, steps: int,
+                 k_blk: Optional[int] = None, depth_state=None) -> SuperstepResult:
+        """Upload the host's done mask and REMAINING budgets (and, with a
+        controller, `depth_state`: the per-lane depth, EMA, cooldown and
+        ceiling), zero the accumulators and run `steps` blocks at draft
+        width `k_blk` (default K).  Returns without waiting for the device;
+        the result's tensors are the static buffers, which the next dispatch
+        overwrites; its histograms are their first ``k_blk + 1`` buckets."""
         st = self.state
+        k_blk = self.k_spec if k_blk is None else k_blk
+        step = self.step_for(k_blk)
         check_drafter(self.dvi_params, self.drafter)
         upload(st["done"], done)
         upload(st["budget"], budget)
+        if depth_state is not None:
+            for name, arr in zip(DEPTH_STATE + ("k_cap",), depth_state):
+                upload(st[name], arr)
         self.acc.zero_()
         for _ in range(steps):
-            self.step()
+            step()
         B = st["pending"].shape[0]
         return SuperstepResult(st["pending"], st["done"],
                                self.gen_flat[:B * self.cap].view(B, self.cap),
-                               *(st[name] for name in LANE_COUNTERS), st["accept_hist"],
-                               st["depth_hist"], st["cache"], st["buf"], steps)
+                               *(st[name] for name in LANE_COUNTERS + DEPTH_STATE),
+                               st["accept_hist"][:k_blk + 1], st["depth_hist"][:k_blk + 1],
+                               st["cache"], st["buf"], steps)
 
     def graph_stats(self) -> dict:
-        return graph_stats([self.step])
+        return graph_stats(self.steps.values())
 
 
 class GenerateRunner:

@@ -1,5 +1,5 @@
 """Continual-learning serving engine: port of ``repro.serving.engine``,
-greedy, at fixed depth.
+greedy, at a fixed or an adaptive depth.
 
 Two schedulers:
 
@@ -68,7 +68,30 @@ drafter learns while it serves:
 
 Every write of an update is in place: the block-step graphs hold the
 addresses of A, B and the ring, and each dispatch checks that A and B were
-not rebound.  Chunked prefill, the prefix cache and adaptive depth are
+not rebound.
+
+With ``adaptive_k=True`` (continuous scheduler only) each lane has its own
+speculation depth, moved by the verifier's accept/reject stream:
+
+* each lane carries the controller's state (depth, acceptance EMA,
+  cooldown; ``core.schedule.DepthConfig``), which the controller updates
+  on the device after every block of a superstep; the host mirrors it,
+  uploads it at each dispatch, reads it back with the harvest's one packed
+  copy and resets it to ``k_init`` at every admission, so a recycled lane
+  never inherits a depth;
+* every dispatch drafts ``K_blk`` = the largest depth ceiling over the live
+  lanes and replays the runner's graph of that draft width, so a batch
+  that throttles down runs shallower, cheaper blocks (at most
+  ``k_max - k_min + 1`` graphs);
+* page math splits by purpose (the adaptive-depth contract):
+  reservations (admission, the pre-admission reserve, prompt trimming,
+  the cache's capacity) assume ``k_max``; growth provisions each lane for
+  its live depth plus the rises the controller can make in one superstep
+  (``schedule.max_depth_rises``), and that bound goes back to the device
+  as the lane's ceiling ``k_cap``, so a rise never outruns its pages.
+
+Greedy streams do not depend on the depth, so the controller changes the
+work done, never the tokens.  Chunked prefill and the prefix cache are
 later slices and raise.
 """
 from __future__ import annotations
@@ -154,7 +177,10 @@ class ServingEngine:
     kv_watermark: int = 0         # pages kept free at admission (paged mode)
     prefix_cache: bool = False
     prefill_chunk: int = 0
-    adaptive_k: bool = False
+    adaptive_k: bool = False      # per-lane acceptance-driven depth (continuous)
+    k_min: int = 1                # adaptive: depth floor
+    k_max: int = 0                # adaptive: depth ceiling (0 = cfg.dvi.k_spec)
+    depth_cfg: Optional[schedule_mod.DepthConfig] = None   # adaptive: full override
     clock: Callable[[], float] = time.monotonic
     telemetry: bool = False       # lifecycle tracer on (metrics always on)
     trace_limit: int = 200_000
@@ -172,13 +198,23 @@ class ServingEngine:
             raise TypeError("the third argument is the drafter's OnlineTrainerState "
                             "(core.online.init_trainer)")
         for name, on in (("prefill_chunk", self.prefill_chunk > 0),
-                         ("prefix_cache", self.prefix_cache),
-                         ("adaptive_k", self.adaptive_k)):
+                         ("prefix_cache", self.prefix_cache)):
             if on:
                 raise NotImplementedError(f"{name} is a later slice of the port "
                                           f"(ROADMAP item 12)")
-        self._k_worst = K
-        self._cap = self.cache_len or (max(self.buckets) + self.max_new + K + 2
+        # adaptive depth: the controller, and the worst-case depth that every
+        # reservation (cache capacity, prompt trimming, admission, the
+        # pre-admission reserve) assumes; growth uses the live depth
+        # (_lane_growth_k)
+        if self.adaptive_k and self.scheduler != "continuous":
+            raise ValueError("adaptive_k requires scheduler='continuous'")
+        self._depth: Optional[schedule_mod.DepthConfig] = None
+        if self.adaptive_k:
+            kmax = self.k_max or K
+            self._depth = self.depth_cfg or schedule_mod.DepthConfig(
+                k_min=self.k_min, k_max=kmax, k_init=min(max(K, self.k_min), kmax))
+        self._k_worst = K if self._depth is None else self._depth.k_max
+        self._cap = self.cache_len or (max(self.buckets) + self.max_new + self._k_worst + 2
                                        + tfm.RING_SLACK)
         self.sync_every = max(1, int(self.sync_every))
         # the Improve loop: the update and its generator; the continuous
@@ -203,6 +239,17 @@ class ServingEngine:
         self._pending = torch.zeros((self.num_slots,), dtype=torch.int32,
                                     device=self.model.device)
         self._cache: Optional[dict] = None
+        # per-lane lifetime counters (adaptive_stats) and the host mirror of
+        # the depth controller's state: uploaded at dispatch, read back at
+        # the harvest, reset at admission; pinned at k_spec without a
+        # controller
+        n = self.num_slots
+        self._slot_accepted, self._slot_drafted, self._slot_committed, self._slot_blocks = (
+            np.zeros((n,), np.int64) for _ in range(4))
+        d = self._depth
+        self._k_host = np.full((n,), K if d is None else d.k_init, np.int32)
+        self._ema_host = np.full((n,), 0.0 if d is None else d.ema_init, np.float32)
+        self._cool_host = np.zeros((n,), np.int32)
         # the block-step runner (core.graphs), made on first use or warmup()
         self._runner = None
         self._submit_t: Dict[int, float] = {}
@@ -606,18 +653,32 @@ class ServingEngine:
             prompt = prompt[-limit:]
         return prompt
 
-    def _superstep_horizon(self, remaining: int) -> int:
+    def _superstep_horizon(self, remaining: int, k: Optional[int] = None) -> int:
         """Cache slots one superstep can touch beyond a lane's committed
         length: ``sync_every`` blocks of K+1 eager tokens, capped by the
         lane's remaining budget (r more blocks advance the cache at most
-        r + K slots).  Shared by admission sizing and page growth."""
-        K = self._k_worst
+        r + K slots).  Shared by admission sizing and page growth.  `k`:
+        the depth to assume, by default the worst case (``k_max`` with a
+        controller), which every reservation uses; growth passes the lane's
+        live bound (``_lane_growth_k``)."""
+        K = self._k_worst if k is None else k
         return min(self.sync_every * (K + 1), remaining + K)
 
-    def _pages_needed(self, cache_len: int, remaining: int) -> int:
+    def _pages_needed(self, cache_len: int, remaining: int, k: Optional[int] = None) -> int:
         """Pages covering `cache_len` committed slots plus one superstep
-        horizon (+1 slack slot)."""
-        return self._pool.pages_for(cache_len + self._superstep_horizon(remaining) + 1)
+        horizon at depth `k` (+1 slack slot)."""
+        return self._pool.pages_for(cache_len + self._superstep_horizon(remaining, k) + 1)
+
+    def _lane_growth_k(self, s: int) -> int:
+        """The depth lane `s` is provisioned for over its NEXT superstep: its
+        live depth plus the rises the controller can make within
+        ``sync_every`` blocks.  The same bound goes to the device as the
+        lane's ceiling ``k_cap``, so a rise never outruns its pages."""
+        if self._depth is None:
+            return self.model.cfg.dvi.k_spec
+        rises = schedule_mod.max_depth_rises(self._depth, self.sync_every,
+                                             int(self._cool_host[s]))
+        return min(self._depth.k_max, int(self._k_host[s]) + rises)
 
     def _growth_reserve(self) -> int:
         """Pages live lanes may still need for their NEXT growth pass,
@@ -692,6 +753,12 @@ class ServingEngine:
             self._slots[slot] = _Slot(uid=req.uid, prompt=orig_prompt, max_new=max_new,
                                       gen=list(gen0), blocks=blocks0, wall_s=wall0,
                                       cache_len=c1, admit_seq=seq0, handle=hq)
+            # a fresh controller state: a recycled lane must not inherit the
+            # previous request's depth, nor a replay its pre-preemption EMA
+            if self._depth is not None:
+                self._k_host[slot] = self._depth.k_init
+                self._ema_host[slot] = self._depth.ema_init
+                self._cool_host[slot] = 0
             t_adm = self.clock()
             if hq is not None:
                 if hq.t_admit is None:   # first admission only: a replay keeps
@@ -739,9 +806,10 @@ class ServingEngine:
         self.stats["preemptions"] += 1
 
     def _grow_pages(self) -> None:
-        """Top every live lane up to the pages its NEXT superstep can touch,
-        oldest first; on pool exhaustion preempt the newest other lane and
-        retry.  All row updates of the tick go to the device in one push."""
+        """Top every live lane up to the pages its NEXT superstep can touch
+        at its live depth bound (``_lane_growth_k``), oldest first; on pool
+        exhaustion preempt the newest other lane and retry.  All row updates
+        of the tick go to the device in one push."""
         dirty = False
         for s in sorted((i for i, st in enumerate(self._slots) if st is not None),
                         key=lambda i: self._slots[i].admit_seq):
@@ -752,7 +820,8 @@ class ServingEngine:
             if remaining <= 0:           # retires at the next boundary
                 continue
             while True:
-                got = self._pool.ensure(st.uid, self._pages_needed(st.cache_len, remaining))
+                got = self._pool.ensure(st.uid, self._pages_needed(
+                    st.cache_len, remaining, k=self._lane_growth_k(s)))
                 if got is None:
                     victims = [i for i, v in enumerate(self._slots)
                                if v is not None and i != s]
@@ -789,7 +858,21 @@ class ServingEngine:
         # buffer in place; every later device op of the engine is queued
         # behind the superstep on the same stream
         graphs_mod.check_drafter(self.state.dvi_params, self._runner.drafter)
-        res = self._runner.dispatch(self._done, budget, steps)
+        if self._depth is None:
+            res = self._runner.dispatch(self._done, budget, steps)
+        else:
+            # each live lane's ceiling is the depth growth provisioned for;
+            # the draft width K_blk is the largest of them (lanes are
+            # admitted only at boundaries, so this is exact)
+            kcap = np.full((self.num_slots,), self._k_worst, np.int32)
+            kblk = self._depth.k_min
+            for s, st in enumerate(self._slots):
+                if st is not None:
+                    kcap[s] = self._lane_growth_k(s)
+                    kblk = max(kblk, int(kcap[s]))
+            res = self._runner.dispatch(
+                self._done, budget, steps, k_blk=kblk,
+                depth_state=(self._k_host, self._ema_host, self._cool_host, kcap))
         lanes = [s for s, st in enumerate(self._slots) if st is not None]
         now = self.clock()
         mark = self._clock + (now - self._tick_t0)
@@ -814,10 +897,13 @@ class ServingEngine:
         res, clock_mark, lanes, t_disp_wall = self._inflight
         self._inflight = None
         staged = self._train_staged
-        B, K = self.num_slots, self._k_worst
+        B, nh = self.num_slots, res.accept_hist.shape[0]    # K_blk + 1 buckets
         parts = [p.reshape(-1).to(torch.int32) for p in (
             res.done, res.gen_count, res.lane_blocks, res.lane_committed, res.lane_accepted,
-            res.lane_drafted, res.accept_hist, res.depth_hist, res.buffer["count"])]
+            res.lane_drafted, res.k_lane)]
+        parts.append(res.accept_ema.view(torch.int32))      # float32 bits
+        parts += [p.reshape(-1).to(torch.int32) for p in (
+            res.k_cool, res.accept_hist, res.depth_hist, res.buffer["count"])]
         n_train = 0 if staged is None else len(TRAIN_KEYS)
         if staged is not None:           # float32 bits, read back as float32
             parts.append(staged[0].view(torch.int32))
@@ -826,9 +912,10 @@ class ServingEngine:
         t0 = self.clock()
         flat = torch.cat(parts).cpu().numpy()
         now = self.clock()
-        (done_np, cnt_np, blocks_np, committed_np, accepted_np, drafted_np,
-         ahist_np, dhist_np, count_np, train_np, gen_np) = np.split(
-            flat, np.cumsum([B, B, B, B, B, B, K + 1, K + 1, 1, n_train]))
+        (done_np, cnt_np, blocks_np, committed_np, accepted_np, drafted_np, k_np, ema_np,
+         cool_np, ahist_np, dhist_np, count_np, train_np, gen_np) = np.split(
+            flat, np.cumsum([B] * 9 + [nh, nh, 1, n_train]))
+        ema_np = ema_np.view(np.float32)
         gen_np = gen_np.reshape(B, -1)
         buf_count = int(count_np[0])
         self.stats["host_syncs"] += 1
@@ -869,13 +956,27 @@ class ServingEngine:
             self.stats["blocks"] += nb
             self.stats["committed"] += int(committed_np[s])
             self.stats["accepted"] += int(accepted_np[s])
+            # drafted: the sum of the depths the lane's live blocks ran at
             self.stats["drafted"] += int(drafted_np[s])
-            k_seen.append(K)
+            self._slot_accepted[s] += int(accepted_np[s])
+            self._slot_drafted[s] += int(drafted_np[s])
+            self._slot_committed[s] += int(committed_np[s])
+            self._slot_blocks[s] += nb
+            k_seen.append(int(k_np[s]))
             if tr is not None:
                 tr.span(s, "superstep", t_disp_wall, now,
                         args={"uid": st.uid, "blocks": nb,
                               "committed": int(committed_np[s]),
-                              "accepted": int(accepted_np[s]), "k": K})
+                              "accepted": int(accepted_np[s]), "k": int(k_np[s])})
+                if self._depth is not None and int(k_np[s]) != int(self._k_host[s]):
+                    tr.instant(s, f"depth {int(self._k_host[s])}->{int(k_np[s])}", now,
+                               args={"uid": st.uid, "ema": float(ema_np[s])})
+            # the lane's controller state after the superstep (masked lanes
+            # came back unchanged)
+            if self._depth is not None:
+                self._k_host[s] = k_np[s]
+                self._ema_host[s] = ema_np[s]
+                self._cool_host[s] = cool_np[s]
             if done_np[s]:               # EOS or budget, detected on the device
                 gen = np.asarray(st.gen, np.int32)
                 comp = self._complete(st.uid, np.concatenate([st.prompt, gen]), gen,
@@ -971,19 +1072,22 @@ class ServingEngine:
                        if self.paged else self.model.init_cache(self.num_slots, self._cap))
         self._runner = graphs_mod.SuperstepRunner(
             self.model, self.params, self.state.dvi_params, self._pending, self._cache,
-            self.state.buf,
-            sync_every=self.sync_every, eos_id=self.eos_id, graphs=self.graphs)
+            self.state.buf, sync_every=self.sync_every, eos_id=self.eos_id,
+            graphs=self.graphs, depth=self._depth)
         return self._runner
 
     def warmup(self, buckets=None) -> None:
         """Make the block-step runner and capture its graphs now, ahead of
         the traffic (capturing synchronises with the device): the continuous
-        engine's one graph, or the sync engine's graph for a full batch of
+        engine's one graph (with adaptive depth, one per draft width in
+        [k_min, k_max]), or the sync engine's graph for a full batch of
         each prompt bucket in `buckets` (default: all of ``self.buckets``)."""
         runner = self._ensure_runner()
         if self.scheduler == "sync":
             for b in self.buckets if buckets is None else buckets:
                 runner.prepare(self.batch_size, b)
+        else:
+            runner.capture_all()
 
     def graph_stats(self) -> dict:
         """The runner's captures, capture and instantiate seconds, graph
@@ -1021,16 +1125,40 @@ class ServingEngine:
     # ------------------------------------------------------------------
 
     def reset_stats(self) -> None:
-        """Zero every registry metric, rolling window and the training
-        history (e.g. after a warm-up run); live lanes and the drafter's
-        state are untouched."""
+        """Zero every registry metric, rolling window, per-lane counter and
+        the training history (e.g. after a warm-up run); live lanes, the
+        depth controller's state and the drafter's state are untouched."""
         self.telem.registry.reset()
         self.stats.reset()
         self.train_history.clear()
+        for a in (self._slot_accepted, self._slot_drafted, self._slot_committed,
+                  self._slot_blocks):
+            a[:] = 0
 
     @property
     def acceptance(self) -> float:
         return self.stats["accepted"] / max(self.stats["drafted"], 1)
+
+    def adaptive_stats(self) -> dict:
+        """The depth controller's state per lane (depth, acceptance EMA), each
+        lane's mean depth over its live blocks, and the draft efficiency:
+        committed tokens per drafted token, what adaptive depth exists to
+        raise.  Reported (depth pinned at k_spec) without a controller too."""
+        drafted = max(self.stats["drafted"], 1)
+        recent = list(self.stats["k_mean"])
+        d = self._depth
+        return {
+            "adaptive": d is not None,
+            "k_min": d.k_min if d is not None else self.model.cfg.dvi.k_spec,
+            "k_max": self._k_worst,
+            "k_lane": self._k_host.copy(),
+            "accept_ema": self._ema_host.copy(),
+            "slot_mean_depth": self._slot_drafted / np.maximum(self._slot_blocks, 1),
+            "slot_draft_efficiency": self._slot_committed / np.maximum(self._slot_drafted, 1),
+            "mean_depth": self.stats["drafted"] / max(self.stats["blocks"], 1),
+            "draft_efficiency": self.stats["committed"] / drafted,
+            "k_mean_recent": float(np.mean(recent)) if recent else 0.0,
+        }
 
     def metrics_snapshot(self) -> dict:
         """JSON-able snapshot of every registry metric (schema: telemetry.py)."""

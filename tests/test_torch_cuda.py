@@ -948,3 +948,69 @@ def test_pretrain_two_steps_on_the_card_match_the_cpu(ops):
     assert n_g == 2 * cfg.num_layers and n_c == 0
     for (a, b), (c, d) in zip(l_g, l_c):
         assert a == pytest.approx(c, rel=1e-4) and b == pytest.approx(d, rel=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# speculative sampling and adaptive depth on the card
+# ---------------------------------------------------------------------------
+
+def test_rejection_commit_on_the_card_without_a_sync(ops):
+    """One drafted position drawn from q by Gumbel-max on a CUDA generator,
+    then ``rejection_commit``, under sync debug mode "error": the emitted
+    token's total variation from p is below 0.01 over 2^18 lanes."""
+    from repro_torch.core import spec
+    V, N = 8, 1 << 18
+    p = torch.tensor([0.30, 0.22, 0.15, 0.12, 0.09, 0.06, 0.04, 0.02], device="cuda")
+    q = torch.tensor([0.05, 0.05, 0.30, 0.20, 0.10, 0.10, 0.10, 0.10], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d = torch.argmax(torch.log(q)[None] + spec.gumbel((N, V), gen, "cuda"), dim=-1)
+        d_blk = torch.stack([d, d], dim=1).to(torch.int32)
+        m, corr = spec.rejection_commit(d_blk, q.expand(N, 2, V), p.expand(N, 2, V),
+                                        generator=gen)
+        emitted = torch.where(m >= 1, d_blk[:, 0], corr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    freq = torch.bincount(emitted, minlength=V).double() / N    # bincount syncs
+    tv = 0.5 * float((freq - p.double()).abs().sum())
+    assert tv < 0.01, f"total variation {tv:.4f}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq", [2, 3, 4])
+def test_attention_at_adaptive_verify_widths(ops, dtype, Tq):
+    """The verify pass at K_blk + 1 = 2, 3 and 4 queries a lane: both
+    attention kernels against their plain versions, vicuna's widths
+    contiguous and the paged cases of ``test_paged_decode_attention``."""
+    test_decode_attention(ops, dtype, 8, Tq, 32, 32, 128, 294)
+    for G, ps in ((1, 16), (4, 4)):
+        test_paged_decode_attention(ops, dtype, Tq, G, ps)
+
+
+def test_adaptive_engine_replays_a_graph_per_draft_width(ops):
+    """A continuous paged engine with a depth controller that throttles
+    fast (lanes admitted at depth 4, a fall-prone band, the default
+    cooldown, so a lane's ceiling is its depth or one more): graphed equal
+    to eager bit for bit, one graph per draft width captured ahead, more
+    than one of them replayed, each holding the kernels its capture
+    recorded."""
+    from repro_torch.core.schedule import DepthConfig
+    name, kw = GRAPH_CELLS["vicuna_paged"]
+    dc = DepthConfig(k_min=1, k_max=4, k_init=4, ema_alpha=0.9, hi=0.95, lo=0.8, ema_init=0.9)
+    kw = dict(kw, adaptive_k=True, depth_cfg=dc)
+    outs_e, stats_e, launches_e, eng_e = _graph_engine_run(name, kw, False, ops)
+    outs_g, stats_g, launches_g, eng_g = _graph_engine_run(name, kw, True, ops)
+    assert outs_g == outs_e and len(outs_g) == 7
+    assert stats_g == stats_e and launches_g == launches_e
+    g = eng_g.graph_stats()
+    assert g["captures"] == 4 and sorted(eng_g._runner.steps) == [1, 2, 3, 4]
+    assert sum(step.replays > 0 for step in eng_g._runner.steps.values()) >= 2
+    once = {"decode_attention": "11decode_attn", "paged_decode_attention": "17paged_decode_attn",
+            "verify_argmax": "14verify_partial", "lora_logits": "9lora_main",
+            "ssd_scan": "10ssd_chunks"}
+    for recorded, kernel_nodes in g["per_graph"]:
+        assert recorded == {k: sum(c for n, c in kernel_nodes.items() if fn in n)
+                            for k, fn in once.items()}
+    assert eng_g.kv_stats()["used_pages"] == 0

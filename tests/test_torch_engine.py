@@ -78,9 +78,16 @@ def test_later_slices_raise():
     params = model.init(torch.Generator().manual_seed(0))
     dvi = {"A": torch.zeros(cfg.d_model, 1), "B": torch.zeros(1, cfg.vocab_size)}
     state = tonline.init_trainer(model, dvi_params=dvi)
-    for kw in (dict(prefill_chunk=8), dict(prefix_cache=True), dict(adaptive_k=True)):
+    for kw in (dict(prefill_chunk=8), dict(prefix_cache=True)):
         with pytest.raises(NotImplementedError):
             ServingEngine(model, params, state, scheduler="continuous", kv_pages=64, **kw)
+    # adaptive depth is ported: the continuous scheduler takes it, the sync
+    # one refuses it as the reference does
+    with pytest.raises(ValueError, match="continuous"):
+        ServingEngine(model, params, state, adaptive_k=True)
+    eng = ServingEngine(model, params, state, scheduler="continuous", kv_pages=64,
+                        adaptive_k=True, k_min=2)
+    assert eng._depth.k_min == 2 and eng._k_worst == cfg.dvi.k_spec
     with pytest.raises(TypeError):           # the drafter comes in a trainer state
         ServingEngine(model, params, dvi)
     eng = ServingEngine(model, params, state, batch_size=2, max_new=3)

@@ -178,14 +178,28 @@ def test_serve_step_wraps_block_step(setup):
 
 
 def test_sampling_and_ragged_depth_are_later_slices(setup):
+    """Both are ported now: sampling refuses to draw without an explicit
+    generator, and a greedy block at ragged per-lane depths (0, 1 and K)
+    equals the reference's block at the same ``k_lane``."""
     s = setup
-    with pytest.raises(NotImplementedError):
+    K = s["cfg_t"].dvi.k_spec
+    with pytest.raises(ValueError, match="Generator"):
         tspec.speculative_generate(s["model_t"], s["params_t"], s["dvi_t"], _t(s["prompts"]),
                                    4, temperature=0.7)
-    _, cache = s["model_t"].prefill(s["params_t"], _t(s["prompts"][:, :-1]), max_len=64)
-    with pytest.raises(NotImplementedError):
-        tspec.spec_block_step(s["model_t"], s["params_t"], s["dvi_t"], _t(s["prompts"][:, -1]),
-                              cache, k_lane=torch.ones(B, dtype=torch.int32))
+    k_lane = np.array([0, 1, K], np.int32)
+    _, cache_j, _ = s["model_j"].prefill(s["params_j"], jnp.asarray(s["prompts"][:, :-1]),
+                                         max_len=64)
+    _, cache_t = s["model_t"].prefill(s["params_t"], _t(s["prompts"][:, :-1]), max_len=64)
+    bj = jspec.spec_block_step(s["model_j"], s["params_j"], s["dvi_j"],
+                               jnp.asarray(s["prompts"][:, -1]), cache_j,
+                               k_lane=jnp.asarray(k_lane))
+    bt = tspec.spec_block_step(s["model_t"], s["params_t"], s["dvi_t"], _t(s["prompts"][:, -1]),
+                               cache_t, k_lane=_t(k_lane))
+    for name in ("pending", "commit_vec", "accept", "m", "d_blk"):
+        np.testing.assert_array_equal(getattr(bt, name).numpy(),
+                                      np.asarray(getattr(bj, name)), err_msg=name)
+    assert (bt.m.numpy() <= k_lane).all()
+    np.testing.assert_array_equal(bt.cache["lengths"].numpy(), np.asarray(bj.cache["lengths"]))
 
 
 @pytest.mark.parametrize("ptr,slots", [(0, 64), (50, 64), (5, 16)])

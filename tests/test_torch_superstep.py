@@ -131,9 +131,24 @@ def test_superstep_matches_jax(setup, paged, case):
 
 
 def test_superstep_later_slices_raise(setup):
-    _, _, _, _, _, model_t, params_t, dvi_t, prompts = setup
+    """Sampling and per-lane depth are ported: what still raises is a
+    sampled superstep without a generator and a superstep of no blocks; a
+    ragged ``k_lane`` with the depth controller runs and moves the depths
+    within their ceilings."""
+    from repro_torch.core.schedule import DepthConfig
+    _, _, _, _, cfg_t, model_t, params_t, dvi_t, prompts = setup
     _, ct = _caches(setup, False)
-    for kw in (dict(temperature=0.5), dict(k_lane=torch.ones(B, dtype=torch.int32)),
-               dict(depth_cfg=object())):
-        with pytest.raises(NotImplementedError):
-            tspec.spec_superstep(model_t, params_t, dvi_t, _t(prompts[:, -1]), ct, steps=2, **kw)
+    for kw, exc in ((dict(temperature=0.5), ValueError), (dict(steps=0), ValueError)):
+        with pytest.raises(exc):
+            tspec.spec_superstep(model_t, params_t, dvi_t, _t(prompts[:, -1]), ct,
+                                 **dict(dict(steps=2), **kw))
+    dc = DepthConfig(k_min=1, k_max=cfg_t.dvi.k_spec, k_init=2, cooldown=1)
+    k_cap = torch.tensor([1, 2, 4], dtype=torch.int32)
+    res = tspec.spec_superstep(model_t, params_t, dvi_t, _t(prompts[:, -1]), ct, steps=3,
+                               k_lane=torch.tensor([1, 2, 4], dtype=torch.int32),
+                               depth_cfg=dc, accept_ema=torch.full((B,), 0.5),
+                               k_cool=torch.zeros(B, dtype=torch.int32), k_cap=k_cap)
+    assert (res.k_lane >= 1).all() and (res.k_lane <= k_cap).all()
+    assert int(res.depth_hist.sum()) == int(res.lane_blocks.sum())
+    assert int((res.depth_hist * torch.arange(res.depth_hist.numel())).sum()) == int(
+        res.lane_drafted.sum())
