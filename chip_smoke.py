@@ -4,8 +4,9 @@ GPU through the port's five hand-written CUDA kernels: vicuna-7b on the
 batch-synchronous path and on the continuous-batching path over a paged KV
 pool, and mamba2-370m (attention-free, its prefill on the ``ssd_scan``
 kernel) through both schedulers; then the training path (mamba2-370m
-pretraining, vicuna-7b's teacher-forced DVI step, the quickstart), and
-vicuna-7b's speculative sampling and per-lane adaptive depth.
+pretraining, vicuna-7b's teacher-forced DVI step, the quickstart),
+vicuna-7b's speculative sampling and per-lane adaptive depth, and chunked
+prefill on both models' continuous paths.
 
     python3 chip_smoke.py
 
@@ -55,7 +56,11 @@ Phases (any failure raises and exits non-zero):
    alone, and ``lora_logits`` at the DVI step's 8184 rows (forward, dA and
    dB, its time beside ``gemm_ms`` and its bound); for adaptive depth
    (phase 12), both attention kernels at the verify pass's Tq = K_blk + 1
-   = 2, 3 and 4 with the split's edge cases, timed at Tq 2 and 3;
+   = 2, 3 and 4 with the split's edge cases, timed at Tq 2 and 3; for
+   chunked prefill (phase 13), both attention kernels at a chunk step's Tq
+   32 and 128 (vicuna's G = 1; 1 and 2 row tiles of 64 query rows) and Tq
+   64 at G = 2 (qwen3-0.6b's 16 heads over 8 kv heads; 2 row tiles), each
+   checked and timed with its bound and SDPA's time;
 4. the sync path: vicuna-7b at full width and depth in bf16, random weights
    drawn on the card from a seed, a sync ``ServingEngine`` (drafter frozen,
    ``learn=False``, as in phases 8 and 9) answering 8
@@ -153,6 +158,29 @@ Phases (any failure raises and exits non-zero):
    pool drained.  It reports each mode's wall and device ms a block-step,
    tokens/s, busy share, mean depth, draft efficiency, captures, graph
    pool and peak memory beside phase 8's fixed-K run;
+13. chunked prefill (``prefill_chunk`` 32) on the continuous engine: (a,
+   after phase 12, on its vicuna-7b weights) phase 8's ample pool and 16
+   requests, graphed and eagerly; (b) phase 8's tight pool size, swung
+   down until a lane is preempted, counting the victims caught
+   mid-prefill; (d) the ample pool with ``learn=True`` and ``adaptive_k``
+   (graphed); (c, after phase 9) mamba2-370m at 48 layers on the
+   contiguous engine (graphed).  Gates: graphed == eager bit for bit (a);
+   every completion == ``ar_generate`` on its exact prompt or the near-tie
+   rule (a; b and d through the equal completions of a and of phase 8,
+   the rest against AR; c through phase 9's, the rest against AR alone or
+   at the chunked engine's row counts), with the count equal to phase 8's
+   or 9's one-shot streams reported; the largest tick's prefill at most 8
+   x 32 tokens; 0 synchronising operations inside a chunk step and a
+   dispatch, host syncs == dispatches; the pool or the lanes empty; A and
+   B at their addresses (d); launches exact: the per-block formula plus 32
+   ``paged_decode_attention`` a chunk step (vicuna), 48 ``ssd_scan`` a
+   first-chunk admission and no attention (mamba2), 2 ``lora_logits`` an
+   update (d); each graph's kernel nodes == its capture's launches; the
+   port's metrics schema gate (``scripts/torch_check_metrics_schema.py``)
+   on the drained engines of a and d.  It reports wall and device ms a
+   block-step, tokens/s, busy share, tick percentiles, the chunk graph's
+   nodes and capture seconds, peak memory and the host ms a block-step per
+   tick phase (``admit`` and ``pre_admit`` beside phase 8's);
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Phases 4, 8 and 9 run every path twice: eagerly (``graphs=False``) and
@@ -161,7 +189,9 @@ path).  The graphed streams must equal the eager ones bit for bit, every
 gate above holds on both, each graph's kernel nodes (counted through
 libcuda) must equal the launches its capture recorded, and one line per
 mode gives the wall and device time per block-step, tokens/s, the busy
-share, host launches, captures, nodes, the graph pool and peak memory.
+share, host launches, captures, nodes, the graph pool and peak memory
+(phase 9's eager runs are not profiled again, to keep the script within
+its time limit: no device time or busy share for them).
 The graphed continuous paths are traced once more for the host's time per
 tick phase.
 
@@ -239,6 +269,21 @@ D_ROWS = D_B * (D_T - 1)
 S_TEMP, S_TV_V, S_TV_LANES, S_TV_CHUNK = 0.8, 64, 1 << 20, 1 << 18
 # adaptive depth (phase 12b): the default controller's depth range
 A_KMIN, A_KMAX = 1, 4
+# chunked prefill (phase 13): phase 8's continuous paths with prompts
+# prefilled in chunks of this many tokens (phase 8's prompts of 64-128
+# tokens take 2-4 chunks); phase 3 times both attention kernels at a chunk
+# step's Tq 32 and 128 (vicuna's G = 1) and 64 at G = 2 (qwen3-0.6b's 16
+# query heads over 8 kv heads)
+P_CHUNK = 32
+CHUNK_ATTN = ((32, 32, 32), (128, 32, 32), (64, 16, 8))      # (Tq, H, KV)
+# phase 13c's witness for a mamba2 chunked completion that differs from AR
+# beyond a bf16 near-tie (chunk_witness): in float32 a top-2 logit gap
+# within this share of the top logit is a tie, and the chunk-built SSM
+# states and conv windows equal one-shot prefill's within F32_STATE_RTOL a
+# layer (the two paths differ in float32 summation order alone); in bf16
+# the chunk-built ones lie at most BF16_STATE_RATIO times as far from the
+# float32 one-shot ones as bf16 one-shot prefill's do
+F32_GAP_RTOL, F32_STATE_RTOL, BF16_STATE_RATIO = 1e-3, 1e-3, 4.0
 
 
 def phase(n: int, msg: str) -> None:
@@ -556,7 +601,8 @@ def check_attention(ops, ref, gen, B, Tq, H, KV, hd, S, lengths, label):
                             visible)
     atol, rtol = TOL["decode_attention"]
     phase(3, f"decode_attention {label}: B={B} Tq={Tq} H={H} KV={KV} hd={hd} S={S} "
-             f"C={ops.attn_splits(S, B * KV)} lengths {list(map(int, lengths))} max abs err "
+             f"C={ops.attn_splits(S, B * KV * ops.attn_row_tiles(Tq * (H // KV)))} row tiles "
+             f"{ops.attn_row_tiles(Tq * (H // KV))} lengths {list(map(int, lengths))} max abs err "
              f"{err:.3e} on {int(visible.sum())} of {visible.size} queries that see a slot "
              f"(atol {atol} rtol {rtol}), the others exactly 0: ok={ok}")
     check(ok, f"decode_attention {label} disagrees with its plain version")
@@ -636,8 +682,10 @@ def check_paged(ops, ref, gen, rng, B, Tq, H, KV, hd, ps, mps, lengths, label,
     visible = np.array(paged_live_slots(tbl, lengths, ps, Tq)) > 0
     err, ok = close_visible("paged_decode_attention", out, plain, visible)
     atol, rtol = TOL["paged_decode_attention"]
+    tiles = ops.attn_row_tiles(Tq * (H // KV))
     phase(3, f"paged_decode_attention {label}: B={B} Tq={Tq} H={H} KV={KV} hd={hd} ps={ps} "
-             f"MPS={mps} C={ops.attn_splits(mps * ps, B * KV)} P={P} lengths "
+             f"MPS={mps} C={ops.attn_splits(mps * ps, B * KV * tiles)} "
+             f"row tiles {tiles} P={P} lengths "
              f"{list(map(int, lengths))} holes {list(holes)} max abs err {err:.3e} on "
              f"{int(visible.sum())} of {visible.size} queries that see a mapped slot (atol "
              f"{atol} rtol {rtol}), the others exactly 0 (plain: finite): ok={ok}")
@@ -919,6 +967,22 @@ def kernels_phase(cfg, mcfg):
             check_paged(ops, ref, agen, arng, nb, Tq, H, KV, hd, C_PAGE, mps,
                         [pedges[i] for i in lanes], f"split edges, {nb} lanes, Tq={Tq}",
                         holes=holes, unmapped=(lanes.index(4),) if 4 in lanes else ())
+    # chunked prefill's chunk step (phase 13): Tq queries a lane whose
+    # Tq * G rows a kv head take 1, 2 and 2 row tiles of 64, each lane's
+    # post-write length in [Tq, capacity], from generators of their own so
+    # the cases above keep their inputs
+    kgen = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    krng = np.random.RandomState(SEED + 10)
+    chunk_cases = {}
+    for Tq, Hc, KVc in CHUNK_ATTN:
+        label = f"prefill chunk Tq={Tq} G={Hc // KVc}"
+        lens_c = list(krng.randint(Tq, cap + 1, size=B))
+        a_args, _ = check_attention(ops, ref, kgen, B, Tq, Hc, KVc, hd, cap, lens_c, label)
+        plens_c = list(krng.randint(Tq, mps * C_PAGE + 1, size=B))
+        p_args, _ = check_paged(ops, ref, kgen, krng, B, Tq, Hc, KVc, hd, C_PAGE, mps, plens_c,
+                                label)
+        chunk_cases[f"at_chunk_tq{Tq}" + ("" if Hc == KVc else f"_g{Hc // KVc}")] = (
+            a_args, lens_c, p_args, plens_c, KVc)
     # the mamba2 paths: the tied vocab (not a multiple of 64 columns) and the
     # scan at the prefill shapes of both schedulers
     md, mV, mK = mcfg.d_model, mcfg.vocab_size, mcfg.dvi.k_spec
@@ -932,6 +996,9 @@ def kernels_phase(cfg, mcfg):
     check_ssd(ops, ref, gen, 2, 256, 128, mH, mhd, mds, "padded long prompt", pad_rows=56)
     check_ssd(ops, ref, gen, 2, 64, 64, mH, mhd, mds, "carried h0", with_h0=True)
     check_ssd(ops, ref, gen, 1, 63, 63, mH, mhd, mds, "continuous admission (64 tokens)")
+    # chunked prefill's first-chunk admission (phase 13c): B 1 x P_CHUNK
+    ssd_chunk, _ = check_ssd(ops, ref, gen, 1, P_CHUNK, P_CHUNK, mH, mhd, mds,
+                             f"chunked admission ({P_CHUNK} tokens)")
     # the training path (phase 11), each from a generator of its own: the
     # scan with its gradient at mamba2 pretraining's shape, and lora_logits
     # at the vicuna DVI step's 8184 rows (128 row passes)
@@ -959,20 +1026,20 @@ def kernels_phase(cfg, mcfg):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def attn_timing(args, lengths):
+    def attn_timing(args, lengths, kv=KV):
         q, k, v, lens = args
         sq, sk, sv, smask = sdpa_inputs(q if q.ndim == 4 else q[:, None], k, v, lens)
         return timing(lambda: ops.decode_attention(q, k, v, lens),
                       lambda: ref.decode_attention(q, k, v, lens),
-                      attn_bound(q, lengths, cap, KV, hd),
+                      attn_bound(q, lengths, cap, kv, hd),
                       library=lambda: sdpa(sq, sk, sv, attn_mask=smask))
 
-    def paged_timing(args, lengths):
+    def paged_timing(args, lengths, kv=KV):
         q, kp, vp, lens, tbl_t, tbl = args
         sq, sk, sv, smask = paged_sdpa_inputs(q, kp, vp, lens, tbl_t)
         return timing(lambda: ops.paged_decode_attention(q, kp, vp, lens, tbl_t),
                       lambda: ref.paged_decode_attention(q, kp, vp, lens, tbl_t),
-                      paged_bound(q, tbl, lengths, C_PAGE, KV, hd),
+                      paged_bound(q, tbl, lengths, C_PAGE, kv, hd),
                       library=lambda: sdpa(sq, sk, sv, attn_mask=smask))
 
     def ssd_timing(args):
@@ -1036,7 +1103,9 @@ def kernels_phase(cfg, mcfg):
              at_draft_feed=attn_timing(feed_args, feed_lens),
              # adaptive depth's verify pass (phase 12b) at K_blk = 1 and 2
              at_verify_tq2=attn_timing(adapt[2][0], adapt[2][1]),
-             at_verify_tq3=attn_timing(adapt[3][0], adapt[3][1])),
+             at_verify_tq3=attn_timing(adapt[3][0], adapt[3][1]),
+             # chunked prefill's chunk step (phase 13), one launch a layer
+             **{key: attn_timing(c[0], c[1], kv=c[4]) for key, c in chunk_cases.items()}),
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/csrc/paged_decode_attention.cu",
              replaces="src/repro/kernels/paged_decode_attention.py:127", max_abs_err=err_p,
@@ -1044,12 +1113,15 @@ def kernels_phase(cfg, mcfg):
              at_draft_feed=paged_timing(paged_feed_args, paged_feed_lens),
              at_verify_tq2=paged_timing(adapt[2][2], adapt[2][3]),
              at_verify_tq3=paged_timing(adapt[3][2], adapt[3][3]),
+             **{key: paged_timing(c[2], c[3], kv=c[4]) for key, c in chunk_cases.items()},
              library_note="SDPA over the pre-gathered contiguous view; gather not timed"),
         # the scan at the sync path's prefill, with a B = 1 admission of the
-        # continuous path beside it; no single PyTorch call scans
+        # continuous path and a first-chunk admission of the chunked one
+        # beside it; no single PyTorch call scans
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:80", max_abs_err=err_s,
              **ssd_timing(ssd_args), at_admission=ssd_timing(ssd_one),
+             at_chunk_admission=ssd_timing(ssd_chunk),
              # mamba2 pretraining (phase 11a): the forward is the kernel, the
              # backward the plain version's recompute differentiated by
              # autograd (ops.SsdScan; the reference has no backward kernel)
@@ -1135,6 +1207,18 @@ def covered_ms(spans) -> float:
     return total / 1e3
 
 
+def device_events(prof) -> list:
+    """(name, start us, end us) of each device activity of a finished
+    torch.profiler run, read from its Kineto records: the profiler's own
+    FunctionEvents (``prof.events()``) take tens of microseconds an event
+    to build on the host, minutes for a mamba2 path's million launches."""
+    evs = [(e.name(), e.start_ns(), e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    base = min((t for _, t, _ in evs), default=0)
+    return [(name, (t - base) / 1e3, (t - base + d) / 1e3) for name, t, d in evs]
+
+
 def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
                   per_call: dict = None) -> dict:
     """The same requests once more under torch.profiler (device activity
@@ -1165,11 +1249,10 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
     counted = dict(ops.launches)
     by_name: dict = {}
     spans: dict = {}                   # name -> [(start us, end us)]
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            ms, k = by_name.get(evt.name, (0.0, 0))
-            by_name[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3, k + 1)
-            spans.setdefault(evt.name, []).append((evt.time_range.start, evt.time_range.end))
+    for name, t0, t1 in device_events(prof):
+        ms, k = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (t1 - t0) / 1e3, k + 1)
+        spans.setdefault(name, []).append((t0, t1))
     busy = covered_ms([s for v in spans.values() for s in v])
     check(busy > 0.0, "profile: the profiler saw no device time")
     ours = covered_ms([s for name, v in spans.items() if any(k in name for k in PORT_KERNELS)
@@ -1251,8 +1334,9 @@ def continuous_requests(cfg):
 
 
 def serve_checked(eng, reqs, log=None):
-    """Serve `reqs` submitted at once.  Every superstep dispatch, and every
-    drafter update a learning engine dispatches, runs under sync debug mode
+    """Serve `reqs` submitted at once.  Every superstep dispatch, every
+    drafter update a learning engine dispatches and, with chunked prefill,
+    every chunk step (``_advance_prefill``) runs under sync debug mode
     "error" (a synchronising operation inside it raises); the rest of each
     tick runs under "warn", and its synchronising operations are counted
     per tick.  With `log` (a list), each tick appends the block-steps,
@@ -1281,6 +1365,17 @@ def serve_checked(eng, reqs, log=None):
         update_s.append(time.perf_counter() - t0)
 
     eng._dispatch_superstep, eng._dispatch_update = dispatch, dispatch_update
+    inner_chunk = eng._advance_prefill
+
+    def advance_prefill():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inner_chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    if eng._chunk:
+        eng._advance_prefill = advance_prefill
     for r in reqs:
         eng.submit_request(r)
     torch.cuda.synchronize()
@@ -1301,6 +1396,8 @@ def serve_checked(eng, reqs, log=None):
     finally:
         torch.cuda.set_sync_debug_mode("default")
         del eng._dispatch_superstep, eng._dispatch_update   # the class's methods; no cycle
+        if eng._chunk:
+            del eng._advance_prefill
     torch.cuda.synchronize()
     return comps, time.perf_counter() - t0, sum(iters), per_tick
 
@@ -1311,14 +1408,29 @@ def capped(stream: list, max_new: int) -> list:
     return stream[:stream.index(1) + 1] if 1 in stream else stream
 
 
+def ar_alone(model, params, spec, req, memo: dict) -> list:
+    """``ar_generate`` of `req`'s prompt alone (B = 1), its generated tokens
+    before the budget and EOS cut, kept in `memo` by prompt and budget
+    (greedy AR is deterministic): one model's phases share its streams."""
+    key = (req.prompt.tobytes(), req.max_new)
+    if key not in memo:
+        n = len(req.prompt)
+        ar = spec.ar_generate(model, params, torch.as_tensor(req.prompt[None], device=DEV),
+                              req.max_new)
+        memo[key] = ar.tokens[0, n:int(ar.lengths[0])].tolist()
+    return memo[key]
+
+
 def check_against_ar(model, params, spec, reqs, comps, label, n_phase=8, alone=False,
-                     same_shape=None):
+                     same_shape=None, ar_memo=None, witness=None):
     """Each completion against ar_generate on its exact prompt (one AR run
     per prompt length, or per request when `alone`, which prefills each
-    prompt by itself as the continuous engine does), EOS 1 and its budget
+    prompt by itself as the continuous engine does, its streams kept in
+    `ar_memo` when given), EOS 1 and its budget
     applied; a first difference passes at a bf16 near-tie of the AR top-2
     logits, or, where `same_shape(request)` is given, when greedy AR decoded
-    at the engine's own row counts gives the completion bit for bit."""
+    at the engine's own row counts gives the completion bit for bit, or,
+    where `witness(request, completion)` is given, when it holds."""
     by_uid = {c.uid: c for c in comps}
     check(sorted(by_uid) == sorted(r.uid for r in reqs), f"{label}: missing completions")
     equal, tied, shaped = 0, 0, 0
@@ -1327,10 +1439,15 @@ def check_against_ar(model, params, spec, reqs, comps, label, n_phase=8, alone=F
                for n in sorted({len(r.prompt) for r in reqs})])
     for group in groups:
         n = len(group[0].prompt)
-        prompts = torch.as_tensor(np.stack([r.prompt for r in group]), device=DEV)
-        ar = spec.ar_generate(model, params, prompts, max(r.max_new for r in group))
+        if alone:
+            streams_ = [ar_alone(model, params, spec, group[0],
+                                 {} if ar_memo is None else ar_memo)]
+        else:
+            prompts = torch.as_tensor(np.stack([r.prompt for r in group]), device=DEV)
+            ar = spec.ar_generate(model, params, prompts, max(r.max_new for r in group))
+            streams_ = [ar.tokens[i, n:int(ar.lengths[i])].tolist() for i in range(len(group))]
         for i, r in enumerate(group):
-            stream = capped(ar.tokens[i, n:int(ar.lengths[i])].tolist(), r.max_new)
+            stream = capped(streams_[i], r.max_new)
             got = by_uid[r.uid].gen_tokens.tolist()
             if got == stream:
                 equal += 1
@@ -1347,6 +1464,11 @@ def check_against_ar(model, params, spec, reqs, comps, label, n_phase=8, alone=F
             if t1 - t2 <= GAP_RTOL * max(abs(t1), 1.0):
                 tied += 1
                 continue
+            if witness is not None:
+                check(witness(r, got), f"{label}: request {r.uid} differs from AR outside a "
+                                       f"bf16 near-tie and its witness does not hold")
+                shaped += 1
+                continue
             check(same_shape is not None,
                   f"{label}: request {r.uid} differs from AR outside a bf16 near-tie")
             exact = same_shape(r) == got
@@ -1358,7 +1480,9 @@ def check_against_ar(model, params, spec, reqs, comps, label, n_phase=8, alone=F
     phase(n_phase, f"{label}: {equal} of {len(reqs)} completions equal their AR stream; {tied} "
              f"differ only at a bf16 near-tie (rtol {GAP_RTOL})"
              + (f"; {shaped} differ beyond one and equal AR at the engine's row counts"
-                if same_shape is not None else ""))
+                if same_shape is not None else "")
+             + (f"; {shaped} differ beyond one and pass their witness"
+                if witness is not None else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -1453,17 +1577,21 @@ def continuous_engine(model, params, dvi, pages: int, graphs_on: bool, state=Non
 
 
 TICK_PHASES = ("pre_admit", "harvest", "sync_wait", "sweep_cancels", "grow_pages", "admit",
-               "dispatch")
+               "prefill_chunk", "dispatch")
 
 
-def tick_phases(model, params, dvi, reqs, pages: int, n: int, label: str) -> dict:
+def tick_phases(model, params, dvi, reqs, pages: int, n: int, label: str, **kw) -> dict:
     """The graphed continuous path once more with the engine's lifecycle
-    tracer on (``telemetry=True``): host ms per block-step in each phase of
-    a tick, from the tracer's spans on the engine's track.  ``sync_wait``
-    is the harvest's wait for the device, inside ``harvest``; ``admit`` and
-    ``pre_admit`` hold the admissions' eager prefills, ``dispatch`` the
-    uploads and the replays.  Returns {phase: ms per block-step}."""
-    eng = continuous_engine(model, params, dvi, pages, True, telemetry=True)
+    tracer on (``telemetry=True``; `kw` to the engine): host ms per
+    block-step in each phase of a tick, from the tracer's spans on the
+    engine's track.  ``sync_wait`` is the harvest's wait for the device,
+    inside ``harvest``; ``admit`` and ``pre_admit`` hold the admissions'
+    eager prefills (with chunked prefill: of the first chunk),
+    ``prefill_chunk`` the chunk steps' uploads and replays, ``dispatch`` the
+    superstep's.  Also the host ms of one admission, from the lanes'
+    ``admit`` spans.  Returns {phase: ms per block-step, "admission": ms,
+    "admissions": count}."""
+    eng = continuous_engine(model, params, dvi, pages, True, telemetry=True, **kw)
     for r in reqs:
         eng.submit_request(r)
     torch.cuda.synchronize()
@@ -1474,31 +1602,48 @@ def tick_phases(model, params, dvi, reqs, pages: int, n: int, label: str) -> dic
     steps = max(eng.stats["steps"], 1)
     tid = eng.telem.tid_engine
     ms = {name: 0.0 for name in ("tick",) + TICK_PHASES}
+    admits = []
     for ev in eng.trace_dict()["traceEvents"]:
         if ev.get("ph") == "X" and ev.get("tid") == tid and ev["name"] in ms:
             ms[ev["name"]] += ev["dur"] / 1e3 / steps
+        elif ev.get("ph") == "X" and str(ev.get("name", "")).startswith("admit u"):
+            admits.append(ev["dur"] / 1e3)
     phase(n, f"{label}, graphed, traced again: wall {1e3 * wall / steps:.2f} ms a block-step "
              f"({steps} block-steps); host ms a block-step by tick phase: "
              + ", ".join(f"{name} {v:.2f}" for name, v in ms.items())
-             + f"; outside ticks {1e3 * wall / steps - ms['tick']:.2f}")
+             + f"; outside ticks {1e3 * wall / steps - ms['tick']:.2f}; {len(admits)} "
+             f"admissions, {np.mean(admits) if admits else 0.0:.2f} host ms each")
+    ms.update(admission=float(np.mean(admits)) if admits else 0.0, admissions=len(admits))
     del eng
     release({})
     return ms
 
 
 def continuous_run(model, params, dvi, reqs, graphs_on: bool, pages: int, n: int,
-                   label: str, prefills=None) -> dict:
-    """A continuous engine with graphs on or off and one warm-up request,
-    then `reqs` served at once under ``serve_checked``'s zero-sync gate."""
-    eng = continuous_engine(model, params, dvi, pages, graphs_on)
+                   label: str, prefills=None, **kw) -> dict:
+    """A continuous engine (`kw` to it) with graphs on or off and one
+    warm-up request, then `reqs` served at once under ``serve_checked``'s
+    zero-sync gate.  With ``prefill_chunk`` it adds the chunk figures, the
+    chunk step's replays in the run and the preemptions of mid-prefill
+    lanes."""
+    eng = continuous_engine(model, params, dvi, pages, graphs_on, **kw)
     eng.submit_request(reqs[0])                  # warm-up, not counted
     eng.run()
     eng.reset_stats()
     reset_counts(prefills)
     g0 = eng.graph_stats()
-    comps, wall, blocks_run, per_tick = serve_checked(eng, reqs)
+    step = eng._runner.chunk_step
+    c0 = step.replays if step is not None else 0
+    mid = mid_prefill_preemptions(eng)
+    try:
+        comps, wall, blocks_run, per_tick = serve_checked(eng, reqs)
+    finally:
+        del eng._preempt                         # the class's method; no cycle
     run = finish_run(eng, n, label, comps, wall, g0, prefills)
-    run.update(blocks_run=blocks_run, per_tick=per_tick)
+    run.update(blocks_run=blocks_run, per_tick=per_tick, ticks=eng.tick_percentiles())
+    if eng._chunk:
+        run.update(chunk_figures(eng), chunk_replays=step.replays - c0, mid=sum(mid),
+                   kv=eng.kv_stats() if eng.paged else {})
     return run
 
 
@@ -1509,13 +1654,18 @@ def report_modes(n: int, label: str, runs: dict) -> None:
     kernel launch from the host), or the graph replays (graphed)."""
     for mode, r in runs.items():
         steps, g, p = max(r["steps"], 1), r["graph"], r["profile"]
-        host = (f"{p['launches']:.0f} kernel launches" if mode == "eager" else
-                f"{r['replays'] / steps:.3f} graph replays ({r['replays']} in the run)")
+        if p is None:
+            dev = "device busy not profiled"
+            host = "every kernel launched from the host"
+        else:
+            dev = (f"device busy {100 * p['busy']:.1f}% ({p['device_ms']:.2f} ms and "
+                   f"{p['launches']:.0f} device launches a block-step)")
+            host = (f"{p['launches']:.0f} kernel launches" if mode == "eager" else
+                    f"{r['replays'] / steps:.3f} graph replays ({r['replays']} in the run)")
         phase(n, f"{label}, {mode}: wall per block-step {1e3 * r['wall'] / steps:.2f} ms "
                  f"({r['steps']} block-steps in {r['wall']:.3f} s), "
-                 f"{r['committed'] / r['wall']:.1f} committed tokens/s, device busy "
-                 f"{100 * p['busy']:.1f}% ({p['device_ms']:.2f} ms and {p['launches']:.0f} "
-                 f"device launches a block-step), host launches per block-step: {host}; "
+                 f"{r['committed'] / r['wall']:.1f} committed tokens/s, {dev}, host launches "
+                 f"per block-step: {host}; "
                  f"{g['captures']} captures in {g['capture_s']:.2f} s (instantiate "
                  f"{g['instantiate_s']:.3f} s), graph nodes {g['nodes']}, graph pool "
                  f"{g['pool_bytes'] / 2**30:.3f} GiB, replay() "
@@ -1566,7 +1716,8 @@ def continuous_phase(cfg, model, params, dvi, paged_row, vocab_rows):
         r["profile"] = profile_batch(eng, reqs, r["wall"] * 1e3, n=8, expect=expect)
         release(r)
     report_modes(8, "vicuna-7b continuous, ample pool", runs)
-    tick_phases(model, params, dvi, reqs, C_PAGES_AMPLE, 8, "vicuna-7b continuous, ample pool")
+    runs["graphed"]["ticks_host"] = tick_phases(model, params, dvi, reqs, C_PAGES_AMPLE, 8,
+                                                "vicuna-7b continuous, ample pool")
     check_against_ar(model, params, spec, reqs, runs["graphed"]["comps"], "ample pool")
 
     # the tight pool: searched with graphed engines, then served eagerly at
@@ -1819,20 +1970,22 @@ def learn_sync(cfg, model, params, reqs, base: dict) -> dict:
 
 
 def against_frozen(model, params, spec, reqs, comps, frozen_comps, label, padded=None,
-                   n_phase=10):
+                   n_phase=10, what="the frozen drafter's", **ar_kw) -> int:
     """Each learning completion equals the frozen drafter's (greedy
     decoding is lossless whatever the drafter); where one does not, it must
     pass ``check_against_ar`` (AR on the prompt the engine decoded, the
-    near-tie rule)."""
+    near-tie rule; `ar_kw` to it).  `frozen_comps` may be any run already
+    held against AR (`what` names it).  Returns how many were equal."""
     want = streams(frozen_comps)
     differ = [r for r in reqs if streams([c for c in comps if c.uid == r.uid])[r.uid]
               != want[r.uid]]
-    phase(n_phase, f"{label}: {len(reqs) - len(differ)} of {len(reqs)} completions equal the "
-                   f"frozen drafter's; {len(differ)} go to the AR check")
+    phase(n_phase, f"{label}: {len(reqs) - len(differ)} of {len(reqs)} completions equal "
+                   f"{what}; {len(differ)} go to the AR check")
     if differ:
         uids = {r.uid for r in differ}
         check_against_ar(model, params, spec, [(padded or {}).get(r.uid, r) for r in differ],
-                         [c for c in comps if c.uid in uids], label, n_phase=n_phase)
+                         [c for c in comps if c.uid in uids], label, n_phase=n_phase, **ar_kw)
+    return len(reqs) - len(differ)
 
 
 # ---------------------------------------------------------------------------
@@ -1958,8 +2111,7 @@ def block_device_ms(fn) -> float:
         for _ in range(BLOCK_REPS):
             fn()
         torch.cuda.synchronize()
-    busy = covered_ms([(e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA])
+    busy = covered_ms([(t0, t1) for _, t0, t1 in device_events(prof)])
     check(busy > 0.0, "profile: the profiler saw no device time")
     return busy / BLOCK_REPS
 
@@ -1996,7 +2148,7 @@ def record_depths(eng, k_min: int) -> dict:
     return rec
 
 
-def adaptive_run(model, params, dvi, reqs, pages: int, label: str, floor: int,
+def adaptive_run(model, params, dvi, reqs, pages: int, label: str, floor: int, n: int = 12,
                  **kw) -> dict:
     """A graphed continuous engine with ``adaptive_k`` (its graphs of every
     draft width captured ahead) and one warm-up request, then `reqs` served
@@ -2007,14 +2159,17 @@ def adaptive_run(model, params, dvi, reqs, pages: int, label: str, floor: int,
     eng.reset_stats()
     reset_counts()
     g0 = eng.graph_stats()
+    chunk = eng._runner.chunk_step
+    c0 = chunk.replays if chunk is not None else 0
     rec = record_depths(eng, floor)
     try:
         comps, wall, blocks_run, per_tick = serve_checked(eng, reqs)
     finally:
         rec["close"]()
-    run = finish_run(eng, 12, label, comps, wall, g0)
+    run = finish_run(eng, n, label, comps, wall, g0)
     run.update(blocks_run=blocks_run, per_tick=per_tick, dispatch_log=rec["dispatches"],
-               bad=rec["bad"], adaptive=eng.adaptive_stats(), kv=eng.kv_stats())
+               bad=rec["bad"], adaptive=eng.adaptive_stats(), kv=eng.kv_stats(),
+               chunk_replays=chunk.replays - c0 if chunk is not None else 0)
     return run
 
 
@@ -2108,6 +2263,202 @@ def adaptive_phase(cfg, model, params, dvi, base: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: chunked prefill in the continuous engine
+# ---------------------------------------------------------------------------
+
+def chunked_want(cfg, blocks: int, chunks: int, dispatch_log=None, updates: int = 0) -> dict:
+    """The launch formula of a chunked vicuna path: phase 8's per block (or
+    12b's at each dispatched draft width), 2 ``lora_logits`` an update, and
+    one ``paged_decode_attention`` a layer per chunk step (the first
+    chunk's prefill at admission runs no kernel of the port)."""
+    K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
+    log = dispatch_log or [(K, blocks)]
+    return {"paged_decode_attention": sum(n * ((kb + 1) * k + (L - k)) for kb, n in log)
+            + L * chunks,
+            "lora_logits": sum(n * (kb + 1) for kb, n in log) + 2 * updates,
+            "verify_argmax": blocks, "decode_attention": 0, "ssd_scan": 0}
+
+
+def mid_prefill_preemptions(eng) -> list:
+    """Record, per preemption, whether the victim lane was mid-prefill."""
+    seen, inner = [], eng._preempt
+
+    def preempt(slot):
+        seen.append(eng._slots[slot].pf_pos is not None)
+        inner(slot)
+
+    eng._preempt = preempt
+    return seen
+
+
+def chunk_figures(eng) -> dict:
+    """A drained chunked engine's chunk counters, its chunk graph's figures,
+    its tick percentiles and the lanes it left occupied."""
+    step = eng._runner.chunk_step
+    return dict(chunks=eng.stats["prefill_chunks"], chunk_tokens=eng.stats["prefill_tokens"],
+                max_tick=eng.stats["max_tick_prefill_tokens"], ticks=eng.tick_percentiles(),
+                lanes_left=eng.active_slots,
+                chunk_graph=dict(nodes=step.nodes, capture_s=step.capture_s,
+                                 instantiate_s=step.instantiate_s,
+                                 replay_us=1e6 * step.replay_host_s / max(step.replays, 1)))
+
+
+def chunk_gates(n: int, label: str, r: dict, want: dict, graphed: bool) -> None:
+    """The gates every chunked run holds: the launch formula, the chunk
+    budget, host syncs == dispatches, the pool or the lanes empty, and
+    (graphed) one chunk graph replay a chunk step."""
+    phase(n, f"{label}: {len(r['comps'])} requests in {r['wall']:.3f} s, {r['steps']} "
+             f"block-steps ({r['blocks_run']} blocks run), {r['dispatches']} dispatches, "
+             f"{r['host_syncs']} host syncs, {r['chunks']} chunk steps ({r['chunk_replays']} "
+             f"graph replays) of {r['chunk_tokens']} prompt tokens, largest tick "
+             f"{r['max_tick']} tokens (budget {C_SLOTS * P_CHUNK}), "
+             f"{r['kv'].get('preemptions', 0)} preemptions ({r['mid']} mid-prefill), used "
+             f"pages at the end {r['kv'].get('used_pages', 0)}, lanes left {r['lanes_left']}, "
+             f"syncs per tick {r['per_tick']} (0 inside every dispatch and chunk step)")
+    phase(n, f"{label}: launches {r['launches']}; expected {want}")
+    check(r["launches"] == want, f"{label}: the launches disagree with the formula")
+    check(r["chunks"] > 0 and 0 < r["max_tick"] <= C_SLOTS * P_CHUNK,
+          f"{label}: the chunk budget was not held")
+    check(r["host_syncs"] == r["dispatches"], f"{label}: host syncs != dispatches")
+    check(r["kv"].get("used_pages", 0) == 0 and r["lanes_left"] == 0,
+          f"{label}: pages or lanes left in use")
+    check(not graphed or r["chunk_replays"] == r["chunks"],
+          f"{label}: chunk steps were not one graph replay each")
+
+
+def schema_gate(eng, n: int, label: str) -> None:
+    """The port's copy of the metrics schema gate
+    (``scripts/torch_check_metrics_schema.py``) on the drained engine's
+    snapshot and on its Prometheus text."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_check_metrics_schema", os.path.join(ROOT, "scripts",
+                                                   "torch_check_metrics_schema.py"))
+    chk = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chk)
+    errs = (chk.check_snapshot(eng.metrics_snapshot(), "snapshot")
+            + chk.check_snapshot(chk.parse_prometheus_text(eng.render_prometheus()),
+                                 "prometheus"))
+    phase(n, f"{label}: scripts/torch_check_metrics_schema.py on the snapshot and the "
+             f"Prometheus text: {len(chk.REQUIRED)} required metrics, errors {errs}")
+    check(errs == [], f"{label}: the metrics schema gate failed")
+
+
+def chunked_phase(cfg, model, params, dvi, base: dict, paged_row, vocab_rows) -> dict:
+    """Phase 13 (a, b, d) on vicuna-7b: phase 8's continuous path with
+    prompts prefilled in chunks of P_CHUNK over the ample pool (graphed and
+    eager), a tight pool swung down until a lane is preempted, and the
+    ample pool with learning and adaptive depth.  `base` is phase 8's
+    graphed ample run.  Returns the runs."""
+    from repro_torch.core import graphs, spec
+    K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
+    reqs = continuous_requests(cfg)
+    expect = {"paged_decode_attention": path_attention_ms(paged_row, K, k, L),
+              "verify_argmax": vocab_rows["verify_argmax"]["ms"],
+              "lora_logits": vocab_rows["lora_logits"]["ms"]}
+    runs = {}
+    # (a): the ample pool, eager and graphed
+    for mode, on in MODES:
+        label = f"chunked {mode}, ample pool"
+        r = runs[mode] = continuous_run(model, params, dvi, reqs, on, C_PAGES_AMPLE, 13, label,
+                                        prefill_chunk=P_CHUNK)
+        chunk_gates(13, label, r, chunked_want(cfg, r["blocks_run"], r["chunks"]), on)
+        if on:
+            schema_gate(r["eng"], 13, label)
+            r["profile"] = profile_batch(r["eng"], reqs, r["wall"] * 1e3, n=13, expect=expect)
+        release(r)
+    g, e = runs["graphed"], runs["eager"]
+    same = streams(g["comps"]) == streams(e["comps"])
+    phase(13, f"chunked, ample pool: graphed streams bit-identical to eager ones: {same} "
+              f"({len(g['comps'])} completions)")
+    check(same, "chunked: graphed streams differ from eager ones")
+    check_census(13, "chunked graphed", g["graph"])
+    g["ticks_host"] = tick_phases(model, params, dvi, reqs, C_PAGES_AMPLE, 13,
+                                  "vicuna-7b chunked, ample pool", prefill_chunk=P_CHUNK)
+    check_against_ar(model, params, spec, reqs, g["comps"], "chunked ample pool", n_phase=13)
+    g["equal_one_shot"] = sum(streams(g["comps"])[u] == v for u, v in
+                              streams(base["comps"]).items())
+    phase(13, f"chunked ample pool: {g['equal_one_shot']} of {len(reqs)} completions equal "
+              f"phase 8's one-shot streams")
+
+    # (b): the tight pool, swung down from phase 8's until a lane is preempted
+    pages = base["tight_pages"]
+    while True:
+        eng = continuous_engine(model, params, dvi, pages, True, prefill_chunk=P_CHUNK)
+        mid = mid_prefill_preemptions(eng)
+        comps_t, wall_t, _, per_tick_t = serve_checked(eng, reqs)
+        del eng._preempt
+        kv_t = eng.kv_stats()
+        phase(13, f"chunked graphed, tight pool of {pages} pages: {len(comps_t)} requests in "
+                  f"{wall_t:.3f} s, {kv_t['preemptions']} preemptions ({sum(mid)} mid-prefill), "
+                  f"{eng.stats['prefill_chunks']} chunk steps, peak {kv_t['peak_used_pages']} "
+                  f"pages, used pages at the end {kv_t['used_pages']}, syncs per tick max "
+                  f"{max(per_tick_t)}")
+        check(kv_t["used_pages"] == 0 and eng.active_slots == 0,
+              "chunked tight pool: pages or lanes left in use")
+        check(eng.stats["host_syncs"] == eng.stats["dispatches"],
+              "chunked tight pool: host syncs != dispatches")
+        check(0 < eng.stats["max_tick_prefill_tokens"] <= C_SLOTS * P_CHUNK,
+              "chunked tight pool: the chunk budget was not held")
+        if kv_t["preemptions"] >= 1 or pages <= eng._mps:
+            break
+        pages -= 1
+        del eng
+        release({})
+    check(kv_t["preemptions"] >= 1, "chunked: the tight pool never preempted")
+    del eng
+    release({})
+    runs["tight"] = dict(pages=pages, preemptions=kv_t["preemptions"], mid=sum(mid))
+    against_frozen(model, params, spec, reqs, comps_t, g["comps"],
+                   f"chunked tight pool ({pages} pages)", n_phase=13,
+                   what="the chunked ample pool's")
+
+    # (d): the ample pool with learning and adaptive depth (ROADMAP 12.6)
+    label = "chunked, learning, adaptive"
+    r = runs["learn_adaptive"] = adaptive_run(
+        model, params, dvi, reqs, C_PAGES_AMPLE, label, A_KMIN, n=13, state=learn_state(model),
+        learn=True, update_every=L_UPDATE_EVERY, lr=L_LR, mode=L_MODE, k_min=A_KMIN,
+        k_max=A_KMAX, prefill_chunk=P_CHUNK)
+    eng = r["eng"]
+    r.update(chunk_figures(eng), mid=0, updates=eng.stats["updates"])
+    want = chunked_want(cfg, r["blocks_run"], r["chunks"], r["dispatch_log"], r["updates"])
+    chunk_gates(13, label, r, want, True)
+    at_home = graphs.drafter_ptrs(eng.state.dvi_params) == eng._runner.drafter
+    phase(13, f"{label}: {r['updates']} updates, draft widths dispatched "
+              f"{sorted({kb for kb, _ in r['dispatch_log']})}, mean depth "
+              f"{r['adaptive']['mean_depth']:.3f}, lanes out of [k_min, k_cap] {r['bad']}, "
+              f"A and B at their addresses: {at_home}, captures {r['graph']['captures']}")
+    check(r["updates"] > 0 and at_home and not r["bad"],
+          f"{label}: no update, a rebound drafter or a depth out of its range")
+    check_census(13, label, r["graph"])
+    schema_gate(eng, 13, label)
+    r["profile"] = profile_batch(eng, reqs, r["wall"] * 1e3, n=13)
+    release(r)
+    against_frozen(model, params, spec, reqs, r["comps"], base["comps"], label, n_phase=13,
+                   what="phase 8's one-shot fixed-K streams")
+    return runs
+
+
+def report_chunked(label: str, r: dict, base: dict) -> None:
+    """One line of a chunked run's figures, beside the one-shot run `base`."""
+    steps, p, cg, t = max(r["steps"], 1), r["profile"], r["chunk_graph"], r["ticks"]
+    phase(13, f"{label}: wall per block-step {1e3 * r['wall'] / steps:.2f} ms, device "
+              f"{p['device_ms']:.2f} ms a block-step, busy {100 * p['busy']:.1f}%, "
+              f"{r['committed'] / r['wall']:.1f} committed tokens/s, tick p50 "
+              f"{1e3 * t['p50_s']:.2f} / p95 {1e3 * t['p95_s']:.2f} / max "
+              f"{1e3 * t['max_s']:.2f} ms over {t['count']} ticks, chunk graph "
+              f"{cg['nodes']} nodes (capture {cg['capture_s']:.2f} s, instantiate "
+              f"{cg['instantiate_s']:.3f} s, replay() {cg['replay_us']:.1f} us on the host), "
+              f"graph pool {r['graph']['pool_bytes'] / 2**30:.3f} GiB, peak memory "
+              f"{r['peak'] / 2**30:.2f} GiB allocated; one-shot: wall "
+              f"{1e3 * base['wall'] / max(base['steps'], 1):.2f} ms, device "
+              f"{base['profile']['device_ms']:.2f} ms a block-step, "
+              f"{base['committed'] / base['wall']:.1f} tokens/s, tick p50 "
+              f"{1e3 * base['ticks']['p50_s']:.2f} / p95 {1e3 * base['ticks']['p95_s']:.2f} / max "
+              f"{1e3 * base['ticks']['max_s']:.2f} ms over {base['ticks']['count']} ticks")
+
+
+# ---------------------------------------------------------------------------
 # phase 9: mamba2-370m through both schedulers
 # ---------------------------------------------------------------------------
 
@@ -2134,25 +2485,47 @@ def mamba_want(cfg, blocks: int, prefills: int) -> dict:
             "ssd_scan": cfg.num_layers * prefills}
 
 
-def ar_at_engine_rows(model, params, req) -> list:
-    """Greedy AR of `req` decoded as the continuous engine decodes it: the
-    prompt prefilled alone (B = 1), spliced into lane 0 of a C_SLOTS-lane
-    contiguous cache, then one-token blocks of ``spec_block_step`` at K = 0
-    with ar_generate's zero draft adapter, the other lanes masked done.
-    Every matrix product then runs at the engine's row counts, so in bf16
-    it rounds as the engine's does; ar_generate on the prompt alone runs
-    its decode products at one row."""
-    from repro_torch.core import spec
+def engine_rows_cache(model, params, req, chunk: int = 0) -> dict:
+    """`req`'s prompt but its last token prefilled as the continuous engine
+    prefills it, in lane 0 of a C_SLOTS-lane contiguous cache: alone (B = 1)
+    and spliced in, or with `chunk` as the chunked engine does, its first
+    `chunk` tokens alone and the rest in chunk steps of (C_SLOTS, chunk)
+    tokens that advance lane 0 alone."""
     from repro_torch.models import transformer as tfm
+    prompt = torch.as_tensor(req.prompt, device=DEV)
+    n = len(req.prompt) - 1
+    c1 = min(chunk, n) if chunk else n
+    _, pc = model.prefill(params, prompt[None, :c1])
+    cache = tfm.insert_slot(model.cfg, model.init_cache(C_SLOTS, len(req.prompt) + req.max_new
+                                                        + tfm.RING_SLACK), pc, 0)
+    pos = c1
+    while pos < n:
+        take = min(chunk, n - pos)
+        blk = torch.zeros((C_SLOTS, chunk), dtype=torch.int32, device=DEV)
+        blk[0, :take] = prompt[pos:pos + take]
+        lanes = torch.zeros((C_SLOTS,), dtype=torch.int32, device=DEV)
+        lanes[0] = take
+        model.prefill_chunk(params, blk, cache, lanes)
+        pos += take
+    return cache
+
+
+def ar_at_engine_rows(model, params, req, chunk: int = 0, cache=None) -> list:
+    """Greedy AR of `req` decoded as the continuous engine decodes it: from
+    the cache of ``engine_rows_cache`` (or `cache`, one it built, which the
+    decode advances in place), one-token blocks of ``spec_block_step`` at
+    K = 0 with ar_generate's zero draft adapter, the other lanes masked
+    done.  Every matrix product then runs at the engine's row counts, so in
+    bf16 it rounds as the engine's does; ar_generate on the prompt alone
+    runs its decode products at one row."""
+    from repro_torch.core import spec
     cfg = model.cfg
     dvi0 = {"A": torch.zeros((cfg.d_model, 1), device=DEV),
             "B": torch.zeros((1, cfg.vocab_size), device=DEV)}
-    prompt = torch.as_tensor(req.prompt, device=DEV)
-    _, pc = model.prefill(params, prompt[None, :-1])
-    cache = tfm.insert_slot(cfg, model.init_cache(C_SLOTS, len(req.prompt) + req.max_new),
-                            pc, 0)
+    if cache is None:
+        cache = engine_rows_cache(model, params, req, chunk)
     pending = torch.zeros((C_SLOTS,), dtype=torch.int32, device=DEV)
-    pending[0] = prompt[-1]
+    pending[0] = int(req.prompt[-1])
     done = torch.arange(C_SLOTS, device=DEV) > 0
     out = []
     while len(out) < req.max_new and 1 not in out:
@@ -2160,6 +2533,82 @@ def ar_at_engine_rows(model, params, req) -> list:
         pending, cache = blk.pending, blk.cache
         out.append(int(blk.commit_vec[0, 0]))
     return out
+
+
+def float32_model(model, params):
+    """The model and its weights cast up to float32 (every floating leaf)."""
+    from repro_torch.models.model import build_model
+
+    def up(t):
+        if isinstance(t, dict):
+            return {k: up(v) for k, v in t.items()}
+        return t.float() if torch.is_tensor(t) and t.is_floating_point() else t
+    return build_model(model.cfg.replace(dtype="float32"), device=DEV), up(params)
+
+
+def ssm_state_errors(cfg, cache, ref_cache) -> dict:
+    """Lane 0's SSM conv windows and states in `cache` against `ref_cache`'s
+    lane 0: the largest relative Frobenius error over the layers of each."""
+    from repro_torch.models import transformer as tfm
+    out = {"conv": 0.0, "state": 0.0}
+    for seg in tfm.model_segments(cfg):
+        if seg.kind != "ssm":
+            continue
+        for key in out:
+            a = cache["segs"][seg.name][key][:, 0].float()
+            b = ref_cache["segs"][seg.name][key][:, 0].float()
+            err = ((a - b).flatten(1).norm(dim=1) / b.flatten(1).norm(dim=1).clamp_min(1e-30))
+            out[key] = max(out[key], float(err.max()))
+    return out
+
+
+def chunk_witness(model, params, spec, f32: dict, n_phase: int, label: str):
+    """The witness for a chunked completion that differs from AR beyond a
+    bf16 near-tie, which uses no chunk step on one side of any comparison:
+    (1) in float32 (the weights cast up, in `f32`, made at first use), where
+    rounding no longer flips a greedy pick, the chunked path's stream at the
+    engine's row counts equals ``ar_generate`` of the prompt alone (one-shot
+    prefill), or first differs at a float32 near-tie (F32_GAP_RTOL); (2) the
+    float32 chunk-built SSM states and conv windows equal one-shot
+    ``prefill``'s within F32_STATE_RTOL a layer; (3) the bf16 chunk-built
+    ones are no further from the float32 one-shot ones than BF16_STATE_RATIO
+    times bf16 one-shot ``prefill``'s.  Returns witness(request, got) ->
+    bool, for ``check_against_ar``."""
+    def one_shot(m, p, req):
+        return m.prefill(p, torch.as_tensor(req.prompt[None, :-1], device=DEV))[1]
+
+    def witness(req, got) -> bool:
+        if not f32:
+            f32["model"], f32["params"] = float32_model(model, params)
+            f32["memo"] = {}
+        m32, p32 = f32["model"], f32["params"]
+        o32 = one_shot(m32, p32, req)
+        c32 = engine_rows_cache(m32, p32, req, P_CHUNK)
+        e32 = ssm_state_errors(m32.cfg, c32, o32)          # before the decode moves c32
+        e16 = ssm_state_errors(model.cfg, engine_rows_cache(model, params, req, P_CHUNK), o32)
+        e16_one = ssm_state_errors(model.cfg, one_shot(model, params, req), o32)
+        states_ok = (max(e32.values()) <= F32_STATE_RTOL
+                     and all(e16[k] <= BF16_STATE_RATIO * e16_one[k] for k in e16))
+        chunked = ar_at_engine_rows(m32, p32, req, cache=c32)
+        alone = capped(ar_alone(m32, p32, spec, req, f32["memo"]), req.max_new)
+        p = next((j for j, (a, b) in enumerate(zip(chunked, alone)) if a != b), None)
+        if p is None:
+            streams_ok, why = chunked == alone, f"equal: {chunked == alone}"
+        else:
+            prefix = torch.as_tensor(np.concatenate([req.prompt, alone[:p]]).astype(np.int64),
+                                     device=DEV)[None]
+            t1, t2 = top2_gap(m32, p32, prefix)
+            streams_ok = t1 - t2 <= F32_GAP_RTOL * max(abs(t1), 1.0)
+            why = f"first differ at token {p}, float32 top-2 gap {t1 - t2:.4e}"
+        phase(n_phase, f"{label}: request {req.uid}, float32 witness: the chunked path at the "
+                       f"engine's row counts vs AR of the prompt alone: {why}; largest "
+                       f"relative error a layer, chunk-built vs one-shot float32: state "
+                       f"{e32['state']:.3e}, conv {e32['conv']:.3e}; against the float32 "
+                       f"one-shot, bf16 chunk-built: state {e16['state']:.3e}, conv "
+                       f"{e16['conv']:.3e}, bf16 one-shot: state {e16_one['state']:.3e}, conv "
+                       f"{e16_one['conv']:.3e}; holds: {streams_ok and states_ok}")
+        return streams_ok and states_ok
+    return witness
 
 
 def mamba_phase(by_row):
@@ -2204,9 +2653,10 @@ def mamba_phase(by_row):
         phase(9, f"sync {mode}: launches {r['launches']}; expected {want}")
         check(r["launches"] == want, "the mamba2 sync path did not run the kernels as the "
                                      "formula says")
+        # the eager reruns are not profiled (the script's time limit)
         r["profile"] = profile_batch(r["eng"], reqs, r["wall"] * 1e3, n=9,
                                      expect=dict(expect, ssd_scan=by_row["ssd_scan"]["ms"]),
-                                     per_call=per_prefill)
+                                     per_call=per_prefill) if on else None
         padded = [Request(uid=q.uid, prompt=r["eng"]._pad(q, r["eng"]._bucket(len(q.prompt))),
                           max_new=q.max_new) for q in reqs]
         release(r)
@@ -2238,15 +2688,37 @@ def mamba_phase(by_row):
                                      "the formula says")
         r["profile"] = profile_batch(
             eng, creqs, r["wall"] * 1e3, n=9, per_call=per_prefill,
-            expect=dict(expect, ssd_scan=by_row["ssd_scan"]["at_admission"]["ms"]))
+            expect=dict(expect, ssd_scan=by_row["ssd_scan"]["at_admission"]["ms"])) if on else None
         release(r)
     report_modes(9, f"{M_NAME} continuous", cont)
     tick_phases(model, params, dvi, creqs, 0, 9, f"{M_NAME} continuous")
+    ar_memo: dict = {}                 # phase 13c reuses these AR streams
     check_against_ar(model, params, spec, creqs, cont["graphed"]["comps"],
                      f"{M_NAME} continuous", n_phase=9, alone=True,
-                     same_shape=lambda q: ar_at_engine_rows(model, params, q))
+                     same_shape=lambda q: ar_at_engine_rows(model, params, q), ar_memo=ar_memo)
+
+    # ---- phase 13c: chunked prefill on the contiguous continuous engine ----
+    t13 = time.perf_counter()
+    label = f"{M_NAME} chunked graphed (contiguous)"
+    r = continuous_run(model, params, dvi, creqs, True, 0, 13, label, prefills=prefills,
+                       prefill_chunk=P_CHUNK)
+    chunk_gates(13, label, r, mamba_want(cfg, r["blocks_run"], r["prefills"]), True)
+    phase(13, f"{label}: {r['prefills']} first-chunk admissions, {cfg.num_layers} ssd_scan "
+              f"each; 0 attention launches in {r['chunks']} chunk steps")
+    check(r["prefills"] == C_REQUESTS, f"{label}: {r['prefills']} admissions")
+    check_census(13, label, r["graph"])
+    r["profile"] = profile_batch(r["eng"], creqs, r["wall"] * 1e3, n=13, per_call=per_prefill,
+                                 expect=dict(expect, ssd_scan=by_row["ssd_scan"]
+                                             ["at_chunk_admission"]["ms"]))
+    release(r)
+    report_chunked(label, r, base=cont["graphed"])
+    r["equal_one_shot"] = against_frozen(
+        model, params, spec, creqs, r["comps"], cont["graphed"]["comps"], label, n_phase=13,
+        what="phase 9's one-shot streams", alone=True, ar_memo=ar_memo,
+        witness=chunk_witness(model, params, spec, {}, 13, label))
+    phase(13, f"{label}: phase 13c took {time.perf_counter() - t13:.1f} s")
     return (sync["graphed"]["launches"], cont["graphed"]["launches"],
-            sync["eager"]["launches"], cont["eager"]["launches"])
+            sync["eager"]["launches"], cont["eager"]["launches"], r)
 
 
 # ---------------------------------------------------------------------------
@@ -2392,8 +2864,7 @@ def pretrain_phase(ssd_backward_ms: float) -> dict:
     check(np.isfinite(after) and before - after >= P_DROP,
           f"{P_DESCENT} steps on one batch cut its loss by {before - after:.4f} nats, "
           f"less than {P_DROP}")
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(t0, t1) for _, t0, t1 in device_events(prof)]
     dev_ms = covered_ms(spans)
     share = L * ssd_backward_ms / dev_ms
     phase(11, f"{M_NAME} pretraining step, profiled: device busy {dev_ms:.1f} ms of "
@@ -2662,11 +3133,25 @@ def main() -> int:
     a_runs = adaptive_phase(cfg, model, params, dvi, c_frozen)
     marks["12"] = time.perf_counter() - t_start
 
+    # ---- phase 13 (a, b, d): chunked prefill, on the same weights ----
+    release({})
+    ch = chunked_phase(cfg, model, params, dvi, c_frozen, by_row["paged_decode_attention"],
+                       by_row)
+    report_chunked("chunked graphed, ample pool", ch["graphed"], base=c_frozen)
+    t_ch, t_one = ch["graphed"]["ticks_host"], c_frozen["ticks_host"]
+    phase(13, f"host ms a block-step in admit + pre_admit: chunked {t_ch['admit']:.2f} + "
+              f"{t_ch['pre_admit']:.2f}, prefill_chunk {t_ch['prefill_chunk']:.2f}; phase 8 "
+              f"one-shot {t_one['admit']:.2f} + {t_one['pre_admit']:.2f}; one admission "
+              f"{t_ch['admission']:.2f} host ms chunked (eager, the first chunk) against "
+              f"{t_one['admission']:.2f} one-shot")
+    report_chunked("chunked graphed, learning, adaptive", ch["learn_adaptive"], base=c_frozen)
+    marks["13abd"] = time.perf_counter() - t_start
+
     # ---- phase 9: mamba2-370m through both schedulers ----
     del model, params, dvi
     release({})                        # engines in reference cycles hold the weights
-    m_sync, m_cont, m_sync_e, m_cont_e = mamba_phase(by_row)
-    marks["9"] = time.perf_counter() - t_start
+    m_sync, m_cont, m_sync_e, m_cont_e, m_chunk = mamba_phase(by_row)
+    marks["9,13c"] = time.perf_counter() - t_start
 
     # ---- phase 11a and 11c: mamba2 pretraining, the quickstart ----
     release({})
@@ -2689,14 +3174,19 @@ def main() -> int:
                    # phase 12: the sampled path (eager) and adaptive depth (graphed)
                    "sampled": t_samp["launches"].get(name, 0),
                    "adaptive_pinned": a_runs["pinned"]["launches"].get(name, 0),
-                   "adaptive": a_runs["controller"]["launches"].get(name, 0)}
+                   "adaptive": a_runs["controller"]["launches"].get(name, 0),
+                   # phase 13: chunked prefill (graphed)
+                   "chunked": ch["graphed"]["launches"].get(name, 0),
+                   "chunked_learn_adaptive": ch["learn_adaptive"]["launches"].get(name, 0),
+                   "mamba2_chunked": m_chunk["launches"].get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["launches_eager_by_path"] = {
             "sync": runs["eager"]["launches"].get(name, 0), "continuous": c_eager.get(name, 0),
             "learn_sync": learn_s["eager"]["launches"].get(name, 0),
             "learn_continuous": learn_c["eager"]["launches"].get(name, 0),
-            "mamba2_sync": m_sync_e.get(name, 0), "mamba2_continuous": m_cont_e.get(name, 0)}
+            "mamba2_sync": m_sync_e.get(name, 0), "mamba2_continuous": m_cont_e.get(name, 0),
+            "chunked": ch["eager"]["launches"].get(name, 0)}
     ends = list(marks.values())
     phase(7, f"all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by phase: "
              + ", ".join(f"{name} {end - start:.1f}" for name, start, end

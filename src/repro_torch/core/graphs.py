@@ -33,6 +33,12 @@ they are still the tensors the runner was made with (``check_drafter``).
 * On the CPU, or with ``graphs=False``, the same body runs eagerly over the
   same buffers.
 
+The continuous runner with chunked prefill holds a second step, the chunk
+step (``Model.prefill_chunk`` over every lane at the fixed shape (lanes,
+chunk), the reference's jitted ``chunk_step``), captured once beside the
+block-step in the same pool and replayed once a tick that advances a
+prefill.
+
 A capture or a replay that fails raises; nothing falls back to the eager
 body.
 
@@ -287,11 +293,19 @@ class SuperstepRunner:
     ceiling (``DEPTH_STATE`` and "k_cap"), uploaded at each dispatch.  The
     counters, histograms (``k_max + 1`` buckets) and the committed-token
     buffer (``sync_every * (k_max + 1)`` a lane, plus a spare slot) are
-    views of one int32 buffer, zeroed once a dispatch."""
+    views of one int32 buffer, zeroed once a dispatch.
+
+    With `chunk` > 0 (chunked prefill) the runner also holds the engine's
+    chunk step (``prefill_chunk``): one more block-step at the fixed shape
+    (lanes, `chunk`), captured once in the same pool, whose static inputs
+    are ``chunk_state``'s tokens (B, chunk), take, finish_tok and finished
+    (B,).  It advances every prefilling lane by its take in the engine's
+    cache, in place, and sets the pending token of the lanes whose prefill
+    it finishes."""
 
     def __init__(self, model: Model, params: dict, dvi_params: dict, pending: torch.Tensor,
                  cache: dict, buf: dict, *, sync_every: int, eos_id: int, graphs: bool,
-                 depth: Optional[DepthConfig] = None):
+                 depth: Optional[DepthConfig] = None, chunk: int = 0):
         K = model.cfg.dvi.k_spec
         B = pending.shape[0]
         dev = pending.device
@@ -333,6 +347,25 @@ class SuperstepRunner:
         self.steps: Dict[int, StepGraph] = {}          # K_blk -> its block-step
         if depth is None:
             self.step_for(K)
+        self.chunk_step: Optional[StepGraph] = None
+        if chunk:
+            cst = self.chunk_state = dict(
+                tokens=torch.zeros((B, chunk), dtype=torch.int32, device=dev),
+                take=torch.zeros((B,), dtype=torch.int32, device=dev),
+                finish_tok=torch.zeros((B,), dtype=torch.int32, device=dev),
+                finished=torch.zeros((B,), dtype=torch.bool, device=dev))
+
+            def chunk_body():
+                model.prefill_chunk(params, cst["tokens"], cache, cst["take"])
+                pending.copy_(torch.where(cst["finished"], cst["finish_tok"], pending))
+
+            def chunk_warmup():          # take 0 everywhere: no lane advances
+                cst["take"].zero_()
+                cst["finished"].fill_(False)
+                chunk_body()
+
+            self.chunk_step = StepGraph(chunk_body, capture=self._capture, pool=self._pool,
+                                        warmup=chunk_warmup)
 
     def step_for(self, k_blk: int) -> StepGraph:
         """The block-step at draft width `k_blk`, made (and captured) on
@@ -382,8 +415,20 @@ class SuperstepRunner:
                                st["accept_hist"][:k_blk + 1], st["depth_hist"][:k_blk + 1],
                                st["cache"], st["buf"], steps)
 
+    def prefill_chunk(self, tokens: np.ndarray, take: np.ndarray, finish_tok: np.ndarray,
+                      finished: np.ndarray) -> None:
+        """Upload one chunk step's host arrays into ``chunk_state`` and run
+        the chunk step once, without waiting for the device."""
+        cst = self.chunk_state
+        for name, arr in (("tokens", tokens), ("take", take), ("finish_tok", finish_tok),
+                          ("finished", finished)):
+            upload(cst[name], arr)
+        self.chunk_step()
+
     def graph_stats(self) -> dict:
-        return graph_stats(self.steps.values())
+        """``graph_stats`` over the block-steps and the chunk step."""
+        return graph_stats(list(self.steps.values())
+                           + ([self.chunk_step] if self.chunk_step is not None else []))
 
 
 class GenerateRunner:

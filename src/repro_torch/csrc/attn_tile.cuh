@@ -3,12 +3,16 @@
 // over pooled pages).  They differ only in where slot j of a lane lives (a
 // Map: j -> K/V row, or -1 for an unmapped slot); everything else is here.
 //
-// Work split.  The grid is (C, KV, B) with clusters of (C, 1, 1): the C CTAs
-// of one cluster own one (lane b, kv head) and each takes a contiguous share
-// of the lane's live slots, computed on the card from lengths[b] (`share_slots`).
-// A CTA holds all R = Tq * G query rows of its kv head (row r is query
-// t = r / G, head kvh * G + r % G), padded to MT = ceil(R / 16) m16 tiles, so
-// each K/V row is read from device memory once for every row that needs it.
+// Work split.  The R = Tq * G query rows of a kv head (row r is query
+// t = r / G, head kvh * G + r % G) are cut into row tiles of up to MAX_ROWS
+// (`tile_rows`), and the grid is (C, KV * row tiles, B) with clusters of
+// (C, 1, 1): the C CTAs of one cluster own one (lane b, kv head, row tile)
+// and each takes a contiguous share of the lane's live slots, computed on
+// the card from lengths[b] (`share_slots`).  A CTA holds the rows of its
+// tile, padded to MT = ceil(tile rows / 16) m16 tiles, so each K/V row is
+// read from device memory once for every row of the tile that needs it: a
+// decode block (Tq * G <= 64) is one tile, a chunk of prefill queries
+// (Tq up to MAX_TQ) reads the lane's K/V once a tile.
 // Its four warps split the m tiles and the share's 16-slot sub-tiles: warp w
 // takes m tile w % MT and every (NW / MT)-th sub-tile of each tile.  Each warp
 // keeps its own online softmax (running max m, sum l, output accumulator) in
@@ -51,7 +55,8 @@ namespace cg = cooperative_groups;
 constexpr int THREADS = 128;
 constexpr int NW = THREADS / 32;
 constexpr int SUB = 16;            // slots of a warp's sub-tile (mma n and k)
-constexpr int MAX_ROWS = 64;       // R = Tq * G rows a CTA holds: 4 m16 tiles
+constexpr int MAX_ROWS = 64;       // query rows a CTA holds (a row tile): 4 m16 tiles
+constexpr int MAX_TQ = 128;        // queries of a call: a prefill chunk's bound
 constexpr int MAX_SPLITS = 8;      // largest portable cluster
 constexpr int MAX_SMEM = 227 * 1024;  // dynamic shared memory a CTA may take
 constexpr float NEG = -1e30f;
@@ -67,6 +72,11 @@ __host__ __device__ inline int share_slots(int n_live, int splits) {
 }
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// The rows of every row tile (the last one padded) and the number of tiles
+// of a call with R = Tq * G query rows a kv head.
+__host__ __device__ inline int tile_rows(int R) { return R < MAX_ROWS ? R : MAX_ROWS; }
+__host__ __device__ inline int row_tiles(int R) { return (R + MAX_ROWS - 1) / MAX_ROWS; }
 
 // The dynamic shared memory of one CTA, in byte offsets.  The warps'
 // partials reuse the ring once the last tile is folded.
@@ -203,7 +213,8 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-// One CTA of the cluster of (lane b, kv head kvh).  `map` says where the
+// One CTA of the cluster of (lane b, kv head kvh, the row tile starting at
+// row r0).  `map` says where the
 // lane's slots live: map.live(len) is the number of slots to visit,
 // map.prepare(lo, hi) stages what map.row needs for the share [lo, hi) in
 // shared memory, map.row(j) is slot j's K/V row of k/v viewed as
@@ -214,14 +225,16 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
                                              const T* __restrict__ v,
                                              const int* __restrict__ lengths,
                                              T* __restrict__ out, const Args& a, Map map,
-                                             int b, int kvh, unsigned char* smem) {
+                                             int b, int kvh, int r0, unsigned char* smem) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int G = a.H / a.KV, R = a.Tq * G, MT = (R + 15) / 16, groups = NW / MT, rp = MT * 16;
+  // RT rows a tile, nr of them real in this one (the last tile may hold fewer)
+  const int G = a.H / a.KV, R = a.Tq * G, RT = tile_rows(R), nr = min(RT, R - r0);
+  const int MT = (RT + 15) / 16, groups = NW / MT, rp = MT * 16;
   const int hd = a.hd, ld = hd + 16 / (int)sizeof(T), bs = a.bs, nsub = bs / SUB;
   const int mt = warp % MT, grp = warp / MT;
   const bool active = grp < groups;          // MT = 3 leaves one warp idle
   const int per_chunk = 16 / sizeof(T), cpr = hd / per_chunk;
-  const Layout L = layout(R, hd, sizeof(T), bs, a.stages, a.splits, 0);
+  const Layout L = layout(RT, hd, sizeof(T), bs, a.stages, a.splits, 0);
   T* ring = reinterpret_cast<T*>(smem + L.ring);
   T* qs = reinterpret_cast<T*>(smem + L.q);
   int* slot_ok = reinterpret_cast<int*>(smem + L.ok);
@@ -229,12 +242,12 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
   float* cl = reinterpret_cast<float*>(smem + L.cl);
   float* wts = reinterpret_cast<float*>(smem + L.wts);
 
-  // the query rows of this kv head first (they need no length), padded with
+  // the query rows of this tile first (they need no length), padded with
   // zero rows to rp; they land with the first tile's copies
   for (int i = tid; i < rp * cpr; i += THREADS) {
-    const int r = i / cpr, c = (i % cpr) * per_chunk;
-    const T* src = r < R ? q + (((size_t)b * a.Tq + r / G) * a.H + kvh * G + r % G) * hd + c : q;
-    cp_async16(qs + r * ld + c, src, r < R);
+    const int r = i / cpr, c = (i % cpr) * per_chunk, rg = r0 + r;
+    const T* src = r < nr ? q + (((size_t)b * a.Tq + rg / G) * a.H + kvh * G + rg % G) * hd + c : q;
+    cp_async16(qs + r * ld + c, src, r < nr);
   }
 
   // this CTA's share of the lane's live slots
@@ -273,7 +286,7 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = mt * 16 + g + 8 * h;
-    lim[h] = r < R ? min(len - (a.Tq - 1 - r / G), map.cap) : 0;
+    lim[h] = r < nr ? min(len - (a.Tq - 1 - (r0 + r) / G), map.cap) : 0;
   }
   const float sl2 = a.scale * LOG2E;
 
@@ -371,7 +384,7 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
   // the CTA's partial: per row the warp groups' weights (normalised when
   // the cluster is one CTA), then their sum, four columns a thread
   const bool alone = a.splits == 1;
-  for (int r = tid; r < R; r += THREADS) {
+  for (int r = tid; r < nr; r += THREADS) {
     float mm = NEG, ll = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w)
@@ -388,8 +401,8 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
   }
   __syncthreads();
   const int q4 = hd / 4;
-  for (int i = tid; i < R * q4; i += THREADS) {
-    const int r = i / q4, c = (i % q4) * 4;
+  for (int i = tid; i < nr * q4; i += THREADS) {
+    const int r = i / q4, c = (i % q4) * 4, rg = r0 + r;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
@@ -403,7 +416,7 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
       }
     }
     if (alone)
-      store4(out + (((size_t)b * a.Tq + r / G) * a.H + kvh * G + r % G) * hd + c, acc);
+      store4(out + (((size_t)b * a.Tq + rg / G) * a.H + kvh * G + rg % G) * hd + c, acc);
     else
       *reinterpret_cast<float4*>(pacc + (size_t)r * pld + c) = acc;
   }
@@ -413,7 +426,7 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
   // weighs the ranks' partials per row, then writes its own slice of the
   // output, four columns a thread, reading the C partials side by side
   cluster.sync();
-  for (int r = tid; r < R; r += THREADS) {
+  for (int r = tid; r < nr; r += THREADS) {
     float mc[MAX_SPLITS], lc[MAX_SPLITS], mm = NEG, ll = 0.f;
 #pragma unroll
     for (int c = 0; c < MAX_SPLITS; ++c) {
@@ -429,8 +442,8 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
       if (c < a.splits) wts[c * rp + r] = exp2f(mc[c] - mm) * inv;
   }
   __syncthreads();
-  for (int i = rank * THREADS + tid; i < R * q4; i += a.splits * THREADS) {
-    const int r = i / q4, c = (i % q4) * 4;
+  for (int i = rank * THREADS + tid; i < nr * q4; i += a.splits * THREADS) {
+    const int r = i / q4, c = (i % q4) * 4, rg = r0 + r;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int k = 0; k < MAX_SPLITS; ++k) {
@@ -444,20 +457,21 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
         acc.w += s * p.w;
       }
     }
-    store4(out + (((size_t)b * a.Tq + r / G) * a.H + kvh * G + r % G) * hd + c, acc);
+    store4(out + (((size_t)b * a.Tq + rg / G) * a.H + kvh * G + rg % G) * hd + c, acc);
   }
   cluster.sync();      // no CTA leaves while another reads its shared memory
 }
 
 // ---- the host side -------------------------------------------------------------
 
-// Fill in the tile geometry of a call whose lanes hold at most `cap` slots:
+// Fill in the tile geometry of a call whose lanes hold at most `cap` slots,
+// for a CTA holding one row tile:
 // tiles of up to 64 slots (32 in float32), as many stages as a share has
 // tiles up to three, tiles halved until the CTA's shared memory fits.  A
 // paged call (page size `ps` > 0) also holds the table entries of its share.
 // Returns the bytes of shared memory, or 0 when nothing fits.
 inline size_t plan(Args& a, int cap, int tsize, int ps) {
-  const int R = a.Tq * (a.H / a.KV);
+  const int R = tile_rows(a.Tq * (a.H / a.KV));
   const int share = share_slots(cap, a.splits);
   const size_t table = ps > 0 ? (size_t)(share / ps + 2) * sizeof(int) : 0;
   for (int bs = tsize == 2 ? 64 : 32; bs >= SUB; bs /= 2) {
@@ -470,15 +484,15 @@ inline size_t plan(Args& a, int cap, int tsize, int ps) {
   return 0;
 }
 
-// Launch `Kernel` on grid (C, KV, B) with clusters of (C, 1, 1).  Its
-// shared-memory limit is raised once, on its first launch.
+// Launch `Kernel` on grid (C, KV * row tiles, B) with clusters of (C, 1, 1).
+// Its shared-memory limit is raised once, on its first launch.
 template <auto Kernel, typename... A>
 cudaError_t launch(const Args& a, int B, size_t smem, cudaStream_t s, A&&... args) {
   static const cudaError_t limit =
       cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (limit != cudaSuccess) return limit;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.splits, a.KV, B);
+  cfg.gridDim = dim3(a.splits, a.KV * row_tiles(a.Tq * (a.H / a.KV)), B);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -496,7 +510,8 @@ cudaError_t launch(const Args& a, int B, size_t smem, cudaStream_t s, A&&... arg
 // The checks both entry points make before planning a call.
 inline bool valid(const Args& a, int B, int is_bf16) {
   if (B <= 0 || a.Tq <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.hd <= 0 || a.hd > 256) return false;
-  if (a.hd % (is_bf16 ? 16 : 4) != 0 || a.Tq * (a.H / a.KV) > MAX_ROWS) return false;
+  if (a.hd % (is_bf16 ? 16 : 4) != 0 || a.Tq > MAX_TQ) return false;
+  if ((long long)a.KV * row_tiles(a.Tq * (a.H / a.KV)) > 65535) return false;   // grid y
   return a.splits == 1 || a.splits == 2 || a.splits == 4 || a.splits == MAX_SPLITS;
 }
 

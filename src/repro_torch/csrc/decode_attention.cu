@@ -9,8 +9,10 @@
 // lane's live slots between them, read from its length on the card, so
 // rejected speculative writes and the unused capacity past the length are
 // never read; the G query heads that share the kv head and the Tq queries of
-// the block ride in the same CTA (Tq * G rows), so each K/V row is read from
-// device memory once for all of them.  The body (cp.async ring, tensor-core
+// the block ride in the same CTA (Tq * G rows, up to 64), so each K/V row is
+// read from device memory once for all of them.  A chunk of prefill queries
+// (Tq * G > 64, Tq up to 128) is cut into row tiles of 64, one CTA (or
+// cluster) each, still in one launch.  The body (cp.async ring, tensor-core
 // products for bf16, per-warp online softmax, merge across the cluster in
 // distributed shared memory) is attn_tile.cuh, shared with
 // paged_decode_attention.cu; only the slot -> cache row map is here.
@@ -49,9 +51,10 @@ __global__ void __launch_bounds__(attn::THREADS)
 decode_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const int* __restrict__ lengths, T* __restrict__ out, attn::Args a, int S) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.z;
+  // blockIdx.y is (kv head, row tile), the tile minor
+  const int b = blockIdx.z, tiles = attn::row_tiles(a.Tq * (a.H / a.KV));
   attn::flash_decode<T, HD>(q, k, v, lengths, out, a, ContigMap{(long long)b * S, S}, b,
-                            blockIdx.y, smem);
+                            blockIdx.y / tiles, (blockIdx.y % tiles) * attn::MAX_ROWS, smem);
 }
 
 template <typename T>

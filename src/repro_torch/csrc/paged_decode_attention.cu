@@ -10,7 +10,8 @@
 // unmapped (-1, clamped onto null page 0) pages and slots past the length.
 //
 // Here the C CTAs of one thread block cluster own one (lane, kv head) and
-// hold all Tq * G query rows, as decode_attention.cu does.  They split the
+// hold its Tq * G query rows (a row tile of up to 64 of them, the tiles of a
+// prefill chunk side by side on the grid), as decode_attention.cu does.  They split the
 // lane's first pc logical pages, slot by slot, between them (pc is the
 // optional page_counts[b] clipped to [1, MPS], by default
 // min(ceil(len/ps), MPS), the same page mask for every query of a block);
@@ -71,13 +72,16 @@ paged_decode_attn(const T* __restrict__ q, const T* __restrict__ kp, const T* __
                   const int* __restrict__ page_counts, T* __restrict__ out, attn::Args a,
                   int ps, int mps) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // blockIdx.y is (kv head, row tile), the tile minor
+  const int R = a.Tq * (a.H / a.KV), tiles = attn::row_tiles(R);
   const int b = blockIdx.z;
   const attn::Layout L =
-      attn::layout(a.Tq * (a.H / a.KV), a.hd, sizeof(T), a.bs, a.stages, a.splits, 0);
+      attn::layout(attn::tile_rows(R), a.hd, sizeof(T), a.bs, a.stages, a.splits, 0);
   const int pc = page_counts ? min(max(page_counts[b], 1), mps) : 0;
   const PagedMap map{tables + (size_t)b * mps, reinterpret_cast<int*>(smem + L.extra), 0, ps,
                      mps, mps * ps, pc};
-  attn::flash_decode<T, HD>(q, kp, vp, lengths, out, a, map, b, blockIdx.y, smem);
+  attn::flash_decode<T, HD>(q, kp, vp, lengths, out, a, map, b, blockIdx.y / tiles,
+                            (blockIdx.y % tiles) * attn::MAX_ROWS, smem);
 }
 
 template <typename T>

@@ -49,7 +49,8 @@ _ARGTYPES = {
 # csrc/vocab_tile.cuh): verify_argmax writes one partial per row and strip
 VOCAB_COLS = 128
 LORA_MAX_RANK = 512       # the main pass stages u's rows in shared memory
-ATTN_MAX_ROWS = 64        # Tq * G query rows one attention CTA holds
+ATTN_MAX_ROWS = 64        # query rows one attention CTA holds: a row tile
+ATTN_MAX_TQ = 128         # queries a call takes: a prefill chunk's bound (RING_SLACK)
 ATTN_MAX_HD = 256
 PAGED_MAX_PAGES = 8192    # block-table row of a paged attention call
 SSD_MAX_CHUNK = 128       # chunk rows one scan CTA stages: 8 tiles of 16
@@ -139,14 +140,21 @@ def _contig(**ts: torch.Tensor) -> None:
         _need(t.is_contiguous(), f"{n} must be contiguous")
 
 
-def _check_attn_shape(name: str, rows: int, hd: int, dtype: torch.dtype) -> None:
-    """What the attention kernels take: at most ATTN_MAX_ROWS query rows a
-    kv head, and hd up to ATTN_MAX_HD in whole mma k-steps (16) for bf16 or
-    16-byte float32 copies (4)."""
+def _check_attn_shape(name: str, Tq: int, hd: int, dtype: torch.dtype) -> None:
+    """What the attention kernels take: at most ATTN_MAX_TQ queries a lane
+    (their Tq * G rows a kv head cut into row tiles of ATTN_MAX_ROWS), and
+    hd up to ATTN_MAX_HD in whole mma k-steps (16) for bf16 or 16-byte
+    float32 copies (4)."""
     step = 16 if dtype == torch.bfloat16 else 4
-    _need(rows <= ATTN_MAX_ROWS and hd <= ATTN_MAX_HD and hd % step == 0,
-          f"{name}: needs Tq*G <= {ATTN_MAX_ROWS}, hd <= {ATTN_MAX_HD} and hd % {step} == 0 "
-          f"for {dtype}, got Tq*G={rows}, hd={hd}")
+    _need(Tq <= ATTN_MAX_TQ, f"{name}: needs Tq <= {ATTN_MAX_TQ}, got Tq={Tq}")
+    _need(hd <= ATTN_MAX_HD and hd % step == 0,
+          f"{name}: needs hd <= {ATTN_MAX_HD} and hd % {step} == 0 for {dtype}, got hd={hd}")
+
+
+def attn_row_tiles(rows: int) -> int:
+    """Row tiles of a call whose kv heads each hold `rows` = Tq * G query
+    rows: one CTA (or cluster) a tile, side by side on the grid."""
+    return -(-rows // ATTN_MAX_ROWS)
 
 
 def _aligned(name: str, **ts: torch.Tensor) -> None:
@@ -157,7 +165,8 @@ def _aligned(name: str, **ts: torch.Tensor) -> None:
 def attn_splits(capacity: int, pairs: int) -> int:
     """C, the CTAs of one cluster that share a (lane, kv head) of the
     attention kernels, from host integers alone: the lane's capacity (S, or
-    MPS * ps) and the number of (lane, kv head) pairs B * KV.  The host never
+    MPS * ps) and the number of (lane, kv head, row tile) triples B * KV *
+    ``attn_row_tiles(Tq * G)`` (B * KV pairs for a decode block).  The host never
     reads ``lengths``, so the choice costs no sync.  The largest C that keeps
     the grid within one CTA per SM and gives each CTA at least
     ATTN_SPLIT_SLOTS slots of capacity; non-decreasing in the capacity.  The
@@ -319,8 +328,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash-decode GQA over a contiguous cache, visiting only live slots.
 
     q (B, H, hd) attends slots j < lengths[b]; q (B, Tq, H, hd) is a block
-    whose query t attends j < lengths[b] - (Tq-1-t), with ``lengths`` the
-    cache length after the block's own write.  k/v (B, S, KV, hd);
+    (Tq <= ATTN_MAX_TQ: a speculative block or a prefill chunk) whose query t
+    attends j < lengths[b] - (Tq-1-t), with ``lengths`` the cache length
+    after the block's own write.  k/v (B, S, KV, hd);
     lengths (B,) int32.  Returns q's shape and dtype.  A query with no live
     slot is not defined (the kernel gives 0, the plain version a uniform
     average); the model path never has one."""
@@ -338,14 +348,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _need(lengths.dtype == torch.int32 and lengths.shape == (B,),
           "decode_attention: lengths must be (B,) int32")
     is_bf16 = _check_dtype(q.dtype)
-    _check_attn_shape("decode_attention", Tq * (H // KV), hd, q.dtype)
+    _check_attn_shape("decode_attention", Tq, hd, q.dtype)
     q4 = q4.contiguous() if single else q4
     _contig(q=q4, k=k, v=v, lengths=lengths)
     _aligned("decode_attention", q=q4, k=k, v=v)
     out = torch.empty_like(q4)
     _launch("decode_attention", q4.data_ptr(), k.data_ptr(), v.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd, S, 1.0 / math.sqrt(hd),
-            attn_splits(S, B * KV), is_bf16, _stream(q.device))
+            attn_splits(S, B * KV * attn_row_tiles(Tq * (H // KV))), is_bf16,
+            _stream(q.device))
     return out[:, 0] if single else out
 
 
@@ -391,7 +402,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
               "paged_decode_attention: page_counts must be (B,) int32")
         _contig(page_counts=page_counts)
     is_bf16 = _check_dtype(q.dtype)
-    _check_attn_shape("paged_decode_attention", Tq * (H // KV), hd, q.dtype)
+    _check_attn_shape("paged_decode_attention", Tq, hd, q.dtype)
     q4 = q4.contiguous() if single else q4
     _contig(q=q4, k_pages=k_pages, v_pages=v_pages, lengths=lengths,
             block_tables=block_tables)
@@ -400,7 +411,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     out = torch.empty_like(q4)
     _launch("paged_decode_attention", q4.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd,
-            ps, mps, 1.0 / math.sqrt(hd), attn_splits(mps * ps, B * KV), is_bf16,
+            ps, mps, 1.0 / math.sqrt(hd),
+            attn_splits(mps * ps, B * KV * attn_row_tiles(Tq * (H // KV))), is_bf16,
             page_counts.data_ptr() if page_counts is not None else None, _stream(q.device))
     return out[:, 0] if single else out
 

@@ -7,6 +7,7 @@ Mamba-2 stacks).
     logits = model.logits(params, h)          # frozen head
     logits, aux = model.forward_train(params, tokens)   # training (autograd)
     h, cache = model.prefill(params, tokens, max_len=...)
+    h, cache = model.prefill_chunk(params, chunk, cache, take)   # chunked prefill
     h, cache, cands = model.step(params, x_blk, cache, lo, hi)
     cache = model.commit(cache, cands, accept)
 
@@ -141,6 +142,32 @@ class Model:
             cache = self.init_cache(x.shape[0], max_len or (T + 512))
         h, contribs = self.hidden(params, x, collect=True)
         return h, tfm.fill_cache_from_full(self.cfg, cache, contribs, T)
+
+    def prefill_chunk(self, params, tokens, cache, take=None):
+        """Resume a chunked prefill: process `tokens` (B, T) at positions
+        ``cache["lengths"] .. +T-1`` against a partially built cache and
+        commit ``take`` (B,) of them per lane (default: all T).  It runs the
+        block-decode path over the whole stack, so it serves the contiguous
+        and the paged layout, and SSM segments carry their conv window and
+        state through it: a cache built by ``prefill`` of the first chunk
+        and ``prefill_chunk`` of the rest decodes the streams of one-shot
+        ``prefill``.
+
+        ``take < T`` gives ragged chunks a fixed shape: positions past
+        ``take`` are padding, whose eager K/V writes lie past the new
+        length and are rolled back by length masking like rejected
+        speculative tokens; ``take = 0`` leaves a lane as it was (a lane
+        riding along in a batched chunk step).  The cache's K/V, SSM states
+        and lengths change in place.  Returns (h, cache)."""
+        B, T = tokens.shape
+        take = (torch.full((B,), T, dtype=torch.int32, device=tokens.device) if take is None
+                else take.to(torch.int32))
+        x = self.embed_block(params, tokens)
+        h, cache, _ = tfm.forward_step(params["segments"], x, self.cfg, cache, 0,
+                                       self.cfg.num_layers, take=take)
+        new = tfm.commit_cache(self.cfg, cache, {}, take)
+        cache["lengths"].copy_(new["lengths"])
+        return h, cache
 
     def step(self, params, x, cache, lo: int = 0, hi: Optional[int] = None):
         """Block-decode layers [lo, hi) on an embedded block x (B, T, d).

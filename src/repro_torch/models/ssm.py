@@ -131,12 +131,19 @@ def _ssm_token(p: dict, x: torch.Tensor, conv_st: torch.Tensor, h: torch.Tensor,
     return x + yt @ p["out_proj"], win[:, 1:], hg.reshape(B_, H, hd, ds)
 
 
-def ssm_step(p: dict, x: torch.Tensor, cache: dict, s: SSMConfig, norm_eps: float):
+def ssm_step(p: dict, x: torch.Tensor, cache: dict, s: SSMConfig, norm_eps: float,
+             take=None):
     """Block decode: x (B,T,d) with T small (K+1 in the verify pass, 1 in a
     draft feed), against cache {"conv", "state"} of one layer, which is
     left untouched.  Returns (x + out, candidates) with candidates
     {"conv": (B,T,cw-1,conv_dim), "state": (B,T,H,hd,ds) f32}: the conv
     window and SSD state after each of the T tokens.
+
+    With `take` (B,) int (a prefill chunk, whose commit is known before the
+    block runs) it returns instead the one candidate the commit would
+    select, {"conv": (B,cw-1,conv_dim), "state": (B,H,hd,ds)}: the window
+    and state after token take-1, the cache's own where take == 0.  The
+    values are the same; the T candidates are never held at once.
 
     The whole block runs one token at a time (``_ssm_token``), its
     projections included, where the reference projects the T tokens in one
@@ -147,12 +154,20 @@ def ssm_step(p: dict, x: torch.Tensor, cache: dict, s: SSMConfig, norm_eps: floa
     token, the speculative stream equals the AR stream bit for bit."""
     A = -torch.exp(p["A_log"])
     conv_st, h = cache["conv"], cache["state"]
+    sel_conv, sel_h = conv_st, h
     outs, convs, hs = [], [], []
     for t in range(x.shape[1]):
         out, conv_st, h = _ssm_token(p, x[:, t:t + 1], conv_st, h, s, norm_eps, A)
         outs.append(out)
-        convs.append(conv_st)
-        hs.append(h)
+        if take is None:
+            convs.append(conv_st)
+            hs.append(h)
+        else:                            # token t is committed where t < take
+            kept = t < take
+            sel_conv = torch.where(kept[:, None, None], conv_st, sel_conv)
+            sel_h = torch.where(kept[:, None, None, None], h, sel_h)
+    if take is not None:
+        return torch.cat(outs, dim=1), {"conv": sel_conv, "state": sel_h}
     return (torch.cat(outs, dim=1),
             {"conv": torch.stack(convs, dim=1), "state": torch.stack(hs, dim=1)})
 

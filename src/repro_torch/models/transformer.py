@@ -321,21 +321,30 @@ def run_segment_full(sp, x, cfg: ModelConfig, seg: Segment, positions,
 
 
 def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
-                     tbl=None):
+                     tbl=None, take=None):
     """Returns (x, cands).  Attention segments write their K/V cache in
     place and have no candidates ({}); `tbl` is the block table (B, MPS)
     when the cache is paged (seg_cache then holds pooled "kp"/"vp" pages
     instead of per-lane "k"/"v").  SSM segments leave their state untouched
-    and return the candidates {"conv", "state"} stacked (n, B, T, ...)."""
+    and return the candidates {"conv", "state"} stacked (n, B, T, ...); with
+    `take` (B,), a prefill chunk's commit, they carry instead: each layer's
+    window and state after token take-1 (kept where take == 0) are written
+    in place and there are no candidates."""
     if seg.kind == "ssm":
         convs, states = [], []
         for i in range(seg.n):
             x, cand = ssm_mod.ssm_step(_layer(sp, i), x,
                                        {"conv": seg_cache["conv"][i],
                                         "state": seg_cache["state"][i]},
-                                       cfg.ssm, cfg.norm_eps)
+                                       cfg.ssm, cfg.norm_eps, take=take)
+            if take is not None:
+                seg_cache["conv"][i].copy_(cand["conv"])
+                seg_cache["state"][i].copy_(cand["state"])
+                continue
             convs.append(cand["conv"])
             states.append(cand["state"])
+        if take is not None:
+            return x, {}
         return x, {"conv": torch.stack(convs), "state": torch.stack(states)}
     if "kp" in seg_cache:
         for i in range(seg.n):
@@ -532,15 +541,19 @@ def forward_full(params_segs: dict, x: torch.Tensor, cfg: ModelConfig, lo: int,
 
 
 def forward_step(params_segs: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-                 lo: int, hi: int):
+                 lo: int, hi: int, take=None):
     """Run layers [lo, hi) on a T-token block against the cache.  Returns
     (x, cache, cands): the same cache, its K/V written in place, lengths and
     SSM states unchanged, and the SSM segments' candidates by segment name
-    (``commit_cache`` advances the lengths and selects the states)."""
+    (``commit_cache`` advances the lengths and selects the states).  With
+    `take` (B,), a commit known before the block runs (a prefill chunk),
+    SSM segments write the states at take-1 in place and return no
+    candidates (``run_segment_step``); ``commit_cache`` then only advances
+    the lengths."""
     cands = {}
     for seg in segments_in_range(cfg, lo, hi):
         x, cand = run_segment_step(params_segs[seg.name], x, cache["segs"][seg.name],
-                                   cache["lengths"], cfg, seg, cache.get("tbl"))
+                                   cache["lengths"], cfg, seg, cache.get("tbl"), take)
         if cand:
             cands[seg.name] = cand
     return x, cache, cands

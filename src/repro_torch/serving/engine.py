@@ -91,8 +91,28 @@ speculation depth, moved by the verifier's accept/reject stream:
   as the lane's ceiling ``k_cap``, so a rise never outruns its pages.
 
 Greedy streams do not depend on the depth, so the controller changes the
-work done, never the tokens.  Chunked prefill and the prefix cache are
-later slices and raise.
+work done, never the tokens.
+
+With ``prefill_chunk > 0`` (continuous scheduler only) prompt prefill is
+chunked and scheduled, so a long prompt does not stall every live lane for
+its whole prefill:
+
+* admission prefills only the first chunk, into a chunk-sized scratch
+  spliced into the reset lane (paged: pages for that chunk alone), and
+  parks the lane done-masked: it rides supersteps with its SSM state,
+  length and pending frozen;
+* every tick, one batched chunk step (``Model.prefill_chunk`` through the
+  runner's chunk step, one CUDA graph replay on the card) advances every
+  prefilling lane by up to ``prefill_chunk`` tokens in the live cache, so
+  a tick's prefill work is at most ``num_slots * prefill_chunk`` tokens;
+  the lanes that finish get their pending token on the device and decode
+  in the same tick's superstep;
+* paged lanes take their pages chunk by chunk (oldest first; a starved
+  prefill lane evicts only strictly newer lanes), and a mid-prefill lane
+  is preempted and cancelled like a decoding one;
+* greedy streams are those of one-shot prefill.
+
+The prefix cache is a later slice and raises.
 """
 from __future__ import annotations
 
@@ -150,6 +170,8 @@ class _Slot:
     wall_s: float = 0.0
     cache_len: int = 0            # committed cache length (paged growth)
     admit_seq: int = 0            # admission order (paged preemption picks max)
+    pf_prompt: Optional[np.ndarray] = None  # trimmed replay source (chunked)
+    pf_pos: Optional[int] = None  # prompt tokens prefilled; None = decoding
     handle: Optional[RequestHandle] = None
 
 
@@ -176,7 +198,7 @@ class ServingEngine:
     kv_page_size: int = 16        # tokens per page (paged mode)
     kv_watermark: int = 0         # pages kept free at admission (paged mode)
     prefix_cache: bool = False
-    prefill_chunk: int = 0
+    prefill_chunk: int = 0        # >0: prefill in chunks of this many tokens (continuous)
     adaptive_k: bool = False      # per-lane acceptance-driven depth (continuous)
     k_min: int = 1                # adaptive: depth floor
     k_max: int = 0                # adaptive: depth ceiling (0 = cfg.dvi.k_spec)
@@ -197,11 +219,15 @@ class ServingEngine:
         if not isinstance(self.state, online_mod.OnlineTrainerState):
             raise TypeError("the third argument is the drafter's OnlineTrainerState "
                             "(core.online.init_trainer)")
-        for name, on in (("prefill_chunk", self.prefill_chunk > 0),
-                         ("prefix_cache", self.prefix_cache)):
-            if on:
-                raise NotImplementedError(f"{name} is a later slice of the port "
-                                          f"(ROADMAP item 12)")
+        if self.prefill_chunk and self.scheduler != "continuous":
+            raise ValueError("chunked prefill requires scheduler='continuous'")
+        # a chunk step writes eager K/V past every lane's length (rolled back
+        # by length masking, like rejected speculative tokens), so the chunk
+        # is clamped to the slack the caches keep for such writes
+        self._chunk = min(max(0, int(self.prefill_chunk)), tfm.RING_SLACK)
+        if self.prefix_cache:
+            raise NotImplementedError("prefix_cache is a later slice of the port "
+                                      "(ROADMAP item 12)")
         # adaptive depth: the controller, and the worst-case depth that every
         # reservation (cache capacity, prompt trimming, admission, the
         # pre-admission reserve) assumes; growth uses the live depth
@@ -404,25 +430,29 @@ class ServingEngine:
                                 wall_s=wall0), "cancelled", t_done=now)
 
     def _cancel_lane(self, s: int) -> None:
-        """Retire live lane `s` on a cancel request, at a superstep boundary
-        only (no superstep in flight): free its pages, unmap its row, reset
-        the lane, and finish the handle with the committed-so-far stream.
+        """Retire live lane `s` (decoding or mid-prefill) on a cancel request,
+        at a superstep boundary only (no superstep in flight): free its
+        pages, unmap its row, reset the lane, and finish the handle with the
+        committed-so-far stream.
         Adds no host sync."""
         st = self._slots[s]
-        uid = st.uid
+        uid, mid_prefill = st.uid, st.pf_pos is not None
         if self.paged:
             self._pool.free(uid)
             self._tbl_host[s] = -1
         tfm.reset_slot(self.model.cfg, self._cache, s)
         self._slots[s] = None
         self._done[s] = True
+        self._preempted.pop(uid, None)
         self._submit_t.pop(uid, None)
         self.stats["cancelled"] += 1
         now = self.clock()
         tr = self.telem.tracer
         if tr is not None:
-            tr.instant(s, "cancel", now, args={"uid": uid, "gen_len": len(st.gen)})
-            tr.async_end("decode", uid, now, args={"cancelled": True})
+            tr.instant(s, "cancel", now, args={"uid": uid, "gen_len": len(st.gen),
+                                               "mid_prefill": mid_prefill})
+            tr.async_end("prefill" if mid_prefill else "decode", uid, now,
+                         args={"cancelled": True})
             tr.async_end("request", uid, now, args={"cancelled": True})
         h = self._handles.pop(uid, None)
         if h is not None:
@@ -687,13 +717,48 @@ class ServingEngine:
         that older lanes would claw back by preempting it."""
         reserve = 0
         for st in self._slots:
-            if st is None:
-                continue
+            if st is None or st.pf_pos is not None:   # mid-prefill: counted by
+                continue                              # _prefill_reserve
             remaining = st.max_new - len(st.gen)
             if remaining <= 0:
                 continue
             inflight_cap = st.cache_len + self._superstep_horizon(remaining)
             need = self._pages_needed(inflight_cap, remaining)
+            reserve += max(0, need - len(self._pool.owned(st.uid)))
+        return reserve + self._prefill_reserve()
+
+    def _first_chunk(self, prompt: np.ndarray) -> int:
+        """Prompt tokens prefilled at admission: the whole prompt less the
+        pending token when one-shot or when it fits one chunk, else one
+        chunk, the rest advanced tick by tick."""
+        n = len(prompt) - 1
+        return min(self._chunk, n) if self._chunk else n
+
+    def _prefill_extent(self, st: _Slot) -> tuple:
+        """(take, finishing, cache extent) of lane `st`'s next chunk.  A
+        finishing chunk also provisions the first superstep's horizon: the
+        lane decodes this tick on that provisioning alone, as after a
+        one-shot admission."""
+        rest = len(st.pf_prompt) - 1 - st.pf_pos
+        take = min(self._chunk, rest)
+        extent = st.pf_pos + take
+        finishing = take == rest
+        if finishing:
+            extent += self._superstep_horizon(st.max_new - len(st.gen)) + 1
+        return take, finishing, extent
+
+    def _prefill_reserve(self) -> int:
+        """Pages mid-prefill lanes claim for their next chunk (with the
+        finishing chunk's horizon).  Both admissions of a tick keep them
+        free: ``_advance_prefill`` takes them right after the second, and a
+        request admitted into them would be preempted by a senior prefill
+        lane the same tick."""
+        reserve = 0
+        for st in self._slots:
+            if st is None or st.pf_pos is None:
+                continue
+            _, _, extent = self._prefill_extent(st)
+            need = self._pool.pages_for(extent)
             reserve += max(0, need - len(self._pool.owned(st.uid)))
         return reserve
 
@@ -701,7 +766,10 @@ class ServingEngine:
         """Prefill-on-arrival: splice queued requests into free lanes.  Paged
         mode gates admission on the free-page watermark: the pool must cover
         the prompt plus the lane's first superstep.  `reserve`: pages kept
-        free on top of the watermark."""
+        free on top of the watermark.  With chunked prefill a prompt longer
+        than one chunk is prefilled only up to its first chunk (into a
+        chunk-sized scratch; paged: pages for that chunk alone) and its lane
+        stays done-masked until ``_advance_prefill`` finishes it."""
         cfg = self.model.cfg
         tr = self.telem.tracer
         while self._tq and not all(s is not None for s in self._slots):
@@ -718,10 +786,14 @@ class ServingEngine:
             max_new = min(req.max_new, self.max_new)
             gen_carry = len(self._preempted.get(req.uid, (None, ()))[1])
             prompt = self._trim_prompt(req, max_new - gen_carry)
-            c1 = len(prompt) - 1
+            c1 = self._first_chunk(prompt)
+            chunked = c1 < len(prompt) - 1   # the rest advances tick by tick
             self._ensure_runner()
             if self.paged:
-                need = self._pages_needed(c1, max_new - gen_carry)
+                # a mid-prefill lane holds pages for what it has cached; the
+                # rest comes chunk by chunk (_advance_prefill)
+                need = (self._pool.pages_for(c1) if chunked
+                        else self._pages_needed(c1, max_new - gen_carry))
                 if not self._pool.can_alloc(need, self.kv_watermark + reserve):
                     self.telem.c_watermark.inc()     # head-of-line wait for pages
                     if tr is not None:
@@ -740,8 +812,10 @@ class ServingEngine:
                 max_len = c1
             else:
                 self._tq.take(req)
-                max_len = self._cap
-            tokens = self._to_device(prompt)
+                max_len = c1 if chunked else self._cap   # chunked: chunk-sized scratch
+            # prompt[:c1] prefilled; prompt[c1] is the pending token (a
+            # placeholder when chunked: the finishing chunk step sets it)
+            tokens = self._to_device(prompt[:c1 + 1])
             _, pc = self.model.prefill(self.params, tokens[None, :-1], max_len=max_len)
             tfm.insert_slot(cfg, self._cache, pc, slot)
             self._pending[slot] = tokens[-1]
@@ -752,7 +826,9 @@ class ServingEngine:
                 seq0 = self._admit_seq
             self._slots[slot] = _Slot(uid=req.uid, prompt=orig_prompt, max_new=max_new,
                                       gen=list(gen0), blocks=blocks0, wall_s=wall0,
-                                      cache_len=c1, admit_seq=seq0, handle=hq)
+                                      cache_len=c1, admit_seq=seq0,
+                                      pf_prompt=prompt if chunked else None,
+                                      pf_pos=c1 if chunked else None, handle=hq)
             # a fresh controller state: a recycled lane must not inherit the
             # previous request's depth, nor a replay its pre-preemption EMA
             if self._depth is not None:
@@ -764,22 +840,25 @@ class ServingEngine:
                 if hq.t_admit is None:   # first admission only: a replay keeps
                     hq.t_admit = t_adm   # its original wait
                     self.telem.h_queue_wait.observe(t_adm - hq.t_submit)
-                if hq.t_prefill_done is None:
+                if not chunked and hq.t_prefill_done is None:
                     hq.t_prefill_done = t_adm
-            self._done[slot] = False
+            # a mid-prefill lane rides supersteps done-masked until its
+            # finishing chunk makes it live
+            self._done[slot] = chunked
             if tr is not None:
                 now = self.clock()
                 tr.span(slot, f"admit u{req.uid}", t_a0, now,
-                        args={"uid": req.uid, "prefilled": c1})
+                        args={"uid": req.uid, "chunked": chunked, "prefilled": c1})
                 tr.async_end("queued", req.uid, now)
-                tr.async_begin("prefill", req.uid, now, args={"slot": slot})
-                tr.async_end("prefill", req.uid, now)
-                tr.async_begin("decode", req.uid, now, args={"slot": slot})
+                tr.async_begin("prefill", req.uid, now, args={"slot": slot, "chunked": chunked})
+                if not chunked:          # one-shot: the lane decodes from this tick
+                    tr.async_end("prefill", req.uid, now)
+                    tr.async_begin("decode", req.uid, now, args={"slot": slot})
 
     def _preempt(self, slot: int) -> None:
-        """Evict lane `slot` mid-decode: free its pages, unmap its row, and
-        re-queue its progress (prompt + generated prefix) at the FRONT of
-        the queue.  Re-admission replays the prefix through prefill, so
+        """Evict lane `slot` mid-decode or mid-prefill: free its pages, unmap
+        its row, and re-queue its progress (prompt + generated prefix) at the
+        FRONT of the queue.  Re-admission replays the prefix through prefill, so
         greedy decoding continues where it stopped.  The victim keeps its
         admission seniority, so the oldest request always wins and two
         starved lanes cannot preempt each other forever."""
@@ -798,8 +877,10 @@ class ServingEngine:
         tr = self.telem.tracer
         if tr is not None:
             now = self.clock()
-            tr.instant(slot, "preempt", now, args={"uid": st.uid, "gen_len": len(st.gen)})
-            tr.async_end("decode", st.uid, now, args={"preempted": True})
+            tr.instant(slot, "preempt", now, args={"uid": st.uid, "gen_len": len(st.gen),
+                                                   "mid_prefill": st.pf_pos is not None})
+            tr.async_end("prefill" if st.pf_pos is not None else "decode", st.uid, now,
+                         args={"preempted": True})
             tr.async_begin("queued", st.uid, now, args={"replay": True})
         self._slots[slot] = None
         self._done[slot] = True
@@ -814,8 +895,8 @@ class ServingEngine:
         for s in sorted((i for i, st in enumerate(self._slots) if st is not None),
                         key=lambda i: self._slots[i].admit_seq):
             st = self._slots[s]
-            if st is None:               # preempted as a victim below
-                continue
+            if st is None or st.pf_pos is not None:
+                continue                 # preempted below, or grown by _advance_prefill
             remaining = st.max_new - len(st.gen)
             if remaining <= 0:           # retires at the next boundary
                 continue
@@ -844,6 +925,91 @@ class ServingEngine:
         self._tbl_host[s] = -1
         self._tbl_host[s, :len(owned)] = owned
 
+    def _advance_prefill(self) -> None:
+        """One batched chunk step: every mid-prefill lane advances by up to
+        ``prefill_chunk`` prompt tokens, directly in the live cache, through
+        the runner's chunk step (one graph replay on the card).  Lanes that
+        consume their last prompt token get their pending token set on the
+        device and decode in this tick's superstep.  Paged lanes get the
+        pages of their chunk right before it, oldest first; when the pool
+        runs dry a starved lane evicts only strictly newer lanes (else it
+        waits a tick).  A tick's prefill work is bounded: one chunk step of
+        at most ``num_slots * prefill_chunk`` tokens, however long the
+        prompts are."""
+        lanes = [s for s, st in enumerate(self._slots)
+                 if st is not None and st.pf_pos is not None]
+        if not lanes:
+            return
+        B, T = self.num_slots, self._chunk
+        tokens = np.zeros((B, T), np.int32)
+        take = np.zeros((B,), np.int32)
+        finish_tok = np.zeros((B,), np.int32)
+        finished = np.zeros((B,), bool)
+        dirty = False
+        for s in sorted(lanes, key=lambda i: self._slots[i].admit_seq):
+            st = self._slots[s]
+            if st is None:               # preempted as a victim below
+                continue
+            tk, fin, extent = self._prefill_extent(st)
+            if self.paged:
+                while True:
+                    got = self._pool.ensure(st.uid, self._pool.pages_for(extent))
+                    if got is not None:
+                        break
+                    # evicting a senior here would livelock: a mid-prefill
+                    # eviction loses all prefill progress, so two long
+                    # prefills on a tight pool would wipe each other at the
+                    # finish line.  Seniority is a total order, so the
+                    # oldest prefill lane can always clear its path, and
+                    # admission sizing makes it fit the pool alone.
+                    victims = [i for i, v in enumerate(self._slots)
+                               if v is not None and v.admit_seq > st.admit_seq]
+                    if not victims:
+                        break
+                    self._preempt(max(victims, key=lambda i: self._slots[i].admit_seq))
+                    dirty = True         # preemption unmapped a row
+                if got is None:
+                    continue             # starved: retry next tick
+                if got:
+                    self._sync_row(s, st.uid)
+                    dirty = True
+            tokens[s, :tk] = st.pf_prompt[st.pf_pos:st.pf_pos + tk]
+            take[s] = tk
+            if fin:
+                finished[s] = True
+                finish_tok[s] = st.pf_prompt[-1]
+        if dirty:                        # in place: the graphs read this table
+            graphs_mod.upload(self._cache["tbl"], self._tbl_host)
+        if not take.any() and not finished.any():
+            return
+        t_c0 = self.clock()
+        self._runner.prefill_chunk(tokens, take, finish_tok, finished)
+        t_c1 = self.clock()
+        tick_tokens = int(take.sum())
+        self.stats["prefill_chunks"] += 1
+        self.stats["prefill_tokens"] += tick_tokens
+        self.stats["max_tick_prefill_tokens"] = max(self.stats["max_tick_prefill_tokens"],
+                                                    tick_tokens)
+        tr = self.telem.tracer
+        for s in lanes:
+            st = self._slots[s]
+            if st is None or (not take[s] and not finished[s]):
+                continue
+            st.pf_pos += int(take[s])
+            st.cache_len += int(take[s])
+            if tr is not None:
+                tr.span(s, "prefill_chunk", t_c0, t_c1,
+                        args={"uid": st.uid, "tokens": int(take[s]), "pos": int(st.pf_pos)})
+            if finished[s]:
+                st.pf_pos = None
+                st.pf_prompt = None
+                self._done[s] = False
+                if st.handle is not None and st.handle.t_prefill_done is None:
+                    st.handle.t_prefill_done = t_c1
+                if tr is not None:
+                    tr.async_end("prefill", st.uid, t_c1)
+                    tr.async_begin("decode", st.uid, t_c1, args={"slot": s})
+
     def _dispatch_superstep(self) -> None:
         """Dispatch one superstep over the live lanes and return without
         waiting for it (``_harvest`` does, one tick later).  It runs the
@@ -861,13 +1027,14 @@ class ServingEngine:
         if self._depth is None:
             res = self._runner.dispatch(self._done, budget, steps)
         else:
-            # each live lane's ceiling is the depth growth provisioned for;
-            # the draft width K_blk is the largest of them (lanes are
-            # admitted only at boundaries, so this is exact)
+            # each decoding lane's ceiling is the depth growth provisioned
+            # for; the draft width K_blk is the largest of them (lanes are
+            # admitted, and finish their prefill, only before the dispatch,
+            # so this is exact)
             kcap = np.full((self.num_slots,), self._k_worst, np.int32)
             kblk = self._depth.k_min
             for s, st in enumerate(self._slots):
-                if st is not None:
+                if st is not None and st.pf_pos is None:
                     kcap[s] = self._lane_growth_k(s)
                     kblk = max(kblk, int(kcap[s]))
             res = self._runner.dispatch(
@@ -940,7 +1107,7 @@ class ServingEngine:
         k_seen: List[int] = []
         for s in lanes:                  # lanes admitted since the dispatch rode
             st = self._slots[s]          # along masked and carry no results
-            if st is None:
+            if st is None or st.pf_pos is not None:   # mid-prefill lanes too
                 continue
             nb = int(blocks_np[s])
             st.blocks += nb
@@ -1008,7 +1175,8 @@ class ServingEngine:
         """One tick: pre-admit arrivals into already-free lanes (queued behind
         the in-flight superstep), harvest it, honour cancels, grow paged
         lanes (preempting if the pool runs dry), admit into freshly freed
-        lanes, and dispatch the next superstep."""
+        lanes, advance mid-prefill lanes by one chunk, and dispatch the next
+        superstep over the decoding lanes."""
         self._tick_t0 = tick0 = self.clock()
         tr = self.telem.tracer
         tid_e = self.telem.tid_engine if tr is not None else 0
@@ -1023,6 +1191,8 @@ class ServingEngine:
                 tr.span(tid_e, name, p0, self.clock())
 
         try:
+            # the reserve holds the live lanes' growth and the mid-prefill
+            # lanes' next chunk (paged)
             _phase("pre_admit", self._admit_waiting,
                    self._growth_reserve() if self.paged else 0)
             # the harvest reads the last superstep's outputs, the runner's
@@ -1031,8 +1201,11 @@ class ServingEngine:
             _phase("sweep_cancels", self._sweep_cancels)
             if self.paged:               # grow BEFORE admitting: admission then
                 _phase("grow_pages", self._grow_pages)   # sees the true residue
-            _phase("admit", self._admit_waiting)
-            if self.active_slots:
+            _phase("admit", self._admit_waiting, self._prefill_reserve() if self.paged else 0)
+            # one bounded chunk step a tick, then the superstep over the
+            # decoding lanes (those whose prefill finished just now included)
+            _phase("prefill_chunk", self._advance_prefill)
+            if any(st is not None and st.pf_pos is None for st in self._slots):
                 _phase("dispatch", self._dispatch_superstep)
         finally:
             dt = self.clock() - self._tick_t0
@@ -1073,15 +1246,16 @@ class ServingEngine:
         self._runner = graphs_mod.SuperstepRunner(
             self.model, self.params, self.state.dvi_params, self._pending, self._cache,
             self.state.buf, sync_every=self.sync_every, eos_id=self.eos_id,
-            graphs=self.graphs, depth=self._depth)
+            graphs=self.graphs, depth=self._depth, chunk=self._chunk)
         return self._runner
 
     def warmup(self, buckets=None) -> None:
         """Make the block-step runner and capture its graphs now, ahead of
         the traffic (capturing synchronises with the device): the continuous
         engine's one graph (with adaptive depth, one per draft width in
-        [k_min, k_max]), or the sync engine's graph for a full batch of
-        each prompt bucket in `buckets` (default: all of ``self.buckets``)."""
+        [k_min, k_max]; with chunked prefill, the chunk step's too), or the
+        sync engine's graph for a full batch of each prompt bucket in
+        `buckets` (default: all of ``self.buckets``)."""
         runner = self._ensure_runner()
         if self.scheduler == "sync":
             for b in self.buckets if buckets is None else buckets:
@@ -1195,13 +1369,29 @@ class ServingEngine:
                 "p95_s": float(np.percentile(lats, 95)),
                 "mean_s": float(np.mean(lats)), "count": int(lats.size)}
 
+    def tick_percentiles(self) -> dict:
+        """Tick wall-time percentiles over the most recent ``latency_window``
+        ticks: the cadence jitter that chunked prefill bounds (a one-shot
+        prefill of a long prompt is one fat tick; chunking spreads it)."""
+        ts = np.asarray(self.stats["tick_s"], np.float64)
+        if ts.size == 0:
+            return {"p50_s": 0.0, "p95_s": 0.0, "max_s": 0.0, "count": 0}
+        return {"p50_s": float(np.percentile(ts, 50)),
+                "p95_s": float(np.percentile(ts, 95)),
+                "max_s": float(ts.max()), "count": int(ts.size)}
+
     def dispatch_stats(self) -> dict:
         """Host/device interplay on the continuous hot path: host syncs, the
-        host's time blocked on them, and the dispatches that covered the
-        executed block-steps (``steps``: blocks with a live lane)."""
+        host's time blocked on them, the dispatches that covered the
+        executed block-steps (``steps``: blocks with a live lane), and the
+        chunk steps of chunked prefill."""
         steps = max(self.stats["steps"], 1)
         return {"sync_every": self.sync_every, "steps": self.stats["steps"],
                 "dispatches": self.stats["dispatches"],
                 "host_syncs": self.stats["host_syncs"],
                 "host_syncs_per_100_blocks": 100.0 * self.stats["host_syncs"] / steps,
-                "host_wait_s": self.stats["sync_wait_s"]}
+                "host_wait_s": self.stats["sync_wait_s"],
+                "prefill_chunk": self._chunk,
+                "prefill_chunks": self.stats["prefill_chunks"],
+                "prefill_tokens": self.stats["prefill_tokens"],
+                "max_tick_prefill_tokens": self.stats["max_tick_prefill_tokens"]}

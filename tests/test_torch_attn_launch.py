@@ -102,13 +102,40 @@ def test_attention_head_dims_the_kernels_take(launched, dtype, hd, ok):
 
 
 def test_attention_rows_and_alignment(launched):
+    """Tq * G query rows past one CTA's 64 are cut into row tiles and still
+    launch once (80 rows: 5 queries x 16 heads; 256 rows: a chunk of 128
+    queries at G = 2); Tq past a prefill chunk's bound of 128 and K/V off
+    16 bytes are refused."""
     lens = torch.tensor([3, 4], dtype=torch.int32)
     k = torch.zeros(2, 10, 1, 32, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="Tq\\*G"):       # 5 queries x 16 heads > 64 rows
-        ops.decode_attention(torch.zeros(2, 5, 16, 32, dtype=torch.bfloat16), k, k, lens)
+    with pytest.raises(ValueError, match="Tq <= 128"):
+        ops.decode_attention(torch.zeros(2, 129, 1, 32, dtype=torch.bfloat16), k, k, lens)
     flat = torch.zeros(2 * 10 * 32 + 8, dtype=torch.bfloat16)
     shifted = flat[1:1 + 2 * 10 * 32].reshape(2, 10, 1, 32)     # 2 bytes past 16
     with pytest.raises(ValueError, match="16 bytes"):
         ops.decode_attention(torch.zeros(2, 4, 32, dtype=torch.bfloat16), shifted, shifted,
                              lens)
     assert launched == []
+    ops.decode_attention(torch.zeros(2, 5, 16, 32, dtype=torch.bfloat16), k, k, lens)
+    k2 = torch.zeros(2, 10, 4, 32, dtype=torch.bfloat16)
+    ops.decode_attention(torch.zeros(2, 128, 8, 32, dtype=torch.bfloat16), k2, k2, lens)
+    tbl = torch.tensor([[1, -1], [2, 3]], dtype=torch.int32)
+    pages = k2.reshape(4, 5, 4, 32)
+    ops.paged_decode_attention(torch.zeros(2, 128, 8, 32, dtype=torch.bfloat16), pages, pages,
+                               lens, tbl)
+    assert [name for name, _ in launched] == ["decode_attention"] * 2 + [
+        "paged_decode_attention"]
+    # B, Tq, H, KV: 80 rows in 2 tiles of one kv head, 256 rows in 4 tiles
+    # of each of 4 kv heads; C from the (lane, kv head, row tile) triples
+    assert launched[0][1][5:9] == (2, 5, 16, 1) and ops.attn_row_tiles(80) == 2
+    assert launched[1][1][5:9] == (2, 128, 8, 4) and ops.attn_row_tiles(256) == 4
+    assert launched[1][1][12] == ops.attn_splits(10, 2 * 4 * 4)
+    assert launched[2][1][6:10] == (2, 128, 8, 4)
+    assert launched[2][1][14] == ops.attn_splits(10, 2 * 4 * 4)
+
+
+@pytest.mark.parametrize("rows,tiles", [(1, 1), (64, 1), (65, 2), (128, 2), (129, 3),
+                                        (256, 4)])
+def test_row_tiles_cover_the_rows(rows, tiles):
+    assert ops.attn_row_tiles(rows) == tiles
+    assert (tiles - 1) * ops.ATTN_MAX_ROWS < rows <= tiles * ops.ATTN_MAX_ROWS

@@ -681,6 +681,36 @@ def test_graphed_paths_match_eager(ops, cell):
             assert stats_g["preemptions"] > 0 and eng_g.kv_stats()["used_pages"] == 0
 
 
+CHUNK_GRAPH_CELLS = {
+    "vicuna_paged_chunked": ("vicuna-7b", dict(GRAPH_CELLS["vicuna_paged"][1], prefill_chunk=4)),
+    "mamba2_chunked": ("mamba2-370m", dict(GRAPH_CELLS["mamba2_continuous"][1],
+                                           prefill_chunk=4)),
+}
+
+
+@pytest.mark.parametrize("cell", list(CHUNK_GRAPH_CELLS))
+def test_graphed_chunked_engine_matches_eager(ops, cell):
+    """Chunked prefill on the card, the chunk step replayed from its graph
+    against the eager chunk step: bit-identical streams, equal counts and
+    launches; the chunk graph replayed once a chunk step and holding one
+    attention launch a layer (vicuna; none on mamba2) and no vocab kernel."""
+    name, kw = CHUNK_GRAPH_CELLS[cell]
+    outs_e, stats_e, launches_e, eng_e = _graph_engine_run(name, kw, False, ops)
+    outs_g, stats_g, launches_g, eng_g = _graph_engine_run(name, kw, True, ops)
+    assert outs_g == outs_e and len(outs_g) == 7
+    assert stats_g == stats_e and launches_g == launches_e
+    for key in ("prefill_chunks", "prefill_tokens", "max_tick_prefill_tokens"):
+        assert eng_g.stats[key] == eng_e.stats[key] > 0, key
+    chunk = eng_g._runner.chunk_step
+    assert chunk.graph is not None and chunk.replays == eng_g.stats["prefill_chunks"]
+    L = eng_g.model.cfg.num_layers
+    want = {"decode_attention": 0, "paged_decode_attention": L if "paged" in cell else 0,
+            "verify_argmax": 0, "lora_logits": 0, "ssd_scan": 0}
+    assert chunk.counts["launches"] == want
+    if "paged" in cell:
+        assert eng_g.kv_stats()["used_pages"] == 0
+
+
 def test_replays_count_launches_as_the_profiler_sees_them(ops):
     """Under replay ops.launches counts what the captures recorded, once a
     replay; the profiler sees the graphs' kernels, as many of each."""
@@ -987,6 +1017,56 @@ def test_attention_at_adaptive_verify_widths(ops, dtype, Tq):
     test_decode_attention(ops, dtype, 8, Tq, 32, 32, 128, 294)
     for G, ps in ((1, 16), (4, 4)):
         test_paged_decode_attention(ops, dtype, Tq, G, ps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,G", [(32, 1), (128, 1), (64, 2)])
+@pytest.mark.parametrize("paged", [False, True])
+def test_attention_at_prefill_chunk_widths(ops, dtype, Tq, G, paged):
+    """A chunk step's block of Tq queries a lane, its Tq * G rows a kv head
+    cut into row tiles of 64 (1, 2 and 2 tiles; each lane split over C = 2
+    CTAs at this capacity): a lane mid-prefill, one at exactly Tq, a lane
+    riding along at a decode length below Tq (its first queries see
+    nothing), an idle lane and one at the capacity (paged: a -1 entry
+    mid-row, the idle lane all -1).  One launch; every query that sees a
+    slot matches the plain version, the others are exactly 0."""
+    from repro_torch.kernels import ref
+    B, KV, hd, ps = 5, 4, 64, 16
+    H = KV * G
+    mps = 19
+    cap = mps * ps
+    gen = torch.Generator(device="cuda").manual_seed(Tq * G + paged)
+    lens = np.array([Tq + 40, Tq, 20, 0, cap], np.int32)
+    q = _randn(gen, B, Tq, H, hd, dtype=dtype)
+    lens_t = torch.as_tensor(lens, device="cuda")
+    ops.reset_launches()
+    if paged:
+        rng = np.random.default_rng(Tq * G)
+        P = B * mps + 3
+        tbl = rng.permutation(np.arange(1, P))[:B * mps].reshape(B, mps).astype(np.int32)
+        tbl[0, 3] = -1
+        tbl[3] = -1
+        kp = _randn(gen, P, ps, KV, hd, dtype=dtype)
+        vp = _randn(gen, P, ps, KV, hd, dtype=dtype)
+        tbl_t = torch.as_tensor(tbl, device="cuda")
+        out = ops.paged_decode_attention(q, kp, vp, lens_t, tbl_t)
+        want = ref.paged_decode_attention(q, kp, vp, lens_t, tbl_t)
+        page = tbl[:, np.arange(cap) // ps]
+        visible = np.array([[bool(((page[b] >= 0) & (np.arange(cap) < min(int(n) - (Tq - 1 - t),
+                                                                              cap))).any())
+                             for t in range(Tq)] for b, n in enumerate(lens)])
+        name = "paged_decode_attention"
+    else:
+        k = _randn(gen, B, cap, KV, hd, dtype=dtype)
+        v = _randn(gen, B, cap, KV, hd, dtype=dtype)
+        out = ops.decode_attention(q, k, v, lens_t)
+        want = ref.decode_attention(q, k, v, lens_t)
+        visible = np.array([[min(int(n) - (Tq - 1 - t), cap) > 0 for t in range(Tq)]
+                            for n in lens])
+        name = "decode_attention"
+    assert ops.launches[name] == 1
+    assert ops.attn_splits(cap, B * KV * ops.attn_row_tiles(Tq * G)) == 2
+    _close_visible(out, want, visible, dtype)
 
 
 def test_adaptive_engine_replays_a_graph_per_draft_width(ops):

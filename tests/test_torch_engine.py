@@ -78,9 +78,16 @@ def test_later_slices_raise():
     params = model.init(torch.Generator().manual_seed(0))
     dvi = {"A": torch.zeros(cfg.d_model, 1), "B": torch.zeros(1, cfg.vocab_size)}
     state = tonline.init_trainer(model, dvi_params=dvi)
-    for kw in (dict(prefill_chunk=8), dict(prefix_cache=True)):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(model, params, state, scheduler="continuous", kv_pages=64, **kw)
+    with pytest.raises(NotImplementedError):
+        ServingEngine(model, params, state, scheduler="continuous", kv_pages=64,
+                      prefix_cache=True)
+    # chunked prefill is ported: the continuous scheduler takes it, the sync
+    # one refuses it as the reference does
+    with pytest.raises(ValueError, match="continuous"):
+        ServingEngine(model, params, state, prefill_chunk=8)
+    eng = ServingEngine(model, params, state, scheduler="continuous", kv_pages=64,
+                        prefill_chunk=8)
+    assert eng._chunk == 8 and eng.dispatch_stats()["prefill_chunk"] == 8
     # adaptive depth is ported: the continuous scheduler takes it, the sync
     # one refuses it as the reference does
     with pytest.raises(ValueError, match="continuous"):

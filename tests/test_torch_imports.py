@@ -1,6 +1,7 @@
 """The port's import rule, checked on the source: nothing under
 src/repro_torch/ (its data, training, checkpoint and launch packages
-included), not chip_smoke.py and not examples/torch_quickstart.py imports
+included), not chip_smoke.py, not examples/torch_quickstart.py and not
+the port's scripts (scripts/torch_*.py) imports
 JAX, the JAX package or ``ml_dtypes``, and chip_smoke.py and the quickstart
 need nothing beyond the standard library, torch, numpy and the port (the
 machine with the card has no JAX and no ``ml_dtypes``)."""
@@ -14,6 +15,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 SMOKE = ROOT / "chip_smoke.py"
 QUICKSTART = ROOT / "examples" / "torch_quickstart.py"
+# the port's scripts (scripts/torch_*.py), which run on the card too
+SCRIPTS = sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def _imported(path: pathlib.Path):
@@ -34,7 +37,7 @@ def test_port_has_modules():
             "checkpoint/ckpt.py", "launch/train.py"} <= names
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [SMOKE, QUICKSTART],
+@pytest.mark.parametrize("path", PORT_FILES + [SMOKE, QUICKSTART] + SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_no_reference_package(path):
     bad = _imported(path) & {"jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes"}

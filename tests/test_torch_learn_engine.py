@@ -261,3 +261,46 @@ def test_train_telemetry_and_prometheus_exposure(setup):
     assert eng.stats["requests"] == 0
     assert eng.metrics_snapshot()["dvi_serving_blocks_total"]["value"] == 0
     assert eng.train_telemetry()["history"] == []
+
+
+# learning together with adaptive depth (the reference's drift arm), plain
+# and with chunked prefill, over a paged pool
+ADAPTIVE_KW = dict(scheduler="continuous", num_slots=3, max_new=16, cache_len=40, kv_pages=40,
+                   kv_page_size=4, sync_every=2, update_every=2, adaptive_k=True)
+
+
+@pytest.mark.parametrize("chunk", [0, 5])
+def test_learning_adaptive_engine_matches_jax(setup, monkeypatch, chunk):
+    """``learn=True`` with ``adaptive_k=True`` (k_min 1, k_max K), samplers
+    pinned, against the JAX engine: equal completions, counters (the chunk
+    counters with ``prefill_chunk`` 5), update count and every update's
+    metrics, the drafter's A and B, and each lane's depth, acceptance EMA
+    and cooldown at the end."""
+    pin_samplers(monkeypatch)
+    kw = dict(ADAPTIVE_KW, prefill_chunk=chunk)
+    eng_j = JEngine(setup["model_j"], setup["params_j"], jax_state(setup), **kw)
+    eng_t = ServingEngine(setup["model_t"], setup["params_t"], port_state(setup), **kw)
+    assert eng_t.learn and eng_t.adaptive_k
+    rec_j, rec_t = record_updates(eng_j, True), record_updates(eng_t, False)
+    outs_t = serve(eng_t, setup["reqs"], Request)
+    assert outs_t == serve(eng_j, setup["reqs"], JRequest) and len(outs_t) == 7
+    for key in COUNTS + CONTINUOUS_COUNTS + ("preemptions", "prefill_chunks", "prefill_tokens",
+                                             "max_tick_prefill_tokens"):
+        assert eng_t.stats[key] == eng_j.stats[key], key
+    assert (eng_t.stats["prefill_chunks"] > 0) == (chunk > 0)
+    assert eng_t.stats["updates"] == len(rec_t) == len(rec_j) >= 3
+    for mt, mj in zip(rec_t, rec_j):
+        for key in ("loss", "kl", "acc_rate", "gnorm", "baseline_after"):
+            np.testing.assert_allclose(float(mt[key]), float(mj[key]), rtol=1e-4, atol=1e-6,
+                                       err_msg=key)
+        assert float(mt["buffer_count"]) == float(mj["buffer_count"])
+    for k in ("A", "B"):
+        diff = np.abs(eng_t.state.dvi_params[k].numpy() - np.asarray(eng_j.state.dvi_params[k]))
+        assert diff.max() <= AB_ATOL and np.quantile(diff, 0.999) <= AB_BULK_ATOL, k
+    np.testing.assert_array_equal(eng_t._k_host, eng_j._k_host)
+    np.testing.assert_array_equal(eng_t._cool_host, eng_j._cool_host)
+    np.testing.assert_allclose(eng_t._ema_host, eng_j._ema_host, rtol=0, atol=1e-6)
+    assert list(eng_t.stats["k_mean"]) == list(eng_j.stats["k_mean"])
+    assert eng_t.stats["drafted"] < 4 * eng_t.stats["blocks"]      # the depth moved
+    assert eng_t.kv_stats()["used_pages"] == 0 and eng_t.stats["host_syncs"] == eng_t.stats[
+        "dispatches"]
