@@ -5,8 +5,9 @@ batch-synchronous path and on the continuous-batching path over a paged KV
 pool, and mamba2-370m (attention-free, its prefill on the ``ssd_scan``
 kernel) through both schedulers; then the training path (mamba2-370m
 pretraining, vicuna-7b's teacher-forced DVI step, the quickstart),
-vicuna-7b's speculative sampling and per-lane adaptive depth, and chunked
-prefill on both models' continuous paths.
+vicuna-7b's speculative sampling and per-lane adaptive depth, chunked
+prefill on both models' continuous paths, and the prefix cache behind the
+HTTP front end and the launchers.
 
     python3 chip_smoke.py
 
@@ -181,6 +182,35 @@ Phases (any failure raises and exits non-zero):
    block-step, tokens/s, busy share, tick percentiles, the chunk graph's
    nodes and capture seconds, peak memory and the host ms a block-step per
    tick phase (``admit`` and ``pre_admit`` beside phase 8's);
+14. the prefix cache and the serving front end, after phase 13abd on its
+   vicuna-7b weights: (a) an engine with ``prefix_cache`` (8 lanes, 152
+   pages of 16, chunks of 32, supersteps of 4, learning on, the lifecycle
+   tracer and a profiler window of 2 dispatches) behind
+   ``serving.http.make_server`` on 127.0.0.1, its graphs captured on the
+   driver's thread before any traffic; a first request of its own, over
+   whose first 2 dispatches the profiler window runs, then, the counters
+   reset, 24 requests of 4 tenants (system prompts of 100 tokens, tails of
+   8-40, two exact repeats) streamed over SSE by
+   ``launch.load_gen.run_request`` in 3 waves of 8, one client leaving
+   mid-stream.  Gates: every SSE stream equal to the engine called
+   directly without the cache, or to AR or a near-tie of it (the count
+   equal reported); hits, copies on write and a wholly cached admission,
+   hits + misses == lookups, one prefill call a miss and none (and no
+   kernel launch) in a warm admission; the port's metrics schema gate; the
+   launch formula (phase 13's with 2 ``lora_logits`` an update), each
+   graph's kernel nodes == its capture's launches; 0 synchronising
+   operations in a dispatch, a chunk step, an update and a warm admission,
+   host syncs == dispatches; the departed client's lane cancelled, its
+   tokens a prefix of its stream, its tenant's system prompt still cached;
+   no page used at the end beyond the evictable cached ones; the profiler
+   window's trace written with its superstep ranges.  It reports TTFT and
+   e2e p50 / p95 (``load_gen.build_report``), warm and cold host ms an
+   admission, wall ms a block-step, tokens/s, the window's device ms and
+   busy share and the host seconds its close took, the prefix stats, ``replay()`` host ms and the tick phases
+   beside phase 13a's.  (b) ``python -m repro_torch.launch.serve`` with
+   the prefix cache, and ``launch.api_server`` driven by ``launch.load_gen
+   --verify-direct`` then sent SIGTERM, each in a process of its own on the
+   tiny vicuna-7b: exit 0, 0 mismatches, the drain line;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Phases 4, 8 and 9 run every path twice: eagerly (``graphs=False``) and
@@ -284,6 +314,22 @@ CHUNK_ATTN = ((32, 32, 32), (128, 32, 32), (64, 16, 8))      # (Tq, H, KV)
 # the chunk-built ones lie at most BF16_STATE_RATIO times as far from the
 # float32 one-shot ones as bf16 one-shot prefill's do
 F32_GAP_RTOL, F32_STATE_RTOL, BF16_STATE_RATIO = 1e-3, 1e-3, 4.0
+# the prefix cache behind the HTTP front end (phase 14a): 24 requests of 4
+# tenants in 3 waves of 8, each a tenant's system prompt of H_SYS tokens
+# (6 full pages of 16 and 4 tokens into a seventh) and a tail of its own;
+# the first request of each tenant has a tail of 8-11 tokens, so its prompt
+# ends inside the seventh page, which later requests copy on write; wave 3
+# opens with two exact repeats of wave-2 prompts (wholly cached), and one
+# client of wave 3 closes its socket after H_CANCEL_AFTER tokens; the
+# engine's profiler window spans H_PROFILE_STEPS dispatches
+H_TENANTS, H_SYS, H_WAVES, H_WAVE = 4, 100, 3, 8
+H_REPEATS = {16: 8, 17: 11}          # request -> the wave-2 request it repeats
+H_CANCEL, H_CANCEL_AFTER = 20, 8
+H_PROFILE_STEPS, H_TIMEOUT = 2, 600.0
+# phase 3's warm tails: a chunk step's lanes starting at these cached offsets
+WARM_STARTS = (96, 100, 101, 112, 117, 16, 64, 133)
+# the launchers (phase 14b) on the tiny vicuna-7b, in their own processes
+LAUNCH_TIMEOUT = 300.0
 
 
 def phase(n: int, msg: str) -> None:
@@ -983,6 +1029,11 @@ def kernels_phase(cfg, mcfg):
                                 label)
         chunk_cases[f"at_chunk_tq{Tq}" + ("" if Hc == KVc else f"_g{Hc // KVc}")] = (
             a_args, lens_c, p_args, plens_c, KVc)
+    # the prefix cache's warm tails (phase 14): a chunk step whose lanes
+    # start at a cached offset, on a page border (16 n) or inside a page
+    # copied on write (16 n + c)
+    check_paged(ops, ref, kgen, krng, B, P_CHUNK, H, KV, hd, C_PAGE, mps,
+                [w + P_CHUNK for w in WARM_STARTS], f"prefix-cache warm tails Tq={P_CHUNK}")
     # the mamba2 paths: the tied vocab (not a multiple of 64 columns) and the
     # scan at the prefill shapes of both schedulers
     md, mV, mK = mcfg.d_model, mcfg.vocab_size, mcfg.dvi.k_spec
@@ -1600,14 +1651,8 @@ def tick_phases(model, params, dvi, reqs, pages: int, n: int, label: str, **kw) 
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = max(eng.stats["steps"], 1)
-    tid = eng.telem.tid_engine
-    ms = {name: 0.0 for name in ("tick",) + TICK_PHASES}
-    admits = []
-    for ev in eng.trace_dict()["traceEvents"]:
-        if ev.get("ph") == "X" and ev.get("tid") == tid and ev["name"] in ms:
-            ms[ev["name"]] += ev["dur"] / 1e3 / steps
-        elif ev.get("ph") == "X" and str(ev.get("name", "")).startswith("admit u"):
-            admits.append(ev["dur"] / 1e3)
+    ms, admits = traced_ticks(eng)
+    admits = [dur for _, dur in admits]
     phase(n, f"{label}, graphed, traced again: wall {1e3 * wall / steps:.2f} ms a block-step "
              f"({steps} block-steps); host ms a block-step by tick phase: "
              + ", ".join(f"{name} {v:.2f}" for name, v in ms.items())
@@ -1617,6 +1662,26 @@ def tick_phases(model, params, dvi, reqs, pages: int, n: int, label: str, **kw) 
     del eng
     release({})
     return ms
+
+
+def traced_ticks(eng, since: float = None) -> tuple:
+    """From a traced engine's Chrome trace (the spans that start at engine
+    clock `since` or later, when given): host ms a block-step in each tick
+    phase (spans on the engine's track), and (uid, host ms) of each
+    admission (the lanes' ``admit u<uid>`` spans)."""
+    steps = max(eng.stats["steps"], 1)
+    tid = eng.telem.tid_engine
+    ms = {name: 0.0 for name in ("tick",) + TICK_PHASES}
+    admits = []
+    t0 = float("-inf") if since is None else eng.telem.tracer._ts(since)
+    for ev in eng.trace_dict()["traceEvents"]:
+        if ev.get("ts", t0) < t0:
+            continue
+        if ev.get("ph") == "X" and ev.get("tid") == tid and ev["name"] in ms:
+            ms[ev["name"]] += ev["dur"] / 1e3 / steps
+        elif ev.get("ph") == "X" and str(ev.get("name", "")).startswith("admit u"):
+            admits.append((int(ev["name"][len("admit u"):]), ev["dur"] / 1e3))
+    return ms, admits
 
 
 def continuous_run(model, params, dvi, reqs, graphs_on: bool, pages: int, n: int,
@@ -2459,6 +2524,416 @@ def report_chunked(label: str, r: dict, base: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the prefix cache behind the HTTP front end, and the launchers
+# ---------------------------------------------------------------------------
+
+def http_requests(cfg) -> list:
+    """Phase 14a's requests as ``load_gen.run_request`` records (see
+    H_TENANTS): 32 new tokens each, streamed."""
+    rng = np.random.RandomState(SEED + 14)
+    systems = [rng.randint(2, cfg.vocab_size, size=H_SYS) for _ in range(H_TENANTS)]
+    recs = []
+    for i in range(H_WAVES * H_WAVE):
+        if i in H_REPEATS:
+            prompt = list(recs[H_REPEATS[i]]["prompt"])
+        else:
+            n = 8 + i if i < H_TENANTS else int(rng.randint(8, 41))
+            prompt = [int(t) for t in np.concatenate(
+                [systems[i % H_TENANTS], rng.randint(2, cfg.vocab_size, size=n)])]
+        recs.append(dict(idx=i, prompt=prompt, max_new=MAX_NEW, tenant=f"tenant{i % H_TENANTS}",
+                         cancel_after=H_CANCEL_AFTER if i == H_CANCEL else None))
+    return recs
+
+
+def indexed_pages(pool, tokens) -> int:
+    """How many full pages of `tokens` the pool's prefix index still holds,
+    read without a lookup (which would count and retain)."""
+    ps, parent, n = pool.page_size, 0, 0
+    while (n + 1) * ps <= len(tokens):
+        page = pool._index.get((parent, tuple(int(t) for t in tokens[n * ps:(n + 1) * ps])))
+        if page is None:
+            break
+        parent, n = page, n + 1
+    return n
+
+
+def instrument_server(eng, model) -> dict:
+    """Gates the server's engine holds on its driver thread: every superstep
+    dispatch, chunk step, drafter update and warm admission runs under sync
+    debug mode "error" (the handler threads run no CUDA); each dispatch's
+    blocks are logged, each warm admission's uid, whether it was wholly
+    cached, and the prefill calls and port kernel launches it made, and the
+    host seconds the profiler window's close took."""
+    from repro_torch.kernels import ops
+    log = dict(iters=[], warm=[], prefills=count_prefills(model))
+
+    def strict(fn):
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    inner_dispatch, inner_warm = strict(eng._dispatch_superstep), strict(eng._admit_warm)
+    inner_finish = eng._profile_finish
+    log["window_close_s"] = []
+
+    def profile_finish():
+        closing = eng._profile is not None and eng._profile_left <= 0
+        t0 = time.perf_counter()
+        inner_finish()
+        if closing:
+            log["window_close_s"].append(time.perf_counter() - t0)
+
+    def dispatch():
+        inner_dispatch()
+        log["iters"].append(eng._inflight[0].iters)
+
+    def admit_warm(slot, uid, prompt, hit, need, live):
+        n0, l0 = log["prefills"][0], sum(ops.launches.values())
+        inner_warm(slot, uid, prompt, hit, need, live)
+        log["warm"].append(dict(uid=uid, live=live, cow=hit.cow_tokens > 0, tokens=hit.hit_tokens,
+                                prefills=log["prefills"][0] - n0,
+                                launches=sum(ops.launches.values()) - l0))
+
+    eng._dispatch_superstep, eng._admit_warm = dispatch, admit_warm
+    eng._profile_finish = profile_finish
+    eng._advance_prefill = strict(eng._advance_prefill)
+    eng._dispatch_update = strict(eng._dispatch_update)
+    return log
+
+
+def profile_window(prof_dir: str, blocks: int) -> dict:
+    """The engine's profiler window, read from the Chrome trace it wrote
+    (which must hold its superstep ranges): the device time some kernel ran
+    in it (``covered_ms``; the window's chunk steps and admissions
+    included), over the window's wall (its first superstep range to its
+    last event) and over the blocks its dispatches ran; None where the
+    trace holds no kernel."""
+    path = os.path.join(prof_dir, "superstep_trace.json")
+    check(os.path.exists(path), f"phase 14: the profiler window wrote no trace ({path})")
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    ranges = [e for e in evs if e.get("name") == "superstep" and e.get("ph") == "X"
+              and e.get("cat") != "gpu_user_annotation"]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in evs
+               if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    check(len(ranges) == H_PROFILE_STEPS,
+          f"phase 14: the profiler window holds {len(ranges)} superstep ranges (want "
+          f"{H_PROFILE_STEPS})")
+    start = min(e["ts"] for e in ranges)
+    end = max(e["ts"] + e.get("dur", 0) for e in evs if "ts" in e)
+    busy = covered_ms(kernels) if kernels else None
+    return dict(ranges=len(ranges), kernels=len(kernels), wall_ms=(end - start) / 1e3,
+                device_ms=None if busy is None else busy / max(blocks, 1),
+                busy=None if busy is None else busy / max((end - start) / 1e3, 1e-9))
+
+
+def profiler_warmup() -> None:
+    """Start and stop a profiler of the card once on the calling thread."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.zeros((1,), device=DEV).add_(1)
+        torch.cuda.synchronize()
+
+
+def send_waves(port: int, recs: list) -> float:
+    """Send the records wave by wave, the 8 of a wave at once, each streamed
+    over SSE by ``load_gen.run_request``; a wave starts when the last has
+    ended.  Returns the wall seconds."""
+    import threading
+
+    from repro_torch.launch import load_gen
+    t0 = time.perf_counter()
+    for w in range(H_WAVES):
+        threads = [threading.Thread(target=load_gen.run_request,
+                                    args=("127.0.0.1", port, r, H_TIMEOUT))
+                   for r in recs[w * H_WAVE:(w + 1) * H_WAVE]]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    return time.perf_counter() - t0
+
+
+def http_prefix_phase(cfg, model, params, dvi, t13: dict) -> dict:
+    """Phase 14a: vicuna-7b served through ``serving.http.make_server`` with
+    the prefix cache (8 lanes, 152 pages of 16, chunks of 32, supersteps of
+    4, learning on), its graphs captured on the driver's thread before any
+    traffic; a first request, whose first dispatches the profiler window
+    spans, then phase 14a's requests over SSE.  `t13` is phase 13a's
+    traced host ms by tick phase.  Returns the run's figures."""
+    import argparse
+    import shutil
+    import threading
+    import types
+
+    from repro_torch.core import spec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import load_gen
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.http import make_server
+    label = "HTTP, prefix cache"
+    recs = http_requests(cfg)
+    prof_dir = os.path.join(ROOT, "build", "phase14_profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    eng = ServingEngine(model, params, learn_state(model), scheduler="continuous",
+                        num_slots=C_SLOTS, max_new=MAX_NEW, kv_pages=C_PAGES_AMPLE,
+                        kv_page_size=C_PAGE, sync_every=C_SYNC, prefill_chunk=P_CHUNK,
+                        prefix_cache=True, learn=True, update_every=L_UPDATE_EVERY, lr=L_LR,
+                        mode=L_MODE, telemetry=True, profile_dir=prof_dir,
+                        profile_steps=H_PROFILE_STEPS)
+    srv = make_server("127.0.0.1", 0, eng, model_id="vicuna-7b", default_max_new=MAX_NEW,
+                      request_timeout_s=H_TIMEOUT)
+    t0 = time.perf_counter()
+    srv.driver.call(eng.warmup, timeout=H_TIMEOUT)
+    capture_s = time.perf_counter() - t0
+    # the profiler's first start on a thread initialises CUPTI there, seconds
+    # once (PR 22's first run: most of a 13 s run); pay it before the traffic
+    # so that the window's latencies are its steady cost
+    t0 = time.perf_counter()
+    srv.driver.call(profiler_warmup, timeout=H_TIMEOUT)
+    prof_init_s = time.perf_counter() - t0
+    log = instrument_server(eng, model)
+    th = threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.05}, daemon=True)
+    th.start()
+    try:
+        # one request of a tenant of its own first: the profiler window
+        # spans its first dispatches, so that the window's close (the
+        # profiler's stop and its trace export, in a harvest) does not
+        # stall the timed waves; then the counters start afresh
+        rng = np.random.RandomState(SEED + 15)
+        first = dict(idx=-1, prompt=[int(t) for t in rng.randint(2, cfg.vocab_size, size=64)],
+                     max_new=MAX_NEW, tenant="warmup", cancel_after=None)
+        load_gen.run_request("127.0.0.1", srv.server_address[1], first, H_TIMEOUT)
+        while srv.driver.call(lambda: eng.busy):
+            time.sleep(0.05)
+        check(first["outcome"] == "completed" and log["window_close_s"],
+              f"{label}: the first request did not complete ({first.get('error')}) or the "
+              f"profiler window did not close")
+        win = profile_window(prof_dir, sum(log["iters"][:H_PROFILE_STEPS]))
+        srv.driver.call(eng.reset_stats)
+        since = srv.driver.call(eng.clock)
+        log.update(iters=[], warm=[])
+        log["prefills"][0] = 0
+        reset_counts()
+        g0 = eng.graph_stats()
+        wall = send_waves(srv.server_address[1], recs)
+        deadline = time.monotonic() + H_TIMEOUT
+        while srv.driver.call(lambda: eng.busy) and time.monotonic() < deadline:
+            time.sleep(0.05)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.driver.stop(drain=True)
+        th.join(timeout=30.0)
+        del model.prefill                # the class's method again
+    check(srv.driver.crashed is None, f"{label}: the engine's thread crashed: "
+                                      f"{srv.driver.crashed!r}")
+    torch.cuda.synchronize()
+    st, kv, g = eng.stats, eng.kv_stats(), eng.graph_stats()
+    launches = dict(ops.launches)
+    check_fast_loader(ops, 14, label)
+    by_out = {o: [r for r in recs if r["outcome"] == o] for o in
+              ("completed", "cancelled", "rejected", "error")}
+    phase(14, f"{label}: {len(recs)} requests in {H_WAVES} waves of {H_WAVE} over SSE in "
+              f"{wall:.3f} s (graphs captured on the driver's thread in {capture_s:.2f} s and the "
+              f"profiler started there once in {prof_init_s:.2f} s, before the server took "
+              f"traffic): "
+              + ", ".join(f"{len(v)} {o}" for o, v in by_out.items())
+              + f"; errors {[r.get('error') for r in by_out['error']][:3]}")
+    check(len(by_out["completed"]) == len(recs) - 1 and len(by_out["cancelled"]) == 1
+          and recs[H_CANCEL]["outcome"] == "cancelled",
+          f"{label}: every request but the one whose client left must complete")
+
+    # the prefix cache's counters, and the warm admissions themselves
+    prefix = {k: st[k] for k in ("prefix_lookups", "prefix_hits", "prefix_misses",
+                                 "prefix_hit_tokens", "prefix_cow_copies", "prefix_evictions")}
+    warm = log["warm"]
+    full = [w for w in warm if w["live"]]
+    phase(14, f"{label}: prefix stats {prefix}; {len(warm)} warm admissions ({len(full)} wholly "
+              f"cached, {sum(w['cow'] for w in warm)} copied a page on write), each spliced "
+              f"{sorted({w['tokens'] for w in warm})} cached tokens; prefill calls and port "
+              f"kernel launches inside them {sorted({(w['prefills'], w['launches']) for w in warm})}; "
+              f"{log['prefills'][0]} prefill calls in the run")
+    check(prefix["prefix_hits"] > 0 and prefix["prefix_cow_copies"] > 0 and full
+          and prefix["prefix_hits"] + prefix["prefix_misses"] == prefix["prefix_lookups"],
+          f"{label}: no hit, no copy on write, no wholly cached admission, or counters that "
+          f"do not reconcile")
+    check(all(w["prefills"] == 0 and w["launches"] == 0 for w in warm),
+          f"{label}: a warm admission ran a prefill or launched a kernel")
+    check(len(warm) == prefix["prefix_hits"] and log["prefills"][0] == prefix["prefix_misses"],
+          f"{label}: admissions and lookups disagree (no admission waited at the watermark "
+          f"on this ample pool)")
+    schema_gate(eng, 14, label)
+
+    # the launch formula, the graphs, syncs, the pool at the end
+    blocks = sum(log["iters"])
+    want = chunked_want(cfg, blocks, st["prefill_chunks"], updates=st["updates"])
+    phase(14, f"{label}: {st['dispatches']} dispatches ({blocks} blocks run), {st['host_syncs']} "
+              f"host syncs, {st['prefill_chunks']} chunk steps of {st['prefill_tokens']} prompt "
+              f"tokens, {st['updates']} updates, {st['cancelled']} cancelled; launches "
+              f"{launches}; expected {want}")
+    check(launches == want, f"{label}: the launches disagree with the formula")
+    check(st["host_syncs"] == st["dispatches"] and st["cancelled"] == 1,
+          f"{label}: host syncs != dispatches, or the cancel was not honoured")
+    check_census(14, label, g)
+    phase(14, f"{label}: at the end {kv['used_pages']} pages used, {kv['cached_pages']} cached "
+              f"(evictable), {kv['free_pages']} free of {kv['num_pages']}, lanes left "
+              f"{eng.active_slots}, indexed pages {kv['indexed_pages']}")
+    check(kv["used_pages"] == 0 and eng.active_slots == 0
+          and kv["free_pages"] + kv["cached_pages"] == kv["num_pages"],
+          f"{label}: pages beyond the evictable cached ones, or lanes, left in use")
+    cut = recs[H_CANCEL]
+    kept = indexed_pages(eng._pool, cut["prompt"][:H_SYS])
+    phase(14, f"{label}: the client of request {H_CANCEL} left after {len(cut['tokens'])} "
+              f"tokens; its tenant's system prompt still holds {kept} indexed pages")
+    check(kept == H_SYS // C_PAGE, f"{label}: the cancelled lane's shared pages left the cache")
+
+    # the streams: each == the engine called directly without the cache, or AR
+    direct = continuous_engine(model, params, dvi, C_PAGES_AMPLE, True, prefill_chunk=P_CHUNK)
+    for r in recs:
+        direct.submit_request(Request(uid=r["idx"], prompt=np.asarray(r["prompt"], np.int32),
+                                      max_new=r["max_new"]))
+    d_streams = streams(direct.run())
+    del direct
+    release({})
+    equal = [r["idx"] for r in by_out["completed"] if r["tokens"] == d_streams[r["idx"]]]
+    others = [r for r in by_out["completed"] if r["idx"] not in equal]
+    ar_memo = {}
+    as_req = {r["idx"]: Request(uid=r["idx"], prompt=np.asarray(r["prompt"], np.int32),
+                                max_new=r["max_new"]) for r in recs}
+    prefix_ok = (cut["tokens"] == d_streams[H_CANCEL][:len(cut["tokens"])]
+                 or cut["tokens"] == capped(ar_alone(model, params, spec, as_req[H_CANCEL],
+                                                    ar_memo), MAX_NEW)[:len(cut["tokens"])])
+    phase(14, f"{label}: {len(equal)} of {len(by_out['completed'])} SSE streams equal the "
+              f"engine called directly without the prefix cache; the cancelled stream is an "
+              f"exact prefix of it (or of AR alone): {prefix_ok}")
+    check(prefix_ok, f"{label}: the cancelled request's tokens are no prefix of its stream")
+    if others:
+        check_against_ar(model, params, spec, [as_req[r["idx"]] for r in others],
+                         [types.SimpleNamespace(uid=r["idx"], gen_tokens=np.asarray(r["tokens"]))
+                          for r in others], f"{label}, SSE streams unlike the direct ones",
+                         n_phase=14, alone=True, ar_memo=ar_memo)
+
+    # reported: latency, host and device figures
+    ns = argparse.Namespace(requests=len(recs), rate=0.0, arrivals="waves",
+                            tenants=",".join(f"tenant{i}:1" for i in range(H_TENANTS)),
+                            cancel_fraction=1 / len(recs), slo_ttft=2.0, slo_e2e=30.0,
+                            workload_seed=SEED + 14, smoke=False)
+    rep = load_gen.build_report(ns, recs, wall)
+    ticks, admits = traced_ticks(eng, since)
+    warm_uids = {w["uid"] for w in warm}
+    warm_ms = [ms for uid, ms in admits if uid in warm_uids]
+    cold_ms = [ms for uid, ms in admits if uid not in warm_uids]
+    steps = max(st["steps"], 1)
+    replays = g["replays"] - g0["replays"]
+    step = eng._runner.chunk_step
+    phase(14, f"{label}: TTFT p50 {1e3 * rep['ttft']['p50_s']:.1f} / p95 "
+              f"{1e3 * rep['ttft']['p95_s']:.1f} ms, e2e p50 {1e3 * rep['e2e']['p50_s']:.1f} / p95 "
+              f"{1e3 * rep['e2e']['p95_s']:.1f} ms (load_gen.build_report over "
+              f"{rep['ttft']['count']} completed); wall {1e3 * wall / steps:.2f} ms a block-step "
+              f"({st['steps']} block-steps), {st['committed'] / wall:.1f} committed tokens/s; "
+              f"profiler window of {win['ranges']} dispatches (the first request alone, one "
+              f"lane; its close held the engine {log['window_close_s'][0]:.2f} s in a harvest): "
+              f"{win['kernels']} kernels, "
+              + ("device not measured (no kernel in the trace)" if win["busy"] is None else
+                 f"device {win['device_ms']:.2f} ms a block-step (its chunk steps and admissions "
+                 f"included), busy {100 * win['busy']:.1f}% of its {win['wall_ms']:.1f} ms"))
+    phase(14, f"{label}: host ms an admission: warm {np.mean(warm_ms) if warm_ms else 0.0:.2f} "
+              f"({len(warm_ms)}), cold {np.mean(cold_ms) if cold_ms else 0.0:.2f} "
+              f"({len(cold_ms)}); replay() "
+              f"{1e3 * (g['replay_host_s'] - g0['replay_host_s']) / max(replays, 1):.2f} host ms "
+              f"a replay ({replays} replays, the chunk step's "
+              f"{1e3 * step.replay_host_s / max(step.replays, 1):.2f}); host ms a block-step by "
+              f"tick phase under the server: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in ticks.items())
+              + "; phase 13a's: " + ", ".join(f"{k} {t13[k]:.2f}" for k in ticks))
+    return dict(launches=launches, prefix=prefix, report=rep, equal=len(equal),
+                completed=len(by_out["completed"]), warm_ms=warm_ms, cold_ms=cold_ms,
+                ticks=ticks, window=win, wall=wall, steps=st["steps"])
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def launchers_phase() -> dict:
+    """Phase 14b: the launchers on the card, each in a process of its own on
+    the tiny vicuna-7b (float32): ``launch.serve`` with the prefix cache;
+    ``launch.api_server`` driven by ``launch.load_gen --verify-direct``
+    (PYTHONHASHSEED pinned on both sides), then SIGTERM.  Each must exit 0,
+    the streams equal the direct engine's, and the server print its drain
+    line.  Returns the wall seconds of each."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), PYTHONHASHSEED="0")
+    # the launchers' own default is the card; a rehearsal on the CPU names it
+    spec_args = ["--tiny", "--pretrain-steps", "20"] + ([] if DEV == "cuda" else ["--device", DEV])
+    out = {}
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *spec_args,
+                          "--scheduler", "continuous", "--kv-pages", "64", "--prefill-chunk",
+                          "16", "--prefix-cache", "--requests", "16"],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=LAUNCH_TIMEOUT)
+    out["serve"] = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        phase(14, f"serve: {line}")
+    check(run.returncode == 0 and "[serve] prefix cache: hits=" in run.stdout,
+          f"launch.serve exited {run.returncode}: {run.stderr[-2000:]}")
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    log_path = os.path.join(ROOT, "build", "api_server.log")
+    report = os.path.join(ROOT, "build", "load_gen.json")
+    port = free_port()
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        srv = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.api_server", *spec_args,
+                                "--port", str(port)], env=env, cwd=ROOT, stdout=log,
+                               stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + LAUNCH_TIMEOUT
+        while time.monotonic() < deadline and srv.poll() is None:
+            with open(log_path) as f:
+                if "[api] serving on" in f.read():
+                    break
+            time.sleep(0.2)
+        check(srv.poll() is None, f"api_server exited early: {open(log_path).read()[-2000:]}")
+        gen = subprocess.run([sys.executable, "-m", "repro_torch.launch.load_gen", *spec_args,
+                              "--port", str(port), "--requests", "8", "--verify-direct",
+                              "--json", report], env=env, cwd=ROOT, capture_output=True,
+                             text=True, timeout=LAUNCH_TIMEOUT)
+        for line in gen.stdout.splitlines():
+            phase(14, f"load_gen: {line}")
+        check(gen.returncode == 0, f"load_gen exited {gen.returncode}: {gen.stderr[-2000:]}")
+        with open(report) as f:
+            verify = json.load(f)["verify"]
+        check(verify["checked"] == 8 and verify["mismatches"] == 0,
+              f"load_gen --verify-direct: {verify}")
+        srv.send_signal(signal.SIGTERM)
+        rc = srv.wait(timeout=LAUNCH_TIMEOUT)
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.wait()
+    out["api_server"] = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    for line in text.splitlines():
+        phase(14, f"api_server: {line}")
+    check(rc == 0 and "[api] drained; exit 0" in text, f"api_server exited {rc} after SIGTERM")
+    phase(14, f"launchers: serve {out['serve']:.1f} s, api_server with load_gen "
+              f"{out['api_server']:.1f} s, each exited 0; verify-direct {verify['checked']} "
+              f"streams, {verify['mismatches']} mismatches")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: mamba2-370m through both schedulers
 # ---------------------------------------------------------------------------
 
@@ -3147,6 +3622,13 @@ def main() -> int:
     report_chunked("chunked graphed, learning, adaptive", ch["learn_adaptive"], base=c_frozen)
     marks["13abd"] = time.perf_counter() - t_start
 
+    # ---- phase 14: the prefix cache behind the HTTP front end, on the same weights ----
+    release({})
+    h14 = http_prefix_phase(cfg, model, params, dvi, ch["graphed"]["ticks_host"])
+    release({})
+    launchers_phase()
+    marks["14"] = time.perf_counter() - t_start
+
     # ---- phase 9: mamba2-370m through both schedulers ----
     del model, params, dvi
     release({})                        # engines in reference cycles hold the weights
@@ -3178,7 +3660,9 @@ def main() -> int:
                    # phase 13: chunked prefill (graphed)
                    "chunked": ch["graphed"]["launches"].get(name, 0),
                    "chunked_learn_adaptive": ch["learn_adaptive"]["launches"].get(name, 0),
-                   "mamba2_chunked": m_chunk["launches"].get(name, 0)}
+                   "mamba2_chunked": m_chunk["launches"].get(name, 0),
+                   # phase 14a: the prefix cache behind the HTTP front end (graphed)
+                   "http_prefix": h14["launches"].get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["launches_eager_by_path"] = {

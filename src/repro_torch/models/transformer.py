@@ -38,14 +38,15 @@ Two cache layouts (``forward_step`` reads which from the cache):
   the host (``serving.kv_pool.KVPool``).
 
 Continuous batching edits one lane of a live cache in place:
-``insert_slot`` splices a prefilled lane in, ``reset_slot`` empties one,
-``map_slot_pages``/``set_block_tables`` edit the block table.  All of it
-runs on PyTorch's current stream, so it is ordered after any step still
-running on the device.
+``insert_slot`` splices a prefilled lane in (or, with ``src=None``, the
+prefix cache's shared pages through the table alone), ``reset_slot``
+empties one, ``map_slot_pages``/``set_block_tables`` edit the block table
+and ``copy_page`` copies one page on write.  All of it runs on PyTorch's
+current stream, so it is ordered after any step still running on the
+device.
 
 Not ported yet (they raise ``NotImplementedError``): MoE, MLA, RG-LRU,
-local/ring caches, cross-attention, ``kv_quant``, the prefix cache's
-table-only splice (``insert_slot(src=None)``, ``copy_page``).
+local/ring caches, cross-attention, ``kv_quant``.
 """
 from __future__ import annotations
 
@@ -432,8 +433,25 @@ def _insert_paged_seg(seg_c: dict, src_c: dict, tbl: torch.Tensor, slot: int,
         flat[:, phys[0]] = src[:, src_slot].to(pooled.dtype)
 
 
+def copy_page(cache: dict, src_page: int, dst_page: int) -> dict:
+    """Copy on write, in place: physical page `src_page`'s K/V onto page
+    `dst_page` in every layer of every paged segment, one indexed copy a
+    leaf.  Prefix-cache admission uses it when a cached prefix ends
+    mid-page: the partly matching page is copied into the lane's first
+    own page, and the lane then appends through its own table without
+    touching the shared original.  Slots past the matched prefix carry the
+    donor's K/V, overwritten by the lane's tail before any read."""
+    for seg_c in cache["segs"].values():
+        if "kp" not in seg_c:
+            continue
+        for key in ("kp", "vp"):
+            leaf = seg_c[key]
+            leaf[:, dst_page].copy_(leaf[:, src_page])
+    return cache
+
+
 def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
-                src_slot: int = 0) -> dict:
+                src_slot: int = 0, shared_len=None) -> dict:
     """Continuous-batching cache surgery, in place: copy lane `src_slot` of
     `src` (a freshly prefilled B = 1 contiguous cache, which may be sized to
     the prompt alone) into lane `slot` of the live cache, and set its
@@ -441,11 +459,26 @@ def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
     paged segments scatter it through the slot's block-table row (map the
     pages with ``map_slot_pages`` first); SSM segments copy the lane's
     constant-size conv window and state whole.  The destination lane must
-    have been reset.  ``src=None``, the prefix cache's table-only splice, is
-    not ported yet."""
+    have been reset.
+
+    ``src=None`` is the prefix cache's table-only splice: the lane's first
+    `shared_len` tokens already live in shared pages that
+    ``map_slot_pages`` put in its row, so only the lane's length is set
+    (in place; `shared_len` an int or a 0-d tensor) and no K/V moves.
+    Only a paged cache of attention segments qualifies: other segments
+    hold per-lane state that content cannot share."""
     if src is None:
-        raise NotImplementedError("insert_slot(src=None), the prefix cache's table "
-                                  "splice, is a later slice of the port")
+        if shared_len is None:
+            raise ValueError("insert_slot(src=None) needs shared_len")
+        if "tbl" not in cache or any("kp" not in c for c in cache["segs"].values()):
+            raise NotImplementedError(
+                "table-splice admission (src=None) requires a pure paged "
+                "full-attention cache: per-lane segment state cannot be "
+                "prefix-shared")
+        # fill_ on a view: item assignment of a Python number would stage it
+        # through a host tensor and block the host on the copy
+        cache["lengths"][slot].fill_(shared_len)
+        return cache
     tbl = cache.get("tbl")
     for name, seg_c in cache["segs"].items():
         src_c = src["segs"][name]

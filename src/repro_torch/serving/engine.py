@@ -112,11 +112,35 @@ its whole prefill:
   is preempted and cancelled like a decoding one;
 * greedy streams are those of one-shot prefill.
 
-The prefix cache is a later slice and raises.
+With ``prefix_cache=True`` (a paged pool, ``prefill_chunk > 0`` and a stack
+of attention segments only) page-aligned prompt prefixes are shared by
+content (``serving.kv_pool``'s refcounts, content index and LRU eviction):
+
+* admission looks the prompt (less its pending token) up in the pool's
+  index; a hit maps the cached pages into the lane's table row, copies a
+  partly matched page on write into the lane's first own page
+  (``transformer.copy_page``) and sets the lane's length to the cached
+  tokens (``insert_slot(src=None, shared_len=warm)``): no prefill runs and
+  no shared K/V moves.  The uncached tail rides the chunk step from
+  position ``warm``; a fully cached prompt gets its pending token at once
+  and decodes in the same tick;
+* a lane's prompt prefix is published once its whole prompt is in the
+  cache (after a one-shot cold admission, or its finishing chunk);
+* retirement, cancellation and preemption free through the refcounts, so
+  shared and published pages stay cached, evictable oldest first;
+* every write (the copy, the table row, the length, the pending token)
+  is in place: the graphs hold their addresses.
+
+``submit`` (deprecated), ``abort_pending``, ``write_trace`` and
+``slot_acceptance`` complete the reference's engine surface;
+``profile_dir`` opens a ``torch.profiler`` window over the first
+``profile_steps`` dispatches and writes its Chrome trace there.
 """
 from __future__ import annotations
 
+import os
 import time
+import warnings
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -197,7 +221,7 @@ class ServingEngine:
     kv_pages: int = 0             # >0: paged KV pool with this many pages
     kv_page_size: int = 16        # tokens per page (paged mode)
     kv_watermark: int = 0         # pages kept free at admission (paged mode)
-    prefix_cache: bool = False
+    prefix_cache: bool = False    # paged: share page-aligned prompt prefixes
     prefill_chunk: int = 0        # >0: prefill in chunks of this many tokens (continuous)
     adaptive_k: bool = False      # per-lane acceptance-driven depth (continuous)
     k_min: int = 1                # adaptive: depth floor
@@ -206,6 +230,8 @@ class ServingEngine:
     clock: Callable[[], float] = time.monotonic
     telemetry: bool = False       # lifecycle tracer on (metrics always on)
     trace_limit: int = 200_000
+    profile_dir: Optional[str] = None  # torch.profiler trace directory (optional)
+    profile_steps: int = 32       # dispatches inside the profiler window
     max_queue: int = 0            # admission queue bound (0 = unbounded)
     tenant_weights: Optional[Dict[str, float]] = None
     graphs: bool = True           # replay a CUDA graph a block-step on the card
@@ -225,9 +251,6 @@ class ServingEngine:
         # by length masking, like rejected speculative tokens), so the chunk
         # is clamped to the slack the caches keep for such writes
         self._chunk = min(max(0, int(self.prefill_chunk)), tfm.RING_SLACK)
-        if self.prefix_cache:
-            raise NotImplementedError("prefix_cache is a later slice of the port "
-                                      "(ROADMAP item 12)")
         # adaptive depth: the controller, and the worst-case depth that every
         # reservation (cache capacity, prompt trimming, admission, the
         # pre-admission reserve) assumes; growth uses the live depth
@@ -312,6 +335,23 @@ class ServingEngine:
                     f"kv_pages={self.kv_pages} minus watermark={self.kv_watermark} "
                     f"cannot hold one worst-case request ({self._mps} pages of "
                     f"{self.kv_page_size}): admission would livelock")
+        # the prefix cache shares pages (the paged pool), prefills uncached
+        # tails at an offset inside the live cache (the chunk step: a
+        # scratch prefill encodes positions from 0) and needs every segment
+        # to be attention (SSM state is per lane, not shareable by content)
+        if self.prefix_cache:
+            if not self.paged:
+                raise ValueError("prefix_cache requires a paged KV pool (kv_pages > 0)")
+            if self._chunk <= 0:
+                raise ValueError("prefix_cache requires prefill_chunk > 0: uncached "
+                                 "prompt tails ride the chunked-prefill path")
+            bad = [s.kind for s in tfm.model_segments(cfg) if s.kind != "attn"]
+            if bad:
+                raise ValueError(f"prefix_cache requires a pure full-attention stack; "
+                                 f"got segment kinds {bad}")
+        self._evict_seen = 0          # the pool's evictions folded into the stats
+        self._profile = None          # the open torch.profiler window
+        self._profile_left = 0
 
     # ------------------------------------------------------------------
     # submission
@@ -356,6 +396,15 @@ class ServingEngine:
         if self.scheduler == "continuous":
             self.telem.g_queue.set(len(self._tq))
         return h
+
+    def submit(self, req: Request) -> RequestHandle:
+        """Deprecated submission, the surface before handles: a thin shim
+        over ``submit_request`` with the same committed stream."""
+        warnings.warn(
+            "ServingEngine.submit(Request) is deprecated; use "
+            "submit_request(Request) -> RequestHandle (deltas/result/"
+            "cancel)", DeprecationWarning, stacklevel=2)
+        return self.submit_request(req)
 
     def _pad(self, req: Request, bucket: int) -> np.ndarray:
         p = req.prompt[-bucket:]
@@ -479,6 +528,14 @@ class ServingEngine:
             s = in_slot.get(uid)
             if s is not None:
                 self._cancel_lane(s)
+
+    def abort_pending(self, reason: str) -> None:
+        """Fail every unfinished handle (the engine's thread died, or a
+        stop without drain): every blocked consumer wakes with outcome
+        "error".  The engine's device state is not touched."""
+        for h in list(self._handles.values()):
+            h.abort(reason)
+        self._handles.clear()
 
     # ------------------------------------------------------------------
     # drafter updates (the Improve loop)
@@ -789,36 +846,65 @@ class ServingEngine:
             c1 = self._first_chunk(prompt)
             chunked = c1 < len(prompt) - 1   # the rest advances tick by tick
             self._ensure_runner()
-            if self.paged:
-                # a mid-prefill lane holds pages for what it has cached; the
-                # rest comes chunk by chunk (_advance_prefill)
-                need = (self._pool.pages_for(c1) if chunked
-                        else self._pages_needed(c1, max_new - gen_carry))
-                if not self._pool.can_alloc(need, self.kv_watermark + reserve):
-                    self.telem.c_watermark.inc()     # head-of-line wait for pages
-                    if tr is not None:
-                        tr.instant(self.telem.tid_engine, "pool_watermark",
-                                   args={"uid": req.uid, "need": need,
-                                         "free": self._pool.free_pages,
-                                         "reserve": reserve})
+            hit = None
+            if self.prefix_cache:
+                # the longest cached prefix of the prompt (its pending token
+                # is never cached), counted a lookup: an admission the
+                # watermark holds back and retries next tick counts again
+                hit = self._pool.acquire_prefix(req.uid, prompt[:-1])
+                self.stats["prefix_lookups"] += 1
+                if hit.hit_tokens > 0:
+                    self.stats["prefix_hits"] += 1
+                    self.stats["prefix_hit_tokens"] += hit.hit_tokens
+                else:
+                    self.stats["prefix_misses"] += 1
+            if hit is not None and hit.hit_tokens > 0:
+                # warm admission: the cached tokens are resident (shared full
+                # pages and a partial page copied on write); the tail rides
+                # the chunk step from position `warm`
+                warm = hit.hit_tokens
+                tail = len(prompt) - 1 - warm
+                need = (self._pool.pages_for(warm + min(self._chunk, tail)) if tail > 0
+                        else self._pages_needed(len(prompt) - 1, max_new - gen_carry))
+                if not self._pool.can_alloc(need - len(hit.pages),
+                                            self.kv_watermark + reserve):
+                    if hit.pages:            # give the shared pages back
+                        self._pool.free(req.uid)
+                    self._watermark_wait(req.uid, need, reserve)
                     break
                 self._tq.take(req)
-                pages = self._pool.alloc(need, owner=req.uid)
-                row = np.full(self._mps, -1, np.int32)
-                row[:len(pages)] = pages
-                self._tbl_host[slot] = row
-                tfm.map_slot_pages(self._cache, slot, self._to_device(row))
-                # prompt-sized scratch: the splice through the table lands it
-                max_len = c1
+                self._admit_warm(slot, req.uid, prompt, hit, need, live=tail == 0)
+                c1, chunked = warm, tail > 0
             else:
-                self._tq.take(req)
-                max_len = c1 if chunked else self._cap   # chunked: chunk-sized scratch
-            # prompt[:c1] prefilled; prompt[c1] is the pending token (a
-            # placeholder when chunked: the finishing chunk step sets it)
-            tokens = self._to_device(prompt[:c1 + 1])
-            _, pc = self.model.prefill(self.params, tokens[None, :-1], max_len=max_len)
-            tfm.insert_slot(cfg, self._cache, pc, slot)
-            self._pending[slot] = tokens[-1]
+                if self.paged:
+                    # a mid-prefill lane holds pages for what it has cached;
+                    # the rest comes chunk by chunk (_advance_prefill)
+                    need = (self._pool.pages_for(c1) if chunked
+                            else self._pages_needed(c1, max_new - gen_carry))
+                    if not self._pool.can_alloc(need, self.kv_watermark + reserve):
+                        self._watermark_wait(req.uid, need, reserve)
+                        break
+                    self._tq.take(req)
+                    pages = self._pool.alloc(need, owner=req.uid)
+                    row = np.full(self._mps, -1, np.int32)
+                    row[:len(pages)] = pages
+                    self._tbl_host[slot] = row
+                    tfm.map_slot_pages(self._cache, slot, self._to_device(row))
+                    # prompt-sized scratch: the splice through the table lands it
+                    max_len = c1
+                else:
+                    self._tq.take(req)
+                    max_len = c1 if chunked else self._cap   # chunked: chunk-sized scratch
+                # prompt[:c1] prefilled; prompt[c1] is the pending token (a
+                # placeholder when chunked: the finishing chunk step sets it)
+                tokens = self._to_device(prompt[:c1 + 1])
+                _, pc = self.model.prefill(self.params, tokens[None, :-1], max_len=max_len)
+                tfm.insert_slot(cfg, self._cache, pc, slot)
+                self._pending[slot] = tokens[-1]
+                # a one-shot cold admission cached the whole prompt prefix:
+                # publish it for the next request that shares it
+                if self.prefix_cache and not chunked:
+                    self._pool.publish_prefix(req.uid, prompt[:-1])
             orig_prompt, gen0, blocks0, wall0, seq0 = self._preempted.pop(
                 req.uid, (prompt, [], 0, 0.0, None))
             if seq0 is None:             # fresh request; replays keep their
@@ -854,6 +940,36 @@ class ServingEngine:
                 if not chunked:          # one-shot: the lane decodes from this tick
                     tr.async_end("prefill", req.uid, now)
                     tr.async_begin("decode", req.uid, now, args={"slot": slot})
+
+    def _watermark_wait(self, uid: int, need: int, reserve: int) -> None:
+        """An admission held back at the head of the queue: the pool cannot
+        grant its pages above the watermark and the reserve."""
+        self.telem.c_watermark.inc()
+        tr = self.telem.tracer
+        if tr is not None:
+            tr.instant(self.telem.tid_engine, "pool_watermark",
+                       args={"uid": uid, "need": need, "free": self._pool.available_pages,
+                             "reserve": reserve})
+
+    def _admit_warm(self, slot: int, uid: int, prompt: np.ndarray, hit, need: int,
+                    live: bool) -> None:
+        """Splice a prefix-cache hit into lane `slot`, in place and without a
+        prefill: fresh pages up to `need`, the partly matched page copied on
+        write into the first of them, the table row (cached pages first)
+        mapped, and the lane's length set to the cached tokens.  `live` (a
+        fully cached prompt): the pending token is written now, the lane
+        decodes this tick, and its prefix is published (idempotent: pages
+        already indexed are skipped)."""
+        fresh = self._pool.ensure(uid, need) or []
+        if hit.cow_tokens:
+            tfm.copy_page(self._cache, hit.cow_page, fresh[0])
+            self.stats["prefix_cow_copies"] += 1
+        self._sync_row(slot, uid)
+        tfm.map_slot_pages(self._cache, slot, self._to_device(self._tbl_host[slot]))
+        tfm.insert_slot(self.model.cfg, self._cache, None, slot, shared_len=hit.hit_tokens)
+        if live:
+            graphs_mod.upload(self._pending[slot:slot + 1], prompt[-1:])
+            self._pool.publish_prefix(uid, prompt[:-1])
 
     def _preempt(self, slot: int) -> None:
         """Evict lane `slot` mid-decode or mid-prefill: free its pages, unmap
@@ -1001,6 +1117,10 @@ class ServingEngine:
                 tr.span(s, "prefill_chunk", t_c0, t_c1,
                         args={"uid": st.uid, "tokens": int(take[s]), "pos": int(st.pf_pos)})
             if finished[s]:
+                # the whole prompt prefix is in the cache now: make it
+                # hittable for the next request that shares it
+                if self.prefix_cache:
+                    self._pool.publish_prefix(st.uid, st.pf_prompt[:-1])
                 st.pf_pos = None
                 st.pf_prompt = None
                 self._done[s] = False
@@ -1009,6 +1129,47 @@ class ServingEngine:
                 if tr is not None:
                     tr.async_end("prefill", st.uid, t_c1)
                     tr.async_begin("decode", st.uid, t_c1, args={"slot": s})
+
+    def _profile_start(self):
+        """The optional ``torch.profiler`` window (``profile_dir``): opened
+        at the first dispatch, one ``record_function("superstep")`` range a
+        dispatch, closed after ``profile_steps`` dispatches, at the harvest
+        of the last (``_profile_finish``: stopping the profiler synchronises
+        the device, which the harvest does anyway and a dispatch never
+        may).  Best effort: a profiler failure never takes serving down.
+        Returns the range to enter, or None."""
+        if self.profile_dir and self._profile is None:
+            try:
+                from torch.profiler import ProfilerActivity, profile
+                acts = [ProfilerActivity.CPU]
+                if self.model.device.type == "cuda":
+                    acts.append(ProfilerActivity.CUDA)
+                prof = profile(activities=acts)
+                prof.start()
+                self._profile = prof
+                self._profile_left = max(1, int(self.profile_steps))
+            except Exception:
+                self.profile_dir = None
+        if self._profile is None:
+            return None
+        try:
+            return torch.profiler.record_function("superstep")
+        except Exception:
+            return None
+
+    def _profile_finish(self) -> None:
+        """After the window's last dispatch has been harvested: stop the
+        profiler and write its Chrome trace into ``profile_dir``."""
+        if self._profile is None or self._profile_left > 0:
+            return
+        prof, self._profile = self._profile, None
+        try:
+            prof.stop()
+            os.makedirs(self.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(self.profile_dir, "superstep_trace.json"))
+        except Exception:
+            pass
+        self.profile_dir = None          # the window is spent: never reopened
 
     def _dispatch_superstep(self) -> None:
         """Dispatch one superstep over the live lanes and return without
@@ -1024,6 +1185,9 @@ class ServingEngine:
         # buffer in place; every later device op of the engine is queued
         # behind the superstep on the same stream
         graphs_mod.check_drafter(self.state.dvi_params, self._runner.drafter)
+        rng = self._profile_start()
+        if rng is not None:
+            rng.__enter__()
         if self._depth is None:
             res = self._runner.dispatch(self._done, budget, steps)
         else:
@@ -1040,6 +1204,10 @@ class ServingEngine:
             res = self._runner.dispatch(
                 self._done, budget, steps, k_blk=kblk,
                 depth_state=(self._k_host, self._ema_host, self._cool_host, kcap))
+        if rng is not None:
+            rng.__exit__(None, None, None)
+        if self._profile is not None:
+            self._profile_left -= 1
         lanes = [s for s, st in enumerate(self._slots) if st is not None]
         now = self.clock()
         mark = self._clock + (now - self._tick_t0)
@@ -1079,6 +1247,7 @@ class ServingEngine:
         t0 = self.clock()
         flat = torch.cat(parts).cpu().numpy()
         now = self.clock()
+        self._profile_finish()
         (done_np, cnt_np, blocks_np, committed_np, accepted_np, drafted_np, k_np, ema_np,
          cool_np, ahist_np, dhist_np, count_np, train_np, gen_np) = np.split(
             flat, np.cumsum([B] * 9 + [nh, nh, 1, n_train]))
@@ -1219,6 +1388,10 @@ class ServingEngine:
                 t.g_kv_used.set(self._pool.used_pages)
                 t.g_kv_free.set(self._pool.available_pages)
                 t.g_kv_cached.set(self._pool.cached_pages)
+                ev = self._pool.evictions
+                if ev != self._evict_seen:
+                    self.stats["prefix_evictions"] += ev - self._evict_seen
+                    self._evict_seen = ev
             if tr is not None:
                 tr.span(tid_e, "tick", tick0, tick0 + dt,
                         args={"live": self.active_slots, "queued": len(self._tq)})
@@ -1348,6 +1521,18 @@ class ServingEngine:
         """The Chrome-trace dict (``telemetry=True`` runs only)."""
         tr = self.telem.tracer
         return tr.to_dict() if tr is not None else None
+
+    def write_trace(self, path: str) -> None:
+        tr = self.telem.tracer
+        if tr is None:
+            raise ValueError("tracing is off — construct the engine with "
+                             "telemetry=True to record a trace")
+        tr.write(path)
+
+    @property
+    def slot_acceptance(self) -> np.ndarray:
+        """(num_slots,) lifetime acceptance rate per lane."""
+        return self._slot_accepted / np.maximum(self._slot_drafted, 1)
 
     def kv_stats(self) -> dict:
         """Paged-pool observability: utilization and fragmentation, plus

@@ -389,10 +389,10 @@ def test_chunked_prefill_refusals(pairs):
     state = tonline.init_trainer(s["model_t"], dvi_params=s["dvi_t"])
     with pytest.raises(ValueError, match="continuous"):
         ServingEngine(s["model_t"], s["params_t"], state, scheduler="sync", prefill_chunk=4)
-    with pytest.raises(NotImplementedError, match="prefix_cache"):
+    # the prefix cache rides the chunked path: it refuses an engine without it
+    with pytest.raises(ValueError, match="prefill_chunk"):
         ServingEngine(s["model_t"], s["params_t"], state, scheduler="continuous",
-                      kv_pages=40, kv_page_size=PS, cache_len=64, prefill_chunk=4,
-                      prefix_cache=True)
+                      kv_pages=40, kv_page_size=PS, cache_len=64, prefix_cache=True)
     eng = ServingEngine(s["model_t"], s["params_t"], state, scheduler="continuous",
                         prefill_chunk=1000)
     assert eng._chunk == tfm.RING_SLACK

@@ -78,7 +78,9 @@ def test_later_slices_raise():
     params = model.init(torch.Generator().manual_seed(0))
     dvi = {"A": torch.zeros(cfg.d_model, 1), "B": torch.zeros(1, cfg.vocab_size)}
     state = tonline.init_trainer(model, dvi_params=dvi)
-    with pytest.raises(NotImplementedError):
+    # the prefix cache is ported: without chunked prefill it refuses, as the
+    # reference does (tests/test_torch_prefix_cache.py holds the rest)
+    with pytest.raises(ValueError, match="prefill_chunk"):
         ServingEngine(model, params, state, scheduler="continuous", kv_pages=64,
                       prefix_cache=True)
     # chunked prefill is ported: the continuous scheduler takes it, the sync

@@ -34,7 +34,8 @@ def test_port_has_modules():
     assert len(PORT_FILES) >= 15 and SMOKE.exists() and QUICKSTART.exists()
     names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
     assert {"data/synthetic.py", "data/sharegpt.py", "training/pretrain.py",
-            "checkpoint/ckpt.py", "launch/train.py"} <= names
+            "checkpoint/ckpt.py", "launch/train.py", "serving/config.py", "serving/http.py",
+            "launch/serve.py", "launch/api_server.py", "launch/load_gen.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [SMOKE, QUICKSTART] + SCRIPTS,

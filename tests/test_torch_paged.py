@@ -364,6 +364,8 @@ def test_contiguous_insert_and_reset_match_jax(pair):
 
 
 def test_prefix_splice_is_a_later_slice(pair):
+    """The table-only splice is ported (tests/test_torch_prefix_cache.py);
+    like the reference's it refuses a call without ``shared_len``."""
     cfg_t = pair[3]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="shared_len"):
         tfm.insert_slot(cfg_t, {}, None, 0)
