@@ -6,8 +6,9 @@ pool, and mamba2-370m (attention-free, its prefill on the ``ssd_scan``
 kernel) through both schedulers; then the training path (mamba2-370m
 pretraining, vicuna-7b's teacher-forced DVI step, the quickstart),
 vicuna-7b's speculative sampling and per-lane adaptive depth, chunked
-prefill on both models' continuous paths, and the prefix cache behind the
-HTTP front end and the launchers.
+prefill on both models' continuous paths, the prefix cache behind the
+HTTP front end and the launchers, and the paper's baselines (Medusa-lite on
+vicuna-7b, two-model SpS on the qwen3 pair) with qwen2.5-14b's DVI.
 
     python3 chip_smoke.py
 
@@ -61,7 +62,11 @@ Phases (any failure raises and exits non-zero):
    chunked prefill (phase 13), both attention kernels at a chunk step's Tq
    32 and 128 (vicuna's G = 1; 1 and 2 row tiles of 64 query rows) and Tq
    64 at G = 2 (qwen3-0.6b's 16 heads over 8 kv heads; 2 row tiles), each
-   checked and timed with its bound and SDPA's time;
+   checked and timed with its bound and SDPA's time; for phase 15,
+   ``verify_argmax`` at the qwen3 pair's heads (d 1024 and 2048, V 151936)
+   and qwen2.5-14b's (d 5120, V 152064) at T 8 and 40, ``lora_logits`` at
+   qwen2.5-14b's draft head (T 8), and ``decode_attention`` at qwen3's G 2
+   (Tq 1, 4, 5) and qwen2.5-14b's G 5 (Tq 1, 5), each checked and timed;
 4. the sync path: vicuna-7b at full width and depth in bf16, random weights
    drawn on the card from a seed, a sync ``ServingEngine`` (drafter frozen,
    ``learn=False``, as in phases 8 and 9) answering 8
@@ -211,6 +216,25 @@ Phases (any failure raises and exits non-zero):
    the prefix cache, and ``launch.api_server`` driven by ``launch.load_gen
    --verify-direct`` then sent SIGTERM, each in a process of its own on the
    tiny vicuna-7b: exit 0, 0 mismatches, the drain line;
+15. the paper's baselines: (c, after phase 14 on its vicuna-7b weights)
+   Medusa-lite, 3 heads trained 8 steps of 8 x 256 synthetic tokens (drawn
+   under PYTHONHASHSEED 0) with gates: finite losses, the heads changed, the
+   backbone's bits unchanged; (a) two-model SpS, qwen3-0.6b drafting for
+   qwen3-1.7b (bf16, weights from the seed, K 4); (b) qwen3-0.6b drafting
+   for itself (the d_K clamp); each on phase 12a's 8 prompts padded to 128
+   (32 new tokens) through its runner (``graphs.TwoModelRunner``,
+   ``graphs.MedusaRunner``), eagerly and graphed, with gates: graphed ==
+   eager bit for bit, every lane equal to the target's ``ar_generate`` or
+   a bf16 near-tie, launches exact (SpS 28 K + 28 ``decode_attention`` and
+   K + 1 ``verify_argmax`` a block; Medusa 2 x 32 and 2), each graph's
+   kernel nodes == its capture's launches, 0 synchronising operations in a
+   block-step (sync debug mode "error"), Medusa's MAT >= 1.9; (d)
+   qwen2.5-14b at full width (48 layers, d 5120, ``qkv_bias``) serving the
+   same prompts through the sync engine, graphed (DVI, split 2), with
+   gates: lossless by the near-tie rule, launches exact (56 / 5 / 1 a
+   block), nodes == launches, the profile's gate.  It reports each mode's
+   wall and device ms a block-step, tokens/s, MAT, acceptance, graph
+   nodes, ``replay()`` host ms and peak memory;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Phases 4, 8 and 9 run every path twice: eagerly (``graphs=False``) and
@@ -220,8 +244,8 @@ gate above holds on both, each graph's kernel nodes (counted through
 libcuda) must equal the launches its capture recorded, and one line per
 mode gives the wall and device time per block-step, tokens/s, the busy
 share, host launches, captures, nodes, the graph pool and peak memory
-(phase 9's eager runs are not profiled again, to keep the script within
-its time limit: no device time or busy share for them).
+(the eager runs of phases 4, 8, 9 and 15 are not profiled again, to keep
+the script within its time limit: no device time or busy share for them).
 The graphed continuous paths are traced once more for the host's time per
 tick phase.
 
@@ -330,6 +354,17 @@ H_PROFILE_STEPS, H_TIMEOUT = 2, 600.0
 WARM_STARTS = (96, 100, 101, 112, 117, 16, 64, 133)
 # the launchers (phase 14b) on the tiny vicuna-7b, in their own processes
 LAUNCH_TIMEOUT = 300.0
+# the baselines and qwen2.5-14b (phase 15): phase 12a's 8 prompts padded to
+# B_TP tokens, MAX_NEW new each; the qwen3 pair's and qwen2.5-14b's vocab
+# heads (tag, d, V) and attention widths (Tq, query heads over Q_KV kv
+# heads) that phase 3 checks; Medusa-lite's heads, trained for M_STEPS
+# steps of M_B x M_T synthetic tokens (seeded with PYTHONHASHSEED 0 in a
+# process of their own) at M_LR, and its least MAT
+B_TP, SPS_K = 128, 4
+Q_HEADS = (("qwen3_0_6b", 1024, 151936), ("qwen3_1_7b", 2048, 151936),
+           ("qwen25_14b", 5120, 152064))
+Q_ATTN, Q_KV = ((1, 16), (4, 16), (5, 16), (1, 40), (5, 40)), 8
+M_HEADS, M_STEPS, M_B, M_T, M_LR, M_MAT = 3, 8, 8, 256, 1e-3, 1.9
 
 
 def phase(n: int, msg: str) -> None:
@@ -1034,6 +1069,27 @@ def kernels_phase(cfg, mcfg):
     # copied on write (16 n + c)
     check_paged(ops, ref, kgen, krng, B, P_CHUNK, H, KV, hd, C_PAGE, mps,
                 [w + P_CHUNK for w in WARM_STARTS], f"prefix-cache warm tails Tq={P_CHUNK}")
+    # the baselines and the dense config copies (phase 15), from generators
+    # of their own so the cases above keep their inputs: the verify heads of
+    # the qwen3 pair (d 1024 and 2048, V 151936) and of qwen2.5-14b (d 5120,
+    # V 152064) at a block's 8 lanes and a verify pass's 40 rows,
+    # qwen2.5-14b's draft head, and attention at qwen3's G = 2 (a feed's Tq
+    # 1, Medusa's verify Tq 4, SpS's Tq 5) and qwen2.5-14b's G = 5 (Tq 1, 5)
+    qgen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    qrng = np.random.RandomState(SEED + 11)
+    qwen_vocab = {}
+    for tag, d_q, V_q in Q_HEADS:
+        for T_q in (B, T_verify):
+            h_q, w_q, _ = check_verify(ops, ref, qgen, T_q, d_q, V_q, f"{tag} head T={T_q}")
+            qwen_vocab[f"at_{tag}_t{T_q}"] = (h_q, w_q, T_q, d_q, V_q)
+    q_lora, _ = check_lora(ops, ref, qgen, B, Q_HEADS[-1][1], Q_HEADS[-1][2], cfg.dvi.lora_rank,
+                           f"{Q_HEADS[-1][0]} draft head")
+    qwen_attn = {}
+    for Tq, Hq in Q_ATTN:
+        lens_q = list(qrng.randint(64 + Tq, 128 + MAX_NEW + K + 1, size=B))
+        a_args, _ = check_attention(ops, ref, qgen, B, Tq, Hq, Q_KV, hd, cap, lens_q,
+                                    f"GQA G={Hq // Q_KV} Tq={Tq} (phase 15)")
+        qwen_attn[f"at_g{Hq // Q_KV}_tq{Tq}"] = (a_args, lens_q)
     # the mamba2 paths: the tied vocab (not a multiple of 64 columns) and the
     # scan at the prefill shapes of both schedulers
     md, mV, mK = mcfg.d_model, mcfg.vocab_size, mcfg.dvi.k_spec
@@ -1120,6 +1176,11 @@ def kernels_phase(cfg, mcfg):
              at_mamba2=dict(timing(lambda: ops.verify_argmax(mh, mw),
                                    lambda: ref.verify_argmax(mh, mw),
                                    verify_bound(mh.shape[0], md, mV)), **gemm(mh, mw)),
+             # the baselines' and qwen2.5-14b's verify heads (phase 15)
+             **{key: dict(timing(lambda h=h, w=w: ops.verify_argmax(h, w),
+                                 lambda h=h, w=w: ref.verify_argmax(h, w),
+                                 verify_bound(T_q, d_q, V_q)), **gemm(h, w))
+                for key, (h, w, T_q, d_q, V_q) in qwen_vocab.items()},
              gemm_note=GEMM_NOTE),
         dict(name="lora_logits", route="cuda", source="src/repro_torch/csrc/lora_logits.cu",
              replaces="src/repro/kernels/lora_logits.py:53", max_abs_err=err_l,
@@ -1144,6 +1205,12 @@ def kernels_phase(cfg, mcfg):
                               **gemm(dvi_args[0], dvi_args[1]), max_abs_err=dvi_err,
                               grad_max_abs_err=dvi_grad_err,
                               row_passes=-(-D_ROWS // VOCAB_PASS_ROWS)),
+             # qwen2.5-14b's draft head (phase 15d)
+             at_qwen25_14b=dict(timing(lambda: ops.lora_logits(*q_lora),
+                                       lambda: ref.lora_logits(*q_lora),
+                                       lora_bound(B, Q_HEADS[-1][1], Q_HEADS[-1][2],
+                                                  cfg.dvi.lora_rank)),
+                                **gemm(q_lora[0], q_lora[1])),
              gemm_note=GEMM_NOTE),
         # attention at the verify pass (Tq = K+1), with the draft feed
         # (Tq = 1) beside it: 30 and 10 of the 40 launches of a block
@@ -1156,7 +1223,9 @@ def kernels_phase(cfg, mcfg):
              at_verify_tq2=attn_timing(adapt[2][0], adapt[2][1]),
              at_verify_tq3=attn_timing(adapt[3][0], adapt[3][1]),
              # chunked prefill's chunk step (phase 13), one launch a layer
-             **{key: attn_timing(c[0], c[1], kv=c[4]) for key, c in chunk_cases.items()}),
+             **{key: attn_timing(c[0], c[1], kv=c[4]) for key, c in chunk_cases.items()},
+             # the qwen GQA groups of phase 15
+             **{key: attn_timing(c[0], c[1], kv=Q_KV) for key, c in qwen_attn.items()}),
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/csrc/paged_decode_attention.cu",
              replaces="src/repro/kernels/paged_decode_attention.py:127", max_abs_err=err_p,
@@ -1273,34 +1342,45 @@ def device_events(prof) -> list:
 def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
                   per_call: dict = None) -> dict:
     """The same requests once more under torch.profiler (device activity
-    only): device time by kernel and in all, the latter as the time some
-    kernel ran (``covered_ms``).  The run repeats the timed run's work, so
-    the device's busy share is its device time over the timed run's
-    (unprofiled) wall time `wall_ms`.  `expect` maps a kernel's
-    name to the per-launch device ms that phase 3 predicts for this path;
-    the profile's per-launch and per-block-step times are printed beside it,
-    with each of its __global__ functions' share, and its launches must
-    equal what ``ops.launches`` counted over the run (under graph replay:
-    the launches each capture recorded, once a replay), less at most 10 %
-    lost to dropped records; `per_call` maps a
-    kernel to its launches in one call of the path (``ssd_scan``: one per
-    layer in a prefill call), whose time is printed too.  Returns the busy
-    share, device ms and device launches per block-step."""
+    only), the window opened and closed by one primed replay of each of the
+    engine's graphs (``runner.prime``: the profiler loses records of a
+    graph's first replays in a window and of its last one's tail): device
+    time by kernel and in all, the latter as the time some kernel ran
+    (``covered_ms``).  The run repeats the timed run's work, so the
+    device's busy share is its device time over the timed run's
+    (unprofiled) wall time `wall_ms`; the window's device time is taken
+    over its block-steps and primed replays alike.  `expect` maps a
+    kernel's name to the per-launch device ms that phase 3 predicts for
+    this path; the profile's per-launch and per-block-step times are
+    printed beside it, with each of its __global__ functions' share, and
+    its launches must equal what ``ops.launches`` counted over the window
+    (under graph replay: the launches each capture recorded, once a replay
+    or a primed replay), less at most 10 % of the run's own launches lost
+    to dropped records; `per_call` maps a kernel to its launches in one
+    call of the path (``ssd_scan``: one per layer in a prefill call), whose
+    time is printed too.  Returns the busy share, device ms and device
+    launches per block-step."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
+    runner = eng._ensure_runner()
     for r in reqs:
         eng.submit_request(r)
     torch.cuda.synchronize()
     steps0 = eng.stats["steps"]
     ops.reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        primes = runner.prime()
+        primed = dict(ops.launches)
         eng.run()
+        ran = {name: k - primed[name] for name, k in ops.launches.items()}
+        primes += runner.prime()
         torch.cuda.synchronize()
     counted = dict(ops.launches)
+    events = device_events(prof)
     by_name: dict = {}
     spans: dict = {}                   # name -> [(start us, end us)]
-    for name, t0, t1 in device_events(prof):
+    for name, t0, t1 in events:
         ms, k = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + (t1 - t0) / 1e3, k + 1)
         spans.setdefault(name, []).append((t0, t1))
@@ -1311,10 +1391,12 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
     gemm = covered_ms([s for name, v in spans.items()
                        if any(k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass"))
                        for s in v])
-    steps = eng.stats["steps"] - steps0
+    ran_steps = eng.stats["steps"] - steps0
+    steps = ran_steps + primes         # each primed replay does a block-step's work
     launches = sum(k for _, k in by_name.values())
-    phase(n, f"profile of the same requests again ({steps} block-steps): device busy "
-             f"{busy:.1f} ms = {100 * busy / wall_ms:.1f}% of the timed run's wall "
+    phase(n, f"profile of the same requests again ({ran_steps} block-steps, {primes} primed "
+             f"replays): device busy {busy:.1f} ms, {busy / steps:.3f} ms a block-step = "
+             f"{100 * busy * ran_steps / steps / wall_ms:.1f}% of the timed run's wall "
              f"{wall_ms:.1f} ms; port kernels {ours:.1f} ms, GEMMs {gemm:.1f} ms, other "
              f"{busy - ours - gemm:.1f} ms; {launches} device launches "
              f"({launches / max(steps, 1):.0f} per block-step)")
@@ -1336,16 +1418,19 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
                  + (f", {per * per_call[kernel]:.3f} ms per call of {per_call[kernel]} "
                     f"launches" if kernel in (per_call or {}) else ""))
         seen[kernel] = k
-    # under graph replay the profiler loses runs of records (up to 1.2 % of
-    # a run's, 15 of 1280 decode_attention launches, once): it must see at
-    # least 90 % of each kernel's launches and never more than were counted
+    # the profiler once lost 13 % of a run's records (337 of 2560
+    # paged_decode_attention launches), a graph's first replays in the
+    # window and the tail of its last one (scripts/torch_profile_records.py);
+    # it must see the window's launches less at most 10 % of the run's own,
+    # and never more than were launched
     missed = {name: counted[name] - k for name, k in seen.items()}
     phase(n, f"  launches the profiler saw {seen}, ops.launches counted "
-             f"{ {name: counted[name] for name in seen} }: records missed {missed}")
-    check(all(0 <= m <= counted[name] // 10 for name, m in missed.items()),
+             f"{ {name: counted[name] for name in seen} } (the run's {ran} and the primed "
+             f"replays'): records missed {missed}")
+    check(all(0 <= m <= ran[name] // 10 for name, m in missed.items()),
           f"the profiler's launch counts {seen} disagree with ops.launches {counted}")
-    return dict(busy=busy / wall_ms, device_ms=busy / max(steps, 1),
-                launches=launches / max(steps, 1))
+    return dict(busy=busy * ran_steps / steps / wall_ms, device_ms=busy / steps,
+                launches=launches / steps)
 
 
 def check_fast_loader(ops, n: int, label: str) -> None:
@@ -1778,7 +1863,9 @@ def continuous_phase(cfg, model, params, dvi, paged_row, vocab_rows):
         phase(8, f"{mode}: launches over {blocks_run} blocks: {r['launches']}; expected {want}")
         check(r["launches"] == want,
               "the continuous path did not run the kernels as the formula says")
-        r["profile"] = profile_batch(eng, reqs, r["wall"] * 1e3, n=8, expect=expect)
+        # the eager rerun is not profiled (the script's time limit)
+        r["profile"] = profile_batch(eng, reqs, r["wall"] * 1e3, n=8,
+                                     expect=expect) if on else None
         release(r)
     report_modes(8, "vicuna-7b continuous, ample pool", runs)
     runs["graphed"]["ticks_host"] = tick_phases(model, params, dvi, reqs, C_PAGES_AMPLE, 8,
@@ -3466,6 +3553,296 @@ def quickstart_phase() -> dict:
     return dict(launches=counts, **{k: out[k] for k in ("block_acc", "mat", "speedup")})
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the paper's baselines, and qwen2.5-14b
+# ---------------------------------------------------------------------------
+
+def guard_syncs(step) -> None:
+    """Run every later call of a baseline runner's block-step (its eager
+    body, or its graph's replay) under sync debug mode "error": a
+    synchronising operation inside raises."""
+    owner, attr = (step, "body") if step.graph is None else (step.graph, "replay")
+    inner = getattr(owner, attr)
+
+    def guarded():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inner()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    setattr(owner, attr, guarded)
+
+
+def baseline_run(runner, prompts, profiled: bool) -> dict:
+    """One mode of a baseline runner: its block-step made (captured, when
+    graphed) and every call of it under sync debug mode "error"; when
+    `profiled`, one generate under torch.profiler, outside the counts, for
+    the device's busy ms (the eager prefills included, as in phase 4's
+    profile); then the timed generate.  Returns its figures and a copy of
+    its result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.spec import GEN_COUNTERS
+    from repro_torch.kernels import ops
+    _, step = runner.prepare(*prompts.shape)
+    guard_syncs(step)
+    device_ms = None
+    if profiled:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = runner.generate(prompts)
+            torch.cuda.synchronize()
+        busy = covered_ms([(a, b) for _, a, b in device_events(prof)])
+        check(busy > 0.0, "profile: the profiler saw no device time")
+        device_ms = busy / max(res.steps, 1)
+        del prof
+    reset_counts()
+    g0 = runner.graph_stats()
+    t0 = time.perf_counter()
+    res = runner.generate(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    g = runner.graph_stats()
+    out = dict(tokens=res.tokens.clone(), lengths=res.lengths.clone(), steps=res.steps,
+               wall=wall, launches=dict(ops.launches), peak=torch.cuda.max_memory_allocated(),
+               graph=g, replays=g["replays"] - g0["replays"],
+               replay_ms=1e3 * (g["replay_host_s"] - g0["replay_host_s"])
+               / max(g["replays"] - g0["replays"], 1),
+               **{name: int(getattr(res, name)) for name in GEN_COUNTERS})
+    out.update(device_ms=device_ms,
+               busy=None if device_ms is None else device_ms * res.steps / (1e3 * wall))
+    return out
+
+
+def lossless_lanes(model, params, tokens, lengths, r_ar, n_phase: int, label: str) -> int:
+    """Each lane of a greedy run (`tokens`, `lengths`) against
+    ``ar_generate``'s stream `r_ar` on the same prompts (B_TP tokens) up to
+    Tp + MAX_NEW; a first difference passes only at a bf16 near-tie of the
+    AR top-2 logits.  Returns the lanes equal."""
+    Tp, n, equal = B_TP, tokens.shape[0], 0
+    for b in range(n):
+        nb = min(int(lengths[b]), int(r_ar.lengths[b]), Tp + MAX_NEW)
+        diff = (tokens[b, :nb] != r_ar.tokens[b, :nb]).nonzero()
+        if len(diff) == 0:
+            equal += 1
+            continue
+        p = int(diff[0])
+        t1, t2 = top2_gap(model, params, r_ar.tokens[b:b + 1, :p])
+        phase(n_phase, f"{label}: lane {b} first differs from AR at position {p}, AR top-2 "
+                       f"logits {t1:.4f} / {t2:.4f}, gap {t1 - t2:.4e}")
+        check(t1 - t2 <= GAP_RTOL * max(abs(t1), 1.0),
+              f"{label}: lane {b} differs from AR outside a bf16 near-tie")
+    phase(n_phase, f"{label}: {equal} of {n} lanes equal AR up to Tp+max_new; {n - equal} "
+                   f"differ only at a bf16 near-tie (rtol {GAP_RTOL})")
+    return equal
+
+
+def baseline_modes(make_runner, prompts, label: str, per_block: dict, model, params,
+                   r_ar) -> dict:
+    """A baseline eagerly and graphed (``make_runner(graphs)``), with gates:
+    the launches `per_block` times the block-steps, exact; each graph's
+    kernel nodes == its capture's launches; 0 synchronising operations in a
+    block-step (``guard_syncs``); graphed == eager bit for bit (streams,
+    lengths, counters); every lane lossless against `r_ar`, the AR run of
+    `model`.  Returns the runs by mode."""
+    runs = {}
+    for mode, on in MODES:
+        runner = make_runner(on)
+        # the eager run is not profiled (the script's time limit): it runs once, cold
+        r = runs[mode] = baseline_run(runner, prompts, profiled=on)
+        steps, g = max(r["steps"], 1), r["graph"]
+        dev = ("device busy not profiled" if r["device_ms"] is None else
+               f"device busy {r['device_ms']:.2f} ms a block-step ({100 * r['busy']:.1f}% of the "
+               f"wall, the eager prefills included)")
+        phase(15, f"{label}, {mode}: {r['steps']} block-steps in {r['wall']:.3f} s, wall "
+                  f"{1e3 * r['wall'] / steps:.2f} ms a block-step, {dev}, "
+                  f"{r['committed'] / r['wall']:.1f} committed tokens/s, MAT "
+                  f"{r['committed'] / max(r['blocks'], 1):.4f}, acceptance "
+                  f"{r['accepted_drafts'] / max(r['drafted'], 1):.4f}; {g['captures']} captures "
+                  f"in {g['capture_s']:.2f} s, graph nodes {g['nodes']}, pool "
+                  f"{g['pool_bytes'] / 2**30:.3f} GiB, replay() {r['replay_ms']:.3f} host ms "
+                  f"over the timed run's {r['replays']} replays; peak {r['peak'] / 2**30:.2f} GiB; "
+                  f"every block-step under sync debug mode 'error': 0 synchronising operations")
+        want = {name: n * r["steps"] for name, n in per_block.items()}
+        phase(15, f"{label}, {mode}: launches {r['launches']}; expected {want}")
+        check(r["launches"] == want, f"{label}, {mode}: the launches disagree with the formula")
+        if on:
+            check_census(15, f"{label}, graphed", g)
+        del runner
+        release({})
+    e, gr = runs["eager"], runs["graphed"]
+    same = (torch.equal(e["tokens"], gr["tokens"]) and torch.equal(e["lengths"], gr["lengths"])
+            and all(e[k] == gr[k] for k in ("steps", "blocks", "committed", "accepted_drafts",
+                                            "drafted")))
+    phase(15, f"{label}: graphed == eager bit for bit (streams, lengths, counters): {same}")
+    check(same, f"{label}: the graphed run differs from the eager one")
+    lossless_lanes(model, params, gr["tokens"], gr["lengths"], r_ar, 15, label)
+    return runs
+
+
+def per_block_launches(decode: int, verify: int, lora: int = 0) -> dict:
+    return {"decode_attention": decode, "paged_decode_attention": 0, "lora_logits": lora,
+            "verify_argmax": verify, "ssd_scan": 0}
+
+
+def padded_prompts(reqs) -> torch.Tensor:
+    return torch.as_tensor(np.stack([pad_prompt(r, B_TP) for r in reqs]), device=DEV)
+
+
+def medusa_phase(model, params, reqs) -> dict:
+    """Phase 15c on phase 4's vicuna-7b weights: M_HEADS Medusa-lite heads
+    trained for M_STEPS steps of M_B x M_T synthetic tokens (drawn in a
+    process of their own under PYTHONHASHSEED 0, so they repeat between
+    runs), with gates: finite losses, the heads changed, the backbone's
+    bits unchanged; then ``medusa_generate`` on phase 12a's 8 prompts
+    (padded to B_TP) through ``graphs.MedusaRunner``, eagerly and graphed,
+    with ``baseline_modes``' gates (2 L ``decode_attention`` and 2
+    ``verify_argmax`` a block) and MAT >= M_MAT.  Returns the runs."""
+    from repro_torch.core import baselines, graphs, spec
+    V, L = model.cfg.vocab_size, model.cfg.num_layers
+    path = os.path.join(ROOT, "build", "medusa_batches.npy")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    code = ("import sys, numpy as np; sys.path.insert(0, sys.argv[1]); "
+            "from repro_torch.data.synthetic import SyntheticTasks, TASK_CATEGORIES; "
+            "a = [int(x) for x in sys.argv[3:]]; "
+            "np.save(sys.argv[2], np.stack(list(SyntheticTasks(a[0], seed=a[1]).stream("
+            "TASK_CATEGORIES, a[2], a[3], a[4]))))")
+    subprocess.run([sys.executable, "-c", code, os.path.join(ROOT, "src"), path,
+                    *map(str, (V, SEED, M_STEPS, M_B, M_T))],
+                   env=dict(os.environ, PYTHONHASHSEED="0"), check=True, timeout=300)
+    batches = np.load(path)
+    os.remove(path)
+    before = bits_checksum(params)
+    heads = baselines.init_medusa_heads(torch.Generator(device=DEV).manual_seed(SEED + 12),
+                                        model, M_HEADS)
+    w0 = heads["w1"].clone()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    baselines.train_medusa_heads(model, params, heads, list(batches), lr=M_LR,
+                                 on_step=lambda i, loss: losses.append(loss))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    changed = not torch.equal(w0, heads["w1"])
+    same_backbone = torch.equal(before, bits_checksum(params))
+    phase(15, f"15c Medusa-lite: {M_HEADS} heads trained {len(losses)} steps of {M_B} x {M_T} "
+              f"synthetic tokens (PYTHONHASHSEED 0, batches checksum {int(batches.sum())}) in "
+              f"{wall:.1f} s: loss " + " ".join(f"{x:.4f}" for x in losses)
+              + f"; heads changed {changed}; backbone bit-identical {same_backbone}")
+    check(len(losses) == M_STEPS and all(np.isfinite(losses)), "Medusa training: a loss is not "
+                                                                "finite")
+    check(changed, "Medusa training left the heads unchanged")
+    check(same_backbone, "Medusa training changed the backbone")
+    del w0, before
+    prompts = padded_prompts(reqs)
+    r_ar = spec.ar_generate(model, params, prompts, MAX_NEW)
+    runs = baseline_modes(
+        lambda on: graphs.MedusaRunner(model, params, heads, max_new=MAX_NEW, graphs=on),
+        prompts, "15c Medusa-lite vicuna-7b", per_block_launches(2 * L, 2), model, params, r_ar)
+    g = runs["graphed"]
+    mat = g["committed"] / max(g["blocks"], 1)
+    # the lm token is always accepted, so MAT >= 2 holds by construction;
+    # the heads' own acceptance is what their training shows
+    phase(15, f"15c Medusa-lite: MAT {mat:.4f} (gate >= {M_MAT}, >= 2 by construction); the "
+              f"heads' own acceptance {g['accepted_drafts'] / max(g['drafted'], 1):.4f} "
+              f"({g['accepted_drafts']} of {g['drafted']} head proposals); losses "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(mat >= M_MAT, f"Medusa-lite's MAT {mat:.4f} is below {M_MAT}")
+    runs["losses"] = losses
+    return runs
+
+
+def sps_phase(reqs) -> dict:
+    """Phases 15a and 15b: qwen3-0.6b (28 layers, d 1024) drafting for
+    qwen3-1.7b (28 layers, d 2048), bf16, random weights from SEED, K =
+    SPS_K, then qwen3-0.6b drafting for itself (the same weights, two
+    caches: every draft agrees until the drafter's missing d_K shifts it),
+    each on phase 12a's 8 prompts padded to B_TP through
+    ``graphs.TwoModelRunner`` eagerly and graphed, with ``baseline_modes``'
+    gates (L_d K + L_t ``decode_attention`` and K + 1 ``verify_argmax`` a
+    block).  Returns the runs by pair."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import graphs, spec
+    from repro_torch.models.model import build_model
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    t0 = time.perf_counter()
+    draft = build_model(get_config("qwen3-0.6b"), device=DEV)
+    d_params = draft.init(gen)
+    target = build_model(get_config("qwen3-1.7b"), device=DEV)
+    t_params = target.init(gen)
+    torch.cuda.synchronize()
+    phase(15, f"qwen3-0.6b and qwen3-1.7b bf16 params drawn on the card in "
+              f"{time.perf_counter() - t0:.1f} s")
+    prompts = padded_prompts(reqs)
+    Ld, Lt = draft.cfg.num_layers, target.cfg.num_layers
+    out = {}
+    for key, (tm, tp), label in (
+            ("sps", (target, t_params), "15a SpS qwen3-0.6b -> qwen3-1.7b"),
+            ("sps_self", (draft, d_params), "15b SpS qwen3-0.6b -> itself")):
+        r_ar = spec.ar_generate(tm, tp, prompts, MAX_NEW)
+        out[key] = baseline_modes(
+            lambda on: graphs.TwoModelRunner(tm, tp, draft, d_params, max_new=MAX_NEW,
+                                             graphs=on, k_spec=SPS_K),
+            prompts, label, per_block_launches(Ld * SPS_K + tm.cfg.num_layers, SPS_K + 1),
+            tm, tp, r_ar)
+        del r_ar
+    return out
+
+
+def qwen14_phase(reqs, by_row: dict) -> dict:
+    """Phase 15d: qwen2.5-14b at full width and depth (48 layers, d 5120,
+    ``qkv_bias``, 29.5 GB of bf16 weights from SEED) serving phase 12a's 8
+    prompts padded to B_TP through the sync engine, graphed (DVI, split 2,
+    a drafter drawn from the seed), then profiled once more.  Gates:
+    lossless against AR by the near-tie rule; launches per block (K+1) k +
+    L - k ``decode_attention``, K+1 ``lora_logits``, 1 ``verify_argmax``,
+    exact; each graph's kernel nodes == its capture's launches.  Returns the
+    run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import lora, spec
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Request
+    cfg = get_config("qwen2.5-14b")
+    model = build_model(cfg, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    dvi = lora.init_draft_params(gen, cfg)
+    dvi["B"] = torch.randn(dvi["B"].shape, generator=gen, device=DEV) * 0.05
+    torch.cuda.synchronize()
+    phase(15, f"qwen2.5-14b bf16 params drawn on the card in {time.perf_counter() - t0:.1f} s "
+              f"({sum(p.numel() for p in params['segments']['s1'].values()) / 1e9:.2f}B in the "
+              f"deep segment)")
+    padded = [Request(uid=r.uid, prompt=pad_prompt(r, B_TP), max_new=MAX_NEW) for r in reqs]
+    label = "15d qwen2.5-14b sync DVI graphed"
+    r = sync_run(model, params, dvi, padded, True, 15, label)
+    K, k, L, n = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers, r["steps"]
+    want = {name: c * n for name, c in
+            per_block_launches((K + 1) * k + (L - k), 1, K + 1).items()}
+    phase(15, f"{label}: launches over {n} block-steps {r['launches']}; expected {want}")
+    check(r["launches"] == want, f"{label}: the launches disagree with the formula")
+    check_census(15, label, r["graph"])
+    check_against_ar(model, params, spec, padded, r["comps"], label, n_phase=15)
+    att = by_row["decode_attention"]
+    n_feed, n_verify = (K + 1) * k, L - k
+    expect = {"decode_attention": (n_feed * att["at_g5_tq1"]["ms"] + n_verify
+                                   * att["at_g5_tq5"]["ms"]) / (n_feed + n_verify),
+              "verify_argmax": by_row["verify_argmax"]["at_qwen25_14b_t8"]["ms"],
+              "lora_logits": by_row["lora_logits"]["at_qwen25_14b"]["ms"]}
+    r["profile"] = profile_batch(r["eng"], padded, r["wall"] * 1e3, n=15, expect=expect)
+    steps, g, p = max(r["steps"], 1), r["graph"], r["profile"]
+    phase(15, f"{label}: wall {1e3 * r['wall'] / steps:.2f} ms and device busy "
+              f"{p['device_ms']:.2f} ms a block-step ({100 * p['busy']:.1f}%), "
+              f"{r['committed'] / r['wall']:.1f} committed tokens/s, MAT "
+              f"{r['committed'] / max(r['blocks'], 1):.4f}, acceptance "
+              f"{r['eng'].acceptance:.4f}; {g['captures']} captures, graph nodes {g['nodes']}, "
+              f"replay() {1e3 * g['replay_host_s'] / max(g['replays'], 1):.3f} host ms; peak "
+              f"{r['peak'] / 2**30:.2f} GiB")
+    release(r)
+    del model, params, dvi
+    return r
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3530,7 +3907,9 @@ def main() -> int:
                  f"acceptance {r['eng'].acceptance:.4f}, "
                  f"{r['committed'] / r['wall']:.1f} committed tokens/s, "
                  f"peak memory {r['peak'] / 2**30:.2f} GiB")
-        r["profile"] = profile_batch(r["eng"], reqs, r["wall"] * 1e3, expect=expect)
+        # the eager rerun is not profiled (the script's time limit)
+        r["profile"] = profile_batch(r["eng"], reqs, r["wall"] * 1e3,
+                                     expect=expect) if on else None
 
         # ---- phase 5: launch counts ----
         want = {"decode_attention": ((K + 1) * k + (L - k)) * n, "lora_logits": (K + 1) * n,
@@ -3556,23 +3935,7 @@ def main() -> int:
              f"to 128: {same} ({r_gr.steps} replays, {r_sd.steps} blocks)")
     check(same and r_gr.steps == r_sd.steps,
           "the graphed block-step differs from speculative_generate")
-    Tp = prompts.shape[1]
-    equal, tied = 0, 0
-    for b in range(N_REQUESTS):
-        nb = min(int(r_sd.lengths[b]), int(r_ar.lengths[b]), Tp + MAX_NEW)
-        diff = (r_sd.tokens[b, :nb] != r_ar.tokens[b, :nb]).nonzero()
-        if len(diff) == 0:
-            equal += 1
-            continue
-        p = int(diff[0])
-        t1, t2 = top2_gap(model, params, r_ar.tokens[b:b + 1, :p])
-        phase(6, f"lane {b}: first difference at position {p}, AR top-2 logits "
-                 f"{t1:.4f} / {t2:.4f}, gap {t1 - t2:.4e}")
-        check(t1 - t2 <= GAP_RTOL * max(abs(t1), 1.0),
-              f"lane {b}: speculative stream differs from AR outside a bf16 near-tie")
-        tied += 1
-    phase(6, f"speculative == AR greedy up to Tp+max_new on {equal} of {N_REQUESTS} lanes; "
-             f"{tied} differ only at a bf16 near-tie (rtol {GAP_RTOL})")
+    lossless_lanes(model, params, r_sd.tokens, r_sd.lengths, r_ar, 6, "speculative")
 
     # ---- phase 8: the continuous path over a paged pool ----
     del eng, r_sd, r_ar, r_gr
@@ -3629,9 +3992,22 @@ def main() -> int:
     launchers_phase()
     marks["14"] = time.perf_counter() - t_start
 
-    # ---- phase 9: mamba2-370m through both schedulers ----
+    # ---- phase 15c: Medusa-lite, on the same vicuna weights ----
+    release({})
+    b_medusa = medusa_phase(model, params, reqs)
+    marks["15c"] = time.perf_counter() - t_start
+
+    # ---- phase 15a, 15b: two-model SpS on the qwen3 pair; 15d: qwen2.5-14b ----
     del model, params, dvi
     release({})                        # engines in reference cycles hold the weights
+    b_sps = sps_phase(reqs)
+    release({})
+    marks["15ab"] = time.perf_counter() - t_start
+    q14 = qwen14_phase(reqs, by_row)
+    release({})
+    marks["15d"] = time.perf_counter() - t_start
+
+    # ---- phase 9: mamba2-370m through both schedulers ----
     m_sync, m_cont, m_sync_e, m_cont_e, m_chunk = mamba_phase(by_row)
     marks["9,13c"] = time.perf_counter() - t_start
 
@@ -3662,7 +4038,12 @@ def main() -> int:
                    "chunked_learn_adaptive": ch["learn_adaptive"]["launches"].get(name, 0),
                    "mamba2_chunked": m_chunk["launches"].get(name, 0),
                    # phase 14a: the prefix cache behind the HTTP front end (graphed)
-                   "http_prefix": h14["launches"].get(name, 0)}
+                   "http_prefix": h14["launches"].get(name, 0),
+                   # phase 15: the baselines and qwen2.5-14b (graphed)
+                   "sps": b_sps["sps"]["graphed"]["launches"].get(name, 0),
+                   "sps_self": b_sps["sps_self"]["graphed"]["launches"].get(name, 0),
+                   "medusa": b_medusa["graphed"]["launches"].get(name, 0),
+                   "qwen25_14b": q14["launches"].get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["launches_eager_by_path"] = {
@@ -3670,7 +4051,10 @@ def main() -> int:
             "learn_sync": learn_s["eager"]["launches"].get(name, 0),
             "learn_continuous": learn_c["eager"]["launches"].get(name, 0),
             "mamba2_sync": m_sync_e.get(name, 0), "mamba2_continuous": m_cont_e.get(name, 0),
-            "chunked": ch["eager"]["launches"].get(name, 0)}
+            "chunked": ch["eager"]["launches"].get(name, 0),
+            "sps": b_sps["sps"]["eager"]["launches"].get(name, 0),
+            "sps_self": b_sps["sps_self"]["eager"]["launches"].get(name, 0),
+            "medusa": b_medusa["eager"]["launches"].get(name, 0)}
     ends = list(marks.values())
     phase(7, f"all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by phase: "
              + ", ".join(f"{name} {end - start:.1f}" for name, start, end

@@ -1,17 +1,23 @@
 """Config registry of the port: the architectures this slice runs.
 
 vicuna-7b is the paper's Spec-Bench backbone and the configuration the card
-runs; qwen3-0.6b is here so the CPU tests exercise GQA, ``qk_norm`` and a
-tied head on the same path; mamba2-370m is the attention-free Mamba-2 stack
-whose prefill runs the ``ssd_scan`` kernel.
+runs; qwen3-0.6b and qwen3-1.7b (GQA, ``qk_norm``, tied heads, one vocabulary)
+are the two-model speculative-decoding baseline's drafter and target;
+qwen2.5-14b is a dense GQA decoder with ``qkv_bias``; llama3-405b is copied
+for its tiny variant (its full size does not fit one card); mamba2-370m is the
+attention-free Mamba-2 stack whose prefill runs the ``ssd_scan`` kernel.
 """
 from __future__ import annotations
 
-from repro_torch.configs import mamba2_370m, qwen3_0_6b, vicuna_7b
+from repro_torch.configs import (llama3_405b, mamba2_370m, qwen3_0_6b, qwen3_1_7b, qwen25_14b,
+                                 vicuna_7b)
 from repro_torch.configs.base import DVIConfig, ModelConfig, SSMConfig
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0_6b,
+    "qwen3-1.7b": qwen3_1_7b,
+    "qwen2.5-14b": qwen25_14b,
+    "llama3-405b": llama3_405b,
     "vicuna-7b": vicuna_7b,
     "mamba2-370m": mamba2_370m,
 }

@@ -20,7 +20,7 @@ tensors whose addresses the capture saw.  Callers change those buffers in
 place, between replays, and never swap one for a new tensor.  The drafter's
 A and B are such inputs too: the Improve loop writes them in place
 (``core.online``), and every dispatch checks on the host, by address, that
-they are still the tensors the runner was made with (``check_drafter``).
+they are still the tensors the runner was made with (``check_ptrs``).
 
 * On CUDA with ``graphs=True`` the body first runs once eagerly on a side
   stream (torch's documented warm-up) with every lane done, which changes
@@ -32,6 +32,12 @@ they are still the tensors the runner was made with (``check_drafter``).
   per draft width with adaptive depth) and replayed.
 * On the CPU, or with ``graphs=False``, the same body runs eagerly over the
   same buffers.
+
+The sync scheduler and the paper's baselines (``core.baselines``) share one
+runner, ``BlockRunner``: an eager prefill into its static caches, then one
+graph a block per (batch, prompt length).  ``GenerateRunner`` runs
+``spec.generate_block``, ``TwoModelRunner`` two-model SpS (the target's and
+the drafter's caches in one pool), ``MedusaRunner`` Medusa-lite.
 
 The continuous runner with chunked prefill holds a second step, the chunk
 step (``Model.prefill_chunk`` over every lane at the fixed shape (lanes,
@@ -63,7 +69,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import spec
+from repro_torch.core import baselines, spec
 from repro_torch.core.schedule import DepthConfig
 from repro_torch.core.spec import (DEPTH_STATE, GEN_COUNTERS, LANE_COUNTERS, GenResult,
                                    SuperstepResult)
@@ -193,13 +199,17 @@ _cuda = _Cuda()
 
 class StepGraph:
     """`body` (no arguments, works on static buffers) run by replaying one
-    captured CUDA graph (`capture`), or eagerly.  `warmup` runs the body
-    once without changing what a later call reads; `pool` is the memory pool
-    the graph shares."""
+    captured CUDA graph (`capture`), or eagerly.  `frame(run)` calls `run`
+    (the body, or a replay) with every lane done and puts back what that
+    changes and a later call reads; the warm-up before the capture is
+    `warmup` if given, else ``frame(body)`` (else the body), and ``prime``
+    replays inside `frame`.  `pool` is the memory pool the graph shares."""
 
     def __init__(self, body: Callable[[], None], *, capture: bool, pool=None,
-                 warmup: Optional[Callable[[], None]] = None):
+                 warmup: Optional[Callable[[], None]] = None,
+                 frame: Optional[Callable[[Callable[[], None]], None]] = None):
         self.body = body
+        self.frame = frame or (lambda run: run())
         self.graph = None
         self.counts: Optional[dict] = None   # ops.counts() form: one replay's launches
         self.nodes = 0
@@ -210,7 +220,7 @@ class StepGraph:
         self.replays = 0
         self.replay_host_s = 0.0             # host seconds inside graph.replay()
         if capture:
-            self._capture(pool, warmup or body)
+            self._capture(pool, warmup or (lambda: self.frame(body)))
 
     def _capture(self, pool, warmup: Callable[[], None]) -> None:
         t0 = time.perf_counter()
@@ -243,6 +253,21 @@ class StepGraph:
         self.replays += 1
         ops.add_counts(self.counts)
 
+    def prime(self) -> int:
+        """Replay the captured graph once inside `frame`, so that it changes
+        nothing a later call reads; its launches count in ``ops.launches``,
+        not in the replay statistics.  A torch.profiler window loses records
+        of a graph's first replays in it and of its last replay's tail
+        (``scripts/torch_profile_records.py``); a window that opens and
+        closes with a primed replay of each graph puts those losses on
+        replays that serve nothing.  Returns the replays made: 0 when
+        nothing was captured."""
+        if self.graph is None:
+            return 0
+        self.frame(self.graph.replay)
+        ops.add_counts(self.counts)
+        return 1
+
 
 def graph_stats(steps) -> dict:
     """Captures, capture and instantiate seconds, node counts, the pools'
@@ -261,18 +286,26 @@ def graph_stats(steps) -> dict:
                           for s in steps if s.graph is not None]}
 
 
-def drafter_ptrs(dvi_params: dict) -> dict:
-    return {k: t.data_ptr() for k, t in dvi_params.items()}
+def tensor_ptrs(tree: dict) -> list:
+    """The address of every tensor of nested dicts of tensors, in order."""
+    out = []
+    for leaf in tree.values():
+        out.extend(tensor_ptrs(leaf) if isinstance(leaf, dict) else [leaf.data_ptr()])
+    return out
 
 
-def check_drafter(dvi_params: dict, ptrs: dict) -> None:
-    """Raise unless `dvi_params` holds the tensors at the addresses `ptrs`
-    (``drafter_ptrs`` when the runner was made): a graph replays with the
-    addresses it captured, so a rebound A or B would never be read."""
-    if drafter_ptrs(dvi_params) != ptrs:
-        raise RuntimeError("the drafter's tensors were rebound since the block-step "
-                           "was made: update A and B in place (copy_), never assign new "
-                           "tensors")
+drafter_ptrs = tensor_ptrs               # the drafter's A and B
+
+
+def check_ptrs(tree: dict, ptrs: list) -> None:
+    """Raise unless `tree` holds the tensors at the addresses `ptrs`
+    (``tensor_ptrs`` when the runner was made): a graph replays with the
+    addresses it captured, so a rebound tensor (the drafter's A or B, a
+    baseline's parameter) would never be read."""
+    if tensor_ptrs(tree) != ptrs:
+        raise RuntimeError("a tensor the block-step reads was rebound since the block-step "
+                           "was made: update A and B (and any parameter) in place (copy_), "
+                           "never assign new tensors")
 
 
 class SuperstepRunner:
@@ -311,7 +344,7 @@ class SuperstepRunner:
         dev = pending.device
         self.k_spec, self.depth = K, depth
         k_max = K if depth is None else depth.k_max
-        self.dvi_params, self.drafter = dvi_params, drafter_ptrs(dvi_params)
+        self.dvi_params, self.drafter = dvi_params, tensor_ptrs(dvi_params)
         self.cap = cap = sync_every * (k_max + 1)
         sizes = [B] * len(LANE_COUNTERS) + [k_max + 1, k_max + 1, B * cap + 1]
         self.acc = torch.zeros((sum(sizes),), dtype=torch.int32, device=dev)
@@ -336,10 +369,10 @@ class SuperstepRunner:
                     model, params, dvi_params, st, gen_flat, cap, k_spec=k_blk, eos_id=eos_id,
                     collect=True, ragged=depth is not None, depth_cfg=depth, k_hi=k_hi))
 
-            def warmup():                # no live lane: the buffer's gen stays
+            def frame(run):              # no live lane: the buffer's gen stays
                 st["done"].fill_(True)
-                body()
-            return body, warmup
+                run()
+            return body, frame
 
         self._make_body = make_body
         self._capture = graphs and _cuda.captures(dev)
@@ -359,13 +392,13 @@ class SuperstepRunner:
                 model.prefill_chunk(params, cst["tokens"], cache, cst["take"])
                 pending.copy_(torch.where(cst["finished"], cst["finish_tok"], pending))
 
-            def chunk_warmup():          # take 0 everywhere: no lane advances
+            def chunk_frame(run):        # take 0 everywhere: no lane advances
                 cst["take"].zero_()
                 cst["finished"].fill_(False)
-                chunk_body()
+                run()
 
             self.chunk_step = StepGraph(chunk_body, capture=self._capture, pool=self._pool,
-                                        warmup=chunk_warmup)
+                                        frame=chunk_frame)
 
     def step_for(self, k_blk: int) -> StepGraph:
         """The block-step at draft width `k_blk`, made (and captured) on
@@ -376,9 +409,9 @@ class SuperstepRunner:
                       else (self.depth.k_min, self.depth.k_max))
             if not lo <= k_blk <= hi:
                 raise ValueError(f"draft width {k_blk} outside [{lo}, {hi}]")
-            body, warmup = self._make_body(k_blk)
+            body, frame = self._make_body(k_blk)
             self.steps[k_blk] = StepGraph(body, capture=self._capture, pool=self._pool,
-                                          warmup=warmup)
+                                          frame=frame)
         return self.steps[k_blk]
 
     def capture_all(self) -> None:
@@ -399,7 +432,7 @@ class SuperstepRunner:
         st = self.state
         k_blk = self.k_spec if k_blk is None else k_blk
         step = self.step_for(k_blk)
-        check_drafter(self.dvi_params, self.drafter)
+        check_ptrs(self.dvi_params, self.drafter)
         upload(st["done"], done)
         upload(st["budget"], budget)
         if depth_state is not None:
@@ -425,25 +458,43 @@ class SuperstepRunner:
             upload(cst[name], arr)
         self.chunk_step()
 
+    def all_steps(self) -> list:
+        """The block-steps and the chunk step."""
+        return list(self.steps.values()) + ([self.chunk_step] if self.chunk_step else [])
+
     def graph_stats(self) -> dict:
-        """``graph_stats`` over the block-steps and the chunk step."""
-        return graph_stats(list(self.steps.values())
-                           + ([self.chunk_step] if self.chunk_step is not None else []))
+        """``graph_stats`` over ``all_steps``."""
+        return graph_stats(self.all_steps())
+
+    def prime(self) -> int:
+        """``StepGraph.prime`` of each step; the replays made."""
+        return sum(step.prime() for step in self.all_steps())
 
 
-class GenerateRunner:
-    """The sync scheduler's decode loop over static buffers.  ``generate``
-    prefills a batch eagerly into the static cache of its shape, then runs
-    one block-step a block and tests ``all(done)`` on the host after each,
-    as ``speculative_generate`` does.  One graph per (batch, prompt length);
-    the replay buffer `buf` is shared by all of them."""
+class BlockRunner:
+    """A decode loop over static buffers, as ``speculative_generate``'s:
+    ``generate`` prefills a batch eagerly into the static caches of its
+    shape, then runs one block-step a block and tests ``all(done)`` on the
+    host after each.  One graph per (batch, prompt length).
 
-    def __init__(self, model: Model, params: dict, dvi_params: dict, buf: dict, *,
-                 max_new: int, graphs: bool, eos_id: int = 1):
-        self.model, self.params, self.dvi_params, self.buf = model, params, dvi_params, buf
-        self.drafter = drafter_ptrs(dvi_params)
-        self.max_new, self.eos_id = max_new, eos_id
-        self.capture = graphs and _cuda.captures(model.device)
+    `caches` maps each static cache's name in the state to the (model,
+    params) that prefill it; `block(st, limit)` is one block with its
+    bookkeeping over the state ("pending", "done", "out", "out_len", the
+    caches, the ``GEN_COUNTERS`` and `extra`), whose stream takes at most
+    `width` + 1 tokens a block.  `extra` holds static entries every shape
+    shares (the replay buffer); the warm-up puts the tensors `keep` back.
+    `tensors` holds the trees the graphs read besides: every ``generate``
+    checks on the host that they still hold the tensors the runner was made
+    with (by address, ``check_ptrs``)."""
+
+    def __init__(self, caches: dict, block: Callable, tensors: dict, *, width: int,
+                 max_new: int, graphs: bool, device: torch.device, extra: Optional[dict] = None,
+                 keep: tuple = ()):
+        self.caches, self.block, self.tensors = caches, block, tensors
+        self.ptrs = tensor_ptrs(tensors)
+        self.width, self.max_new, self.device = width, max_new, device
+        self.extra, self.keep = extra or {}, keep
+        self.capture = graphs and _cuda.captures(device)
         self.pool = _cuda.new_pool() if self.capture else None
         self._shapes = {}                # (B, Tp) -> (static state, StepGraph)
 
@@ -452,53 +503,58 @@ class GenerateRunner:
         tokens, made (and captured) on first use."""
         if (B, Tp) in self._shapes:
             return self._shapes[(B, Tp)]
-        model, params, dvi_params, buf = self.model, self.params, self.dvi_params, self.buf
-        dev, eos_id = model.device, self.eos_id
-        K = model.cfg.dvi.k_spec
-        total = Tp + self.max_new + K + 2
+        dev, block, keep = self.device, self.block, self.keep
+        total = Tp + self.max_new + self.width + 2
         st = dict(pending=torch.zeros((B,), dtype=torch.int32, device=dev),
                   done=torch.ones((B,), dtype=torch.bool, device=dev),
-                  cache=model.init_cache(B, total + tfm.RING_SLACK), buf=buf,
                   out=torch.zeros((B, total), dtype=torch.int32, device=dev),
                   out_len=torch.zeros((B,), dtype=torch.int32, device=dev),
+                  **{name: model.init_cache(B, total + tfm.RING_SLACK)
+                     for name, (model, _) in self.caches.items()},
+                  **self.extra,
                   **{name: torch.zeros((), dtype=torch.int64, device=dev)
                      for name in GEN_COUNTERS})
         limit = Tp + self.max_new
 
         # the body holds the buffers, not the runner: no reference cycle
         def body():
-            write_back(st, spec.generate_block(model, params, dvi_params, st, k_spec=K,
-                                               limit=limit, eos_id=eos_id, collect=True))
+            write_back(st, block(st, limit))
 
-        def warmup():                    # every lane done; the block still
-            gen = buf["gen"].clone()     # advances the buffer's gen
+        def frame(run):                  # every lane done; the block may still
+            saved = [t.clone() for t in keep]    # advance what `keep` holds
             st["done"].fill_(True)
-            body()
-            buf["gen"].copy_(gen)
+            run()
+            for t, v in zip(keep, saved):
+                t.copy_(v)
 
         self._shapes[(B, Tp)] = st, StepGraph(body, capture=self.capture, pool=self.pool,
-                                              warmup=warmup)
+                                              frame=frame)
         return self._shapes[(B, Tp)]
 
-    def generate(self, prompts: torch.Tensor, live_mask: torch.Tensor) -> GenResult:
-        """``speculative_generate(..., collect=True, buf, live_mask)`` of the
-        engine's ``max_new`` on prompts (B, Tp), Tp >= 2, through the
-        block-step.  The result's tensors are the static buffers of this
-        shape, which the next batch of the shape overwrites."""
+    def generate(self, prompts: torch.Tensor, live_mask: Optional[torch.Tensor] = None
+                 ) -> GenResult:
+        """``max_new`` tokens on prompts (B, Tp), Tp >= 2, through the
+        block-step; lanes outside `live_mask` (default: none) start done.
+        The result's tensors are the static buffers of this shape, which the
+        next batch of the shape overwrites."""
         B, Tp = prompts.shape
         if Tp < 2:
             raise ValueError("need at least 2 prompt tokens (one prefill + one pending)")
-        check_drafter(self.dvi_params, self.drafter)
+        check_ptrs(self.tensors, self.ptrs)
         st, step = self.prepare(B, Tp)
         prompts = prompts.to(torch.int32)
-        # the prefill is eager: it fills the static cache in place
-        _, pc = self.model.prefill(self.params, prompts[:, :Tp - 1], cache=st["cache"])
-        st["cache"]["lengths"].copy_(pc["lengths"])
+        # the prefills are eager: they fill the static caches in place
+        for name, (model, params) in self.caches.items():
+            _, pc = model.prefill(params, prompts[:, :Tp - 1], cache=st[name])
+            st[name]["lengths"].copy_(pc["lengths"])
         st["pending"].copy_(prompts[:, Tp - 1])
         st["out"].zero_()
         st["out"][:, :Tp] = prompts
         st["out_len"].fill_(Tp)
-        st["done"].copy_(~live_mask)
+        if live_mask is None:
+            st["done"].fill_(False)
+        else:
+            st["done"].copy_(~live_mask)
         for name in GEN_COUNTERS:
             st[name].zero_()
         steps = 0
@@ -506,7 +562,60 @@ class GenerateRunner:
             step()
             steps += 1
         return GenResult(st["out"], st["out_len"], *(st[name] for name in GEN_COUNTERS),
-                         st["buf"], steps)
+                         st.get("buf"), steps)
+
+    def all_steps(self) -> list:
+        return [step for _, step in self._shapes.values()]
 
     def graph_stats(self) -> dict:
-        return graph_stats(step for _, step in self._shapes.values())
+        return graph_stats(self.all_steps())
+
+    def prime(self) -> int:
+        """``StepGraph.prime`` of each shape's block-step; the replays made."""
+        return sum(step.prime() for step in self.all_steps())
+
+
+class GenerateRunner(BlockRunner):
+    """The sync scheduler's ``speculative_generate(..., collect=True, buf,
+    live_mask)`` through one block-step a block; the replay buffer `buf` is
+    shared by every shape (the warm-up puts its generation back).
+    ``generate(prompts, live_mask)``."""
+
+    def __init__(self, model: Model, params: dict, dvi_params: dict, buf: dict, *,
+                 max_new: int, graphs: bool, eos_id: int = 1):
+        K = model.cfg.dvi.k_spec
+
+        def block(st, limit):
+            return spec.generate_block(model, params, dvi_params, st, k_spec=K, limit=limit,
+                                       eos_id=eos_id, collect=True)
+        super().__init__({"cache": (model, params)}, block, dvi_params, width=K,
+                         max_new=max_new, graphs=graphs, device=model.device,
+                         extra=dict(buf=buf), keep=(buf["gen"],))
+        self.drafter = self.ptrs
+
+
+class TwoModelRunner(BlockRunner):
+    """``baselines.two_model_generate`` through one block-step a block: the
+    target's and the drafter's static caches share the runner's pool."""
+
+    def __init__(self, target: Model, t_params: dict, draft: Model, d_params: dict, *,
+                 max_new: int, graphs: bool, k_spec: int = 4, eos_id: int = 1):
+        def block(st, limit):
+            return baselines.two_model_block(target, t_params, draft, d_params, st,
+                                             k_spec=k_spec, limit=limit, eos_id=eos_id)
+        super().__init__({"t_cache": (target, t_params), "d_cache": (draft, d_params)}, block,
+                         dict(target=t_params, draft=d_params), width=k_spec,
+                         max_new=max_new, graphs=graphs, device=target.device)
+
+
+class MedusaRunner(BlockRunner):
+    """``baselines.medusa_generate`` through one block-step a block; the
+    heads are read where they lie (train them in place)."""
+
+    def __init__(self, model: Model, params: dict, heads: dict, *, max_new: int, graphs: bool,
+                 eos_id: int = 1):
+        def block(st, limit):
+            return baselines.medusa_block(model, params, heads, st, limit=limit, eos_id=eos_id)
+        super().__init__({"cache": (model, params)}, block, dict(model=params, heads=heads),
+                         width=1 + heads["w1"].shape[0], max_new=max_new, graphs=graphs,
+                         device=model.device)

@@ -689,7 +689,7 @@ class ServingEngine:
 
         t0 = self.clock()
         runner = self._ensure_runner()
-        graphs_mod.check_drafter(self.state.dvi_params, runner.drafter)
+        graphs_mod.check_ptrs(self.state.dvi_params, runner.drafter)
         res = runner.generate(prompts, live)
         # copies: the result is the runner's static buffers, which the next
         # batch of this shape overwrites (on the CPU .cpu() would alias them)
@@ -1184,7 +1184,7 @@ class ServingEngine:
         # the runner advances the engine's pending tokens, cache and replay
         # buffer in place; every later device op of the engine is queued
         # behind the superstep on the same stream
-        graphs_mod.check_drafter(self.state.dvi_params, self._runner.drafter)
+        graphs_mod.check_ptrs(self.state.dvi_params, self._runner.drafter)
         rng = self._profile_start()
         if rng is not None:
             rng.__enter__()

@@ -60,6 +60,12 @@ def draft_params_from_numpy(tree: Mapping, device=None) -> dict:
     return {k: _tensor(tree[k], dev).float() for k in ("A", "B")}
 
 
+def medusa_heads_from_numpy(tree: Mapping, device=None) -> dict:
+    """Medusa-lite heads {"w1": (num_heads, d, d)} as float32
+    (``core.baselines.init_medusa_heads``' layout)."""
+    return {"w1": _tensor(tree["w1"], resolve_device(device)).float()}
+
+
 def load_npz(cfg: ModelConfig, path: str, device=None) -> dict:
     """Model parameters from a ``save_checkpoint`` ``.npz`` ("/"-joined keys),
     written by either package."""

@@ -1094,3 +1094,90 @@ def test_adaptive_engine_replays_a_graph_per_draft_width(ops):
         assert recorded == {k: sum(c for n, c in kernel_nodes.items() if fn in n)
                             for k, fn in once.items()}
     assert eng_g.kv_stats()["used_pages"] == 0
+
+
+# the shapes of the baselines and the dense config copies: the qwen3 pair's
+# verify heads (d 1024 / 2048, V 151936) and qwen2.5-14b's (d 5120, V 152064)
+# at a block's 8 lanes and a verify pass's 40 rows; qwen2.5-14b's draft head
+@pytest.mark.parametrize("T", [8, 40])
+@pytest.mark.parametrize("d,V", [(1024, 151936), (2048, 151936), (5120, 152064)])
+def test_verify_argmax_at_qwen_heads(ops, T, d, V):
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(T + d)
+    h = _randn(gen, T, d, dtype=torch.bfloat16)
+    w = _randn(gen, d, V, dtype=torch.bfloat16, scale=d ** -0.5)
+    arg, mx = ops.verify_argmax(h, w)
+    arg_r, mx_r = ref.verify_argmax(h, w)
+    torch.testing.assert_close(mx, mx_r, rtol=1e-5, atol=1e-4)
+    top = (h.float() @ w.float()).topk(2, dim=-1).values
+    assert bool(((arg == arg_r) | ((top[:, 0] - top[:, 1]) <= 1e-4)).all())
+
+
+def test_lora_logits_at_qwen25_14b(ops):
+    from repro_torch.kernels import ref
+    T, d, V, r = 8, 5120, 152064, 64
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    h = _randn(gen, T, d, dtype=torch.bfloat16)
+    w = _randn(gen, d, V, dtype=torch.bfloat16, scale=d ** -0.5)
+    a = _randn(gen, d, r, scale=d ** -0.5)
+    b = _randn(gen, r, V, scale=0.05)
+    torch.testing.assert_close(ops.lora_logits(h, w, a, b, 2.0),
+                               ref.lora_logits(h, w, a, b, 2.0), rtol=1e-5, atol=1e-4)
+
+
+# qwen3's GQA group of 2 (16 query heads over 8) at a draft feed, Medusa's
+# verify pass and SpS's, and qwen2.5-14b's group of 5 (40 over 8: 25 rows a
+# kv head at Tq 5), which is not a power of two
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,H", [(1, 16), (4, 16), (5, 16), (1, 40), (5, 40)])
+def test_decode_attention_at_qwen_groups(ops, dtype, Tq, H):
+    from repro_torch.kernels import ref
+    B, KV, hd, S = 8, 8, 128, 294
+    gen = torch.Generator(device="cuda").manual_seed(H * 10 + Tq)
+    q = _randn(gen, B, Tq, H, hd, dtype=dtype)
+    k = _randn(gen, B, S, KV, hd, dtype=dtype)
+    v = _randn(gen, B, S, KV, hd, dtype=dtype)
+    lens = np.random.default_rng(H + Tq).integers(Tq, S + 1, size=B)
+    lens[0] = Tq
+    lens = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    q_in = q[:, 0].contiguous() if Tq == 1 else q
+    torch.testing.assert_close(ops.decode_attention(q_in, k, v, lens),
+                               ref.decode_attention(q_in, k, v, lens), **TOL[dtype])
+
+
+def test_baseline_runners_graphed_match_eager(ops):
+    """Two-model SpS (qwen3-0.6b-tiny drafting for qwen3-1.7b-tiny) and
+    Medusa-lite (vicuna-7b-tiny, 3 heads) in bfloat16: the runners'
+    replayed block-steps equal their eager ones and the functional loops
+    bit for bit, each graph holding the kernels its capture recorded."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import baselines, graphs
+    from repro_torch.models.model import build_model
+
+    def model(name, seed):
+        m = build_model(get_config(name, tiny=True), device="cuda")
+        return m, m.init(torch.Generator(device="cuda").manual_seed(seed))
+
+    (tt, tp), (dt, dp), (vm, vp) = (model("qwen3-1.7b", 0), model("qwen3-0.6b", 1),
+                                    model("vicuna-7b", 2))
+    heads = baselines.init_medusa_heads(torch.Generator(device="cuda").manual_seed(3), vm)
+    prompts = torch.randint(2, 512, (4, 12), generator=torch.Generator(device="cuda")
+                            .manual_seed(4), device="cuda", dtype=torch.int32)
+    cases = [(lambda g: graphs.TwoModelRunner(tt, tp, dt, dp, max_new=16, graphs=g),
+              lambda: baselines.two_model_generate(tt, tp, dt, dp, prompts, 16)),
+             (lambda g: graphs.MedusaRunner(vm, vp, heads, max_new=16, graphs=g),
+              lambda: baselines.medusa_generate(vm, vp, heads, prompts, 16))]
+    for make, functional in cases:
+        want = functional()
+        for g in (False, True):
+            runner = make(g)
+            for _ in range(2):
+                r = runner.generate(prompts)
+                assert torch.equal(r.tokens, want.tokens) and torch.equal(r.lengths, want.lengths)
+                assert r.steps == want.steps
+        stats = runner.graph_stats()
+        assert stats["captures"] == 1 and stats["replays"] == 2 * want.steps
+        once = {"decode_attention": "11decode_attn", "verify_argmax": "14verify_partial"}
+        for recorded, kernel_nodes in stats["per_graph"]:
+            for k, fn in once.items():
+                assert recorded[k] == sum(c for n, c in kernel_nodes.items() if fn in n) > 0

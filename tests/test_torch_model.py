@@ -23,7 +23,7 @@ from repro_torch.core import buffer as tbuffer  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
-NAMES = ["vicuna-7b", "qwen3-0.6b", "mamba2-370m"]
+NAMES = ["vicuna-7b", "qwen3-0.6b", "mamba2-370m", "qwen3-1.7b", "qwen2.5-14b", "llama3-405b"]
 RTOL, ATOL = 1e-5, 2e-5
 NORMS = ("ln1", "ln2", "final_norm", "qn", "kn", "norm_w")
 

@@ -27,7 +27,7 @@ from repro_torch.core import buffer as tbuffer  # noqa: E402
 from repro_torch.core import spec as tspec  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
-NAMES = ["vicuna-7b", "qwen3-0.6b", "mamba2-370m"]
+NAMES = ["vicuna-7b", "qwen3-0.6b", "mamba2-370m", "qwen2.5-14b"]
 RESIDUAL_OUT = ("wo", "wo_ff", "out_proj")
 RTOL, ATOL = 1e-5, 2e-5
 B, TP, NEW = 3, 8, 20
