@@ -7,8 +7,9 @@ kernel) through both schedulers; then the training path (mamba2-370m
 pretraining, vicuna-7b's teacher-forced DVI step, the quickstart),
 vicuna-7b's speculative sampling and per-lane adaptive depth, chunked
 prefill on both models' continuous paths, the prefix cache behind the
-HTTP front end and the launchers, and the paper's baselines (Medusa-lite on
-vicuna-7b, two-model SpS on the qwen3 pair) with qwen2.5-14b's DVI.
+HTTP front end and the launchers, the paper's baselines (Medusa-lite on
+vicuna-7b, two-model SpS on the qwen3 pair) with qwen2.5-14b's DVI, and the
+hybrid and MoE decoders (recurrentgemma-9b, llama4-scout-17b-a16e).
 
     python3 chip_smoke.py
 
@@ -235,6 +236,29 @@ Phases (any failure raises and exits non-zero):
    block), nodes == launches, the profile's gate.  It reports each mode's
    wall and device ms a block-step, tokens/s, MAT, acceptance, graph
    nodes, ``replay()`` host ms and peak memory;
+16. the hybrid and MoE decoders, weights drawn on the card (bf16, seed 0),
+   eagerly and graphed: (a) recurrentgemma-9b at full width and depth (38
+   layers of (rglru, rglru, local), rings of 2048 + 128 slots) through the
+   sync engine (phase 4's requests, the graphed run profiled with its
+   records gate; then R_LONG lanes of prompts longer than the ring, whose
+   prefill keeps the ring's last 2176 positions and whose decode wraps) and
+   the contiguous continuous engine (phase 8's requests and one prompt past
+   the ring, so a lane's ring wraps there too); (b) llama4-scout-17b-a16e
+   at full width cut to L4_LAYERS of its 48 layers (the experts' 4.4 GB a
+   layer), its weights drawn after (a)'s are freed, through the paged
+   continuous engine (rings per lane, global layers pooled).  Gates:
+   graphed == eager bit for bit, each completion == ``ar_generate`` on its
+   exact prompt (the sync path's bucket-padded) or the bf16 near-tie rule
+   (llama4: its AR logits from AR's own one-token steps; beyond a near-tie
+   the float32 witness, ``llama4_witness``: the same engine, graphed, at 4
+   layers in float32, every completion == float32 AR or a float32
+   near-tie), launches exact (recurrentgemma 12 ring ``decode_attention``,
+   5 ``lora_logits``, 1 ``verify_argmax`` a block; llama4 at 8 layers
+   2 (K+1) + 4 ring, 2 ``paged_decode_attention``, 5, 1), each graph's
+   nodes == its capture's launches, 0 syncs in a dispatch and host syncs
+   == dispatches; phase 3 holds the ring form at both configs' shapes
+   (wrapped, stale writes) and the vocab pair at V 256000 / d 4096 and
+   V 202048 / d 5120;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Phases 4, 8 and 9 run every path twice: eagerly (``graphs=False``) and
@@ -244,8 +268,9 @@ gate above holds on both, each graph's kernel nodes (counted through
 libcuda) must equal the launches its capture recorded, and one line per
 mode gives the wall and device time per block-step, tokens/s, the busy
 share, host launches, captures, nodes, the graph pool and peak memory
-(the eager runs of phases 4, 8, 9 and 15 are not profiled again, to keep
-the script within its time limit: no device time or busy share for them).
+(the eager runs of phases 4, 8, 9, 15 and 16 and the graphed runs of
+phase 16 but recurrentgemma's sync one are not profiled, to keep the
+script within its time limit: no device time or busy share for them).
 The graphed continuous paths are traced once more for the host's time per
 tick phase.
 
@@ -305,8 +330,9 @@ VOCAB_PASS_ROWS = 64
 # version: both are float32 products on the card, in other orders
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4   # atol x the gradient's largest entry
 # the mamba2 paths (phase 9): the sync path's 8 requests and the continuous
-# path's 16, as for vicuna; the continuous cache is contiguous
-M_NAME = "mamba2-370m"
+# path's 16, as for vicuna; the continuous cache is contiguous; phases 9 and
+# 13c cut mamba2-370m to M_LAYERS of its 48 layers (the script's time limit)
+M_NAME, M_LAYERS = "mamba2-370m", 24
 # the training path (phase 11): mamba2-370m pretraining, B 8 x T 256 at the
 # reference launcher's lr, 40 steps (each batch one task category, in turn:
 # at this depth each step overshoots toward its batch's category, so the
@@ -365,6 +391,19 @@ Q_HEADS = (("qwen3_0_6b", 1024, 151936), ("qwen3_1_7b", 2048, 151936),
            ("qwen25_14b", 5120, 152064))
 Q_ATTN, Q_KV = ((1, 16), (4, 16), (5, 16), (1, 40), (5, 40)), 8
 M_HEADS, M_STEPS, M_B, M_T, M_LR, M_MAT = 3, 8, 8, 256, 1e-3, 1.9
+# the hybrid and MoE decoders (phase 16): recurrentgemma-9b at full width and
+# depth, llama4-scout-17b-a16e at full width cut to L4_LAYERS of its 48
+# layers (each 4.4 GB in bf16: all 48 do not fit one card); phase 3 checks
+# their ring attention and vocab heads (tags "rg" and "l4"); the sync run of
+# long prompts: R_LONG lanes of prompts longer than recurrentgemma's ring
+# (2176 slots), padded to the engine's one bucket R_BUCKET, so the prefill
+# takes the ring's wrapped write and decoding wraps
+R_NAME, L4_NAME, L4_LAYERS = "recurrentgemma-9b", "llama4-scout-17b-a16e", 8
+# layers of the float32 engine that witnesses llama4's (``llama4_witness``:
+# at 8 layers its float32 weights take 73.4 GiB, beside 3 GiB of rings)
+L4_WIT_LAYERS = 4
+R_LONG, R_BUCKET = 2, 2400
+R_LONG_PROMPTS = (2200, 2400)
 
 
 def phase(n: int, msg: str) -> None:
@@ -716,6 +755,79 @@ def sdpa_inputs(q, k, v, lens):
             v.repeat_interleave(rep, 2).transpose(1, 2), mask[:, None])
 
 
+def ring_pos(n: int, C: int, stale: int = 0) -> np.ndarray:
+    """A ring's slot positions (C,) after positions 0..n-1 were written in
+    order, position p at slot p % C, and `stale` eager writes past them (a
+    rejected draft's, p in [n, n + stale)) left in place; -1 where nothing
+    was written."""
+    pos = np.full(C, -1, np.int32)
+    p = np.arange(max(0, n + stale - C), n + stale)
+    pos[p % C] = p
+    return pos
+
+
+def ring_visible(pos: torch.Tensor, lens: torch.Tensor, Tq: int, W: int) -> torch.Tensor:
+    """(B, Tq, C) bool: query t at qpos = lens - Tq + t sees slot j iff
+    0 <= pos[j] <= qpos and pos[j] > qpos - W (the ring step mask)."""
+    qend = lens.long()[:, None, None] - Tq + 1 + torch.arange(Tq, device=DEV)[None, :, None]
+    p = pos.long()[:, None, :]
+    return (p >= 0) & (p < qend) & (p >= qend - W)
+
+
+def check_ring(ops, ref, gen, B, Tq, H, KV, hd, W, lengths, label, stale: int = 3):
+    """The ring form of decode_attention against its plain version: a ring
+    of C = W + 128 slots per lane holding positions 0..n-1 (n the lane's
+    post-write length, wrapped once n > C) and `stale` rejected writes past
+    them, masked to the window W."""
+    C = W + 128
+    q = torch.randn((B, Tq, H, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    k = torch.randn((B, C, KV, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    v = torch.randn((B, C, KV, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    lens = torch.as_tensor(np.asarray(lengths), dtype=torch.int32, device=DEV)
+    pos = torch.as_tensor(np.stack([ring_pos(int(n), C, stale) for n in lengths]), device=DEV)
+    q_in = q[:, 0].contiguous() if Tq == 1 else q
+    out = ops.decode_attention(q_in, k, v, lens, pos=pos, window=W)
+    visible = ring_visible(pos, lens, Tq, W).any(dim=2).cpu().numpy()
+    err, ok = close_visible("decode_attention", out,
+                            ref.decode_attention(q_in, k, v, lens, pos=pos, window=W), visible)
+    atol, rtol = TOL["decode_attention"]
+    wrapped = sum(int(n) > C for n in lengths)
+    phase(3, f"decode_attention ring {label}: B={B} Tq={Tq} H={H} KV={KV} hd={hd} C={C} "
+             f"W={W} C-split={ops.attn_splits(C, B * KV * ops.attn_row_tiles(Tq * (H // KV)))} "
+             f"row tiles {ops.attn_row_tiles(Tq * (H // KV))} lengths {list(map(int, lengths))} "
+             f"({wrapped} wrapped, {stale} stale writes a lane) max abs err {err:.3e} on "
+             f"{int(visible.sum())} of {visible.size} queries that see a slot (atol {atol} "
+             f"rtol {rtol}), the others exactly 0: ok={ok}")
+    check(ok, f"decode_attention ring {label} disagrees with its plain version")
+    return (q_in, k, v, lens, pos, W), err
+
+
+def ring_bound(args) -> tuple:
+    """The least time of one ring call: q read and the output written once,
+    each lane's live K and V rows (its first min(n, C) slots) and their
+    positions read once, the lengths; QK^T and P.V over the slots each
+    query sees, at the bf16 rate."""
+    q, k, v, lens, pos, W = args
+    B, C, KV, hd = k.shape
+    H = q.shape[-2]
+    Tq = q.shape[1] if q.ndim == 4 else 1
+    live = sum(min(int(n), C) for n in lens.tolist())
+    seen = int(ring_visible(pos, lens, Tq, W).sum()) * H
+    return bound(q.numel() * 2 * 2 + live * (KV * hd * 2 * 2 + 4) + B * 4,
+                 4 * hd * seen / BF16_FLOP_PER_S)
+
+
+def ring_sdpa_inputs(args):
+    """The ring call for torch's scaled_dot_product_attention: heads first,
+    K/V heads repeated for GQA, the ring step mask as a boolean mask."""
+    q, k, v, lens, pos, W = args
+    q4 = q if q.ndim == 4 else q[:, None]
+    rep = q4.shape[2] // k.shape[2]
+    return (q4.transpose(1, 2), k.repeat_interleave(rep, 2).transpose(1, 2),
+            v.repeat_interleave(rep, 2).transpose(1, 2),
+            ring_visible(pos, lens, q4.shape[1], W)[:, None])
+
+
 def paged_tables(rng, lengths, ps, mps, holes=(), unmapped=()):
     """Block tables over a shuffled, non-contiguous page assignment: each
     lane maps the pages covering its length plus one (at most mps), from a
@@ -949,7 +1061,9 @@ def check_ssd_grad(ops, ref, gen, B, T, Q, H, hd, ds):
 
 
 def kernels_phase(cfg, mcfg):
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
+    hybrids = (("rg", get_config(R_NAME)), ("l4", get_config(L4_NAME)))
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     d, V, H, KV, hd = (cfg.d_model, cfg.vocab_size, cfg.num_heads, cfg.num_kv_heads,
                        cfg.resolved_head_dim)
@@ -1090,6 +1204,34 @@ def kernels_phase(cfg, mcfg):
         a_args, _ = check_attention(ops, ref, qgen, B, Tq, Hq, Q_KV, hd, cap, lens_q,
                                     f"GQA G={Hq // Q_KV} Tq={Tq} (phase 15)")
         qwen_attn[f"at_g{Hq // Q_KV}_tq{Tq}"] = (a_args, lens_q)
+    # the hybrid and MoE decoders (phase 16), from generators of their own so
+    # the cases above keep their inputs: the ring form at recurrentgemma-9b's
+    # local layers (MQA, hd 256, G 16, C 2176: a verify pass's 80 rows take
+    # two row tiles) and llama4-scout's (hd 128, G 5, C 8320), lanes short of
+    # the ring and wrapped past it, at a draft feed's Tq 1 and a verify pass's
+    # K + 1; the verify and draft heads at both vocabularies
+    hgen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    hrng = np.random.RandomState(SEED + 12)
+    ring_cases, hybrid_vocab = {}, {}
+    for tag, hcfg in hybrids:
+        W_h = hcfg.local_window
+        C_h = W_h + 128
+        short = list(hrng.randint(64 + K + 1, 128 + MAX_NEW + K + 1, size=B - 3))
+        long_ = list(hrng.randint(C_h + 1, C_h + 300, size=2)) + [C_h - 2]
+        for Tq in (K + 1, 1):
+            args, _ = check_ring(ops, ref, hgen, B, Tq, hcfg.num_heads, hcfg.num_kv_heads,
+                                 hcfg.resolved_head_dim, W_h, short + long_,
+                                 f"{tag} Tq={Tq}")
+            ring_cases[f"at_ring_{tag}_tq{Tq}"] = args
+        check_ring(ops, ref, hgen, 2, K + 1, hcfg.num_heads, hcfg.num_kv_heads,
+                   hcfg.resolved_head_dim, W_h, [K + 1, C_h + 1], f"{tag} edges", stale=0)
+        for T_h in (B, T_verify):
+            h_h, w_h, _ = check_verify(ops, ref, hgen, T_h, hcfg.d_model, hcfg.vocab_size,
+                                       f"{tag} head T={T_h}")
+            hybrid_vocab[f"at_{tag}_t{T_h}"] = (h_h, w_h, T_h, hcfg.d_model, hcfg.vocab_size)
+        l_h, _ = check_lora(ops, ref, hgen, B, hcfg.d_model, hcfg.vocab_size,
+                            hcfg.dvi.lora_rank, f"{tag} draft head")
+        hybrid_vocab[f"lora_{tag}"] = l_h
     # the mamba2 paths: the tied vocab (not a multiple of 64 columns) and the
     # scan at the prefill shapes of both schedulers
     md, mV, mK = mcfg.d_model, mcfg.vocab_size, mcfg.dvi.k_spec
@@ -1141,6 +1283,13 @@ def kernels_phase(cfg, mcfg):
                       attn_bound(q, lengths, cap, kv, hd),
                       library=lambda: sdpa(sq, sk, sv, attn_mask=smask))
 
+    def ring_timing(args):
+        q, k, v, lens, pos, W = args
+        sq, sk, sv, smask = ring_sdpa_inputs(args)
+        return timing(lambda: ops.decode_attention(q, k, v, lens, pos=pos, window=W),
+                      lambda: ref.decode_attention(q, k, v, lens, pos=pos, window=W),
+                      ring_bound(args), library=lambda: sdpa(sq, sk, sv, attn_mask=smask))
+
     def paged_timing(args, lengths, kv=KV):
         q, kp, vp, lens, tbl_t, tbl = args
         sq, sk, sv, smask = paged_sdpa_inputs(q, kp, vp, lens, tbl_t)
@@ -1181,6 +1330,11 @@ def kernels_phase(cfg, mcfg):
                                  lambda h=h, w=w: ref.verify_argmax(h, w),
                                  verify_bound(T_q, d_q, V_q)), **gemm(h, w))
                 for key, (h, w, T_q, d_q, V_q) in qwen_vocab.items()},
+             # recurrentgemma-9b's and llama4-scout's verify heads (phase 16)
+             **{key: dict(timing(lambda h=h, w=w: ops.verify_argmax(h, w),
+                                 lambda h=h, w=w: ref.verify_argmax(h, w),
+                                 verify_bound(T_q, d_q, V_q)), **gemm(h, w))
+                for key, (h, w, T_q, d_q, V_q) in hybrid_vocab.items() if key.startswith("at_")},
              gemm_note=GEMM_NOTE),
         dict(name="lora_logits", route="cuda", source="src/repro_torch/csrc/lora_logits.cu",
              replaces="src/repro/kernels/lora_logits.py:53", max_abs_err=err_l,
@@ -1211,6 +1365,15 @@ def kernels_phase(cfg, mcfg):
                                        lora_bound(B, Q_HEADS[-1][1], Q_HEADS[-1][2],
                                                   cfg.dvi.lora_rank)),
                                 **gemm(q_lora[0], q_lora[1])),
+             # recurrentgemma-9b's and llama4-scout's draft heads (phase 16)
+             **{f"at_{tag}": dict(timing(lambda a=hybrid_vocab[f"lora_{tag}"]:
+                                         ops.lora_logits(*a),
+                                         lambda a=hybrid_vocab[f"lora_{tag}"]:
+                                         ref.lora_logits(*a),
+                                         lora_bound(B, hc.d_model, hc.vocab_size,
+                                                    hc.dvi.lora_rank)),
+                                  **gemm(*hybrid_vocab[f"lora_{tag}"][:2]))
+                for tag, hc in hybrids},
              gemm_note=GEMM_NOTE),
         # attention at the verify pass (Tq = K+1), with the draft feed
         # (Tq = 1) beside it: 30 and 10 of the 40 launches of a block
@@ -1225,7 +1388,9 @@ def kernels_phase(cfg, mcfg):
              # chunked prefill's chunk step (phase 13), one launch a layer
              **{key: attn_timing(c[0], c[1], kv=c[4]) for key, c in chunk_cases.items()},
              # the qwen GQA groups of phase 15
-             **{key: attn_timing(c[0], c[1], kv=Q_KV) for key, c in qwen_attn.items()}),
+             **{key: attn_timing(c[0], c[1], kv=Q_KV) for key, c in qwen_attn.items()},
+             # the ring form at the local layers of phase 16
+             **{key: ring_timing(args) for key, args in ring_cases.items()}),
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/csrc/paged_decode_attention.cu",
              replaces="src/repro/kernels/paged_decode_attention.py:127", max_abs_err=err_p,
@@ -1450,9 +1615,25 @@ def path_attention_ms(row, K: int, k: int, L: int) -> float:
     return (n_feed * row["at_draft_feed"]["ms"] + n_verify * row["ms"]) / (n_feed + n_verify)
 
 
-def top2_gap(model, params, prefix: torch.Tensor) -> tuple:
-    """The AR verifier's top-2 logits for the token after `prefix` (1, p)."""
-    h, _ = model.prefill(params, prefix)
+def top2_gap(model, params, prefix: torch.Tensor, n_prompt: int = 0, max_new: int = 0) -> tuple:
+    """The AR verifier's top-2 logits for the token after `prefix` (1, p).
+    With `n_prompt`, as ar_generate of `max_new` tokens computed them: the
+    prompt (the first n_prompt tokens) prefilled alone into a cache of
+    ar_generate's capacity, then one-token steps over its last token and
+    the generated ones.  An MoE stack needs this: a one-shot prefill of
+    the whole prefix is another function there, since the full path's
+    capacity drops depend on the token count."""
+    if not n_prompt:
+        h, _ = model.prefill(params, prefix)
+    else:
+        from repro_torch.models import transformer as tfm
+        _, cache = model.prefill(params, prefix[:, :n_prompt - 1],
+                                 max_len=n_prompt + max_new + 2 + tfm.RING_SLACK)
+        one = torch.ones((1,), dtype=torch.int32, device=prefix.device)
+        for j in range(n_prompt - 1, prefix.shape[1]):
+            h, cache, cands = model.step(params, model.embed_block(params, prefix[:, j:j + 1]),
+                                         cache)
+            cache = model.commit(cache, cands, one)
     top = model.logits(params, h[:, -1]).float().topk(2, dim=-1).values[0]
     return float(top[0]), float(top[1])
 
@@ -1558,15 +1739,16 @@ def ar_alone(model, params, spec, req, memo: dict) -> list:
 
 
 def check_against_ar(model, params, spec, reqs, comps, label, n_phase=8, alone=False,
-                     same_shape=None, ar_memo=None, witness=None):
+                     same_shape=None, ar_memo=None, witness=None, rtol=GAP_RTOL):
     """Each completion against ar_generate on its exact prompt (one AR run
     per prompt length, or per request when `alone`, which prefills each
     prompt by itself as the continuous engine does, its streams kept in
-    `ar_memo` when given), EOS 1 and its budget
-    applied; a first difference passes at a bf16 near-tie of the AR top-2
-    logits, or, where `same_shape(request)` is given, when greedy AR decoded
-    at the engine's own row counts gives the completion bit for bit, or,
-    where `witness(request, completion)` is given, when it holds."""
+    `ar_memo` when given), EOS 1 and its budget applied; a first
+    difference passes at a near-tie of the AR top-2 logits (within `rtol`
+    of the top one; by default GAP_RTOL, bf16's), or, where
+    `same_shape(request)` is given, when greedy AR decoded at the engine's
+    own row counts gives the completion bit for bit, or, where
+    `witness(request, completion)` is given, when it holds."""
     by_uid = {c.uid: c for c in comps}
     check(sorted(by_uid) == sorted(r.uid for r in reqs), f"{label}: missing completions")
     equal, tied, shaped = 0, 0, 0
@@ -1594,30 +1776,33 @@ def check_against_ar(model, params, spec, reqs, comps, label, n_phase=8, alone=F
                   f"{label}: request {r.uid} stops at {len(got)}, AR at {len(stream)}")
             prefix = torch.as_tensor(np.concatenate([r.prompt, stream[:p]]).astype(np.int64),
                                      device=DEV)[None]
-            t1, t2 = top2_gap(model, params, prefix)
+            # an MoE stack's AR logits come from its dropless decode steps
+            t1, t2 = (top2_gap(model, params, prefix, len(r.prompt), r.max_new)
+                      if model.cfg.moe is not None and alone else
+                      top2_gap(model, params, prefix))
             phase(n_phase, f"{label}: request {r.uid} first differs from AR at generated token "
                      f"{p}, AR top-2 logits {t1:.4f} / {t2:.4f}, gap {t1 - t2:.4e}")
-            if t1 - t2 <= GAP_RTOL * max(abs(t1), 1.0):
+            if t1 - t2 <= rtol * max(abs(t1), 1.0):
                 tied += 1
                 continue
             if witness is not None:
                 check(witness(r, got), f"{label}: request {r.uid} differs from AR outside a "
-                                       f"bf16 near-tie and its witness does not hold")
+                                       f"near-tie and its witness does not hold")
                 shaped += 1
                 continue
             check(same_shape is not None,
-                  f"{label}: request {r.uid} differs from AR outside a bf16 near-tie")
+                  f"{label}: request {r.uid} differs from AR outside a near-tie")
             exact = same_shape(r) == got
             phase(n_phase, f"{label}: request {r.uid}: greedy AR decoded at the engine's row "
                            f"counts gives the completion bit for bit: {exact}")
-            check(exact, f"{label}: request {r.uid} differs from AR outside a bf16 near-tie "
+            check(exact, f"{label}: request {r.uid} differs from AR outside a near-tie "
                          f"and from AR at the engine's row counts")
             shaped += 1
     phase(n_phase, f"{label}: {equal} of {len(reqs)} completions equal their AR stream; {tied} "
-             f"differ only at a bf16 near-tie (rtol {GAP_RTOL})"
+             f"differ only at a near-tie (rtol {rtol})"
              + (f"; {shaped} differ beyond one and equal AR at the engine's row counts"
                 if same_shape is not None else "")
-             + (f"; {shaped} differ beyond one and pass their witness"
+             + (f"; {shaped} differ beyond one and go to their witness"
                 if witness is not None else ""))
 
 
@@ -1682,8 +1867,9 @@ def sync_run(model, params, dvi, reqs, graphs_on: bool, n: int, label: str,
     The drafter `dvi` is frozen, unless a learning trainer `state` is given
     (with ``learn=True`` in `kw`)."""
     from repro_torch.serving.engine import ServingEngine
-    eng = ServingEngine(model, params, state or frozen(model, dvi), batch_size=N_REQUESTS,
-                        max_new=MAX_NEW, graphs=graphs_on, **dict(dict(learn=False), **kw))
+    kw = dict(dict(learn=False, batch_size=N_REQUESTS), **kw)
+    eng = ServingEngine(model, params, state or frozen(model, dvi), max_new=MAX_NEW,
+                        graphs=graphs_on, **kw)
     eng.warmup(buckets=sorted({eng._bucket(len(r.prompt)) for r in reqs}))
     eng.submit_request(reqs[0])                  # warm-up batch, not counted
     eng.run()
@@ -1828,6 +2014,98 @@ def report_modes(n: int, label: str, runs: dict) -> None:
              f"({len(graphed)} completions)")
     check(eager == graphed and len(graphed) > 0,
           f"{label}: graphed streams differ from eager ones")
+
+
+def check_comps(comps, reqs, vocab: int, label: str) -> None:
+    """One well-formed completion for each request: 1 to MAX_NEW tokens,
+    each in the vocabulary."""
+    check(len(comps) == len(reqs), f"{label}: {len(comps)} completions for {len(reqs)} "
+                                   f"requests")
+    for c in comps:
+        check(1 <= len(c.gen_tokens) <= MAX_NEW and bool((c.gen_tokens >= 0).all())
+              and bool((c.gen_tokens < vocab).all()),
+              f"{label}: request {c.uid}: bad generation {c.gen_tokens}")
+
+
+def launch_gate(n: int, label: str, r: dict, want: dict) -> None:
+    phase(n, f"{label}: launches {r['launches']}; expected {want}")
+    check(r["launches"] == want, f"{label}: the kernels did not run as the formula says")
+
+
+def sync_modes(model, params, dvi, reqs, n: int, label: str, want, prefills=None,
+               profile=None, **kw) -> dict:
+    """A path on the sync engine (`kw` to ``sync_run``), eagerly and
+    graphed: well-formed completions, the launches ``want(run)`` exact on
+    both, graphed == eager bit for bit and the census (``report_modes``),
+    then each graphed completion against AR on its bucket-padded prompt
+    (the near-tie rule).  ``profile(run)``, given, profiles the graphed run
+    (the eager one is not profiled: the script's time limit).  Returns the
+    runs by mode."""
+    from repro_torch.core import spec
+    from repro_torch.serving.engine import Request
+    runs = {}
+    for mode, on in MODES:
+        r = runs[mode] = sync_run(model, params, dvi, reqs, on, n, f"{label} {mode}",
+                                  prefills=prefills, **kw)
+        check(r["steps"] > 0, f"{label} {mode}: no block-step ran")
+        check_comps(r["comps"], reqs, model.cfg.vocab_size, f"{label} {mode}")
+        pre = "" if prefills is None else f" and {r['prefills']} prefill calls"
+        phase(n, f"{label} {mode}: served {len(r['comps'])} requests in {r['steps']} "
+                 f"block-steps{pre}, wall {r['wall']:.3f} s: MAT "
+                 f"{r['committed'] / max(r['blocks'], 1):.4f}, "
+                 f"{r['committed'] / r['wall']:.1f} committed tokens/s, peak memory "
+                 f"{r['peak'] / 2**30:.2f} GiB")
+        launch_gate(n, f"{label} {mode}", r, want(r))
+        r["profile"] = profile(r) if on and profile is not None else None
+        eng = r["eng"]
+        padded = [Request(uid=q.uid, prompt=eng._pad(q, eng._bucket(len(q.prompt))),
+                          max_new=q.max_new) for q in reqs]
+        del eng
+        release(r)
+    report_modes(n, label, runs)
+    check_against_ar(model, params, spec, padded, runs["graphed"]["comps"], label, n_phase=n)
+    return runs
+
+
+def continuous_modes(model, params, dvi, reqs, pages: int, n: int, label: str, want,
+                     prefills=None, profile=None, engine_kw=None, **ar_kw) -> dict:
+    """A path on the continuous engine (contiguous with `pages` 0, else
+    paged; `engine_kw` to it), eagerly and graphed, under
+    ``serve_checked``'s zero-sync gate: well-formed completions, lanes
+    empty at the end, host syncs == dispatches, the launches ``want(run)``
+    exact on both, graphed == eager bit for bit and the census, then each
+    graphed completion against AR on its exact prompt alone (B = 1, as the
+    admission prefills it; `ar_kw` to ``check_against_ar``).
+    ``profile(run)``, given, profiles the graphed run.  Returns the runs by
+    mode."""
+    from repro_torch.core import spec
+    runs = {}
+    for mode, on in MODES:
+        r = runs[mode] = continuous_run(model, params, dvi, reqs, on, pages, n,
+                                        f"{label} {mode}", prefills=prefills,
+                                        **(engine_kw or {}))
+        eng = r["eng"]
+        check(r["blocks_run"] > 0, f"{label} {mode}: no block ran")
+        check_comps(r["comps"], reqs, model.cfg.vocab_size, f"{label} {mode}")
+        pre = "" if prefills is None else f", {r['prefills']} prefill calls"
+        phase(n, f"{label} {mode} ({f'paged, {pages} pages' if pages else 'contiguous'}, "
+                 f"{C_SLOTS} lanes, sync_every {C_SYNC}): {len(r['comps'])} requests in "
+                 f"{r['wall']:.3f} s, {r['committed'] / r['wall']:.1f} committed tokens/s, MAT "
+                 f"{r['committed'] / max(r['blocks'], 1):.4f}, {r['dispatches']} dispatches, "
+                 f"{r['host_syncs']} host syncs, {r['blocks_run']} blocks run ({r['steps']} "
+                 f"with a live lane){pre}, peak memory {r['peak'] / 2**30:.2f} GiB")
+        phase(n, f"{label} {mode}: synchronising operations per tick: {r['per_tick']} (0 "
+                 f"inside every dispatch: sync debug mode 'error')")
+        check(eng.active_slots == 0 and not eng.busy, f"{label}: lanes left occupied at the end")
+        check(r["host_syncs"] == r["dispatches"], f"{label}: host syncs != dispatches")
+        launch_gate(n, f"{label} {mode}", r, want(r))
+        r["profile"] = profile(r) if on and profile is not None else None
+        del eng
+        release(r)
+    report_modes(n, label, runs)
+    check_against_ar(model, params, spec, reqs, runs["graphed"]["comps"], label, n_phase=n,
+                     alone=True, **ar_kw)
+    return runs
 
 
 def continuous_phase(cfg, model, params, dvi, paged_row, vocab_rows):
@@ -2594,8 +2872,9 @@ def chunked_phase(cfg, model, params, dvi, base: dict, paged_row, vocab_rows) ->
 def report_chunked(label: str, r: dict, base: dict) -> None:
     """One line of a chunked run's figures, beside the one-shot run `base`."""
     steps, p, cg, t = max(r["steps"], 1), r["profile"], r["chunk_graph"], r["ticks"]
-    phase(13, f"{label}: wall per block-step {1e3 * r['wall'] / steps:.2f} ms, device "
-              f"{p['device_ms']:.2f} ms a block-step, busy {100 * p['busy']:.1f}%, "
+    dev = ("device not profiled" if p is None else
+           f"device {p['device_ms']:.2f} ms a block-step, busy {100 * p['busy']:.1f}%")
+    phase(13, f"{label}: wall per block-step {1e3 * r['wall'] / steps:.2f} ms, {dev}, "
               f"{r['committed'] / r['wall']:.1f} committed tokens/s, tick p50 "
               f"{1e3 * t['p50_s']:.2f} / p95 {1e3 * t['p95_s']:.2f} / max "
               f"{1e3 * t['max_s']:.2f} ms over {t['count']} ticks, chunk graph "
@@ -3057,7 +3336,7 @@ def engine_rows_cache(model, params, req, chunk: int = 0) -> dict:
     prompt = torch.as_tensor(req.prompt, device=DEV)
     n = len(req.prompt) - 1
     c1 = min(chunk, n) if chunk else n
-    _, pc = model.prefill(params, prompt[None, :c1])
+    _, pc = model.prefill(params, prompt[None, :c1], max_len=c1)   # the engine's scratch
     cache = tfm.insert_slot(model.cfg, model.init_cache(C_SLOTS, len(req.prompt) + req.max_new
                                                         + tfm.RING_SLACK), pc, 0)
     pos = c1
@@ -3179,8 +3458,7 @@ def mamba_phase(by_row):
     from repro_torch.configs import get_config
     from repro_torch.core import lora, spec
     from repro_torch.models.model import build_model
-    from repro_torch.serving.engine import Request
-    cfg = get_config(M_NAME)
+    cfg = get_config(M_NAME).replace(num_layers=M_LAYERS)
     model = build_model(cfg, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -3190,7 +3468,7 @@ def mamba_phase(by_row):
     torch.cuda.synchronize()
     n_par = sum(p.numel() for s in params["segments"].values() for p in s.values())
     phase(9, f"{M_NAME} bf16 params drawn on the card in {time.perf_counter() - t0:.1f} s "
-             f"({cfg.num_layers} layers, {n_par / 1e6:.1f}M in segments, tied head "
+             f"({cfg.num_layers} of its 48 layers, {n_par / 1e6:.1f}M in segments, tied head "
              f"{tuple(params['lm_head'].shape)})")
     prefills = count_prefills(model)
     expect = {name: by_row[name]["at_mamba2"]["ms"]
@@ -3199,65 +3477,24 @@ def mamba_phase(by_row):
 
     # ---- sync scheduler: bucket-padded prompts ----
     reqs = make_requests(cfg)
-    sync = {}
-    for mode, on in MODES:
-        r = sync[mode] = sync_run(model, params, dvi, reqs, on, 9, f"{M_NAME} sync {mode}",
-                                  prefills=prefills)
-        n, n_pre = r["steps"], r["prefills"]
-        check(len(r["comps"]) == N_REQUESTS and n > 0,
-              f"{len(r['comps'])} completions in {n} block-steps")
-        phase(9, f"sync {mode}: served {len(r['comps'])} requests in {n} block-steps and "
-                 f"{n_pre} prefill calls, wall {r['wall']:.3f} s: MAT "
-                 f"{r['committed'] / max(r['blocks'], 1):.4f}, "
-                 f"{r['committed'] / r['wall']:.1f} committed tokens/s, peak memory "
-                 f"{r['peak'] / 2**30:.2f} GiB")
-        want = mamba_want(cfg, n, n_pre)
-        phase(9, f"sync {mode}: launches {r['launches']}; expected {want}")
-        check(r["launches"] == want, "the mamba2 sync path did not run the kernels as the "
-                                     "formula says")
-        # the eager reruns are not profiled (the script's time limit)
-        r["profile"] = profile_batch(r["eng"], reqs, r["wall"] * 1e3, n=9,
-                                     expect=dict(expect, ssd_scan=by_row["ssd_scan"]["ms"]),
-                                     per_call=per_prefill) if on else None
-        padded = [Request(uid=q.uid, prompt=r["eng"]._pad(q, r["eng"]._bucket(len(q.prompt))),
-                          max_new=q.max_new) for q in reqs]
-        release(r)
-    report_modes(9, f"{M_NAME} sync", sync)
-    check_against_ar(model, params, spec, padded, sync["graphed"]["comps"], f"{M_NAME} sync",
-                     n_phase=9)
+    sync = sync_modes(
+        model, params, dvi, reqs, 9, f"{M_NAME} sync", prefills=prefills,
+        want=lambda r: mamba_want(cfg, r["steps"], r["prefills"]),
+        profile=lambda r: profile_batch(
+            r["eng"], reqs, r["wall"] * 1e3, n=9, per_call=per_prefill,
+            expect=dict(expect, ssd_scan=by_row["ssd_scan"]["ms"])))
 
     # ---- continuous scheduler, contiguous layout: exact prompts ----
     creqs = continuous_requests(cfg)
-    cont = {}
-    for mode, on in MODES:
-        r = cont[mode] = continuous_run(model, params, dvi, creqs, on, 0, 9,
-                                        f"{M_NAME} continuous {mode}", prefills=prefills)
-        eng, blocks_run, n_pre = r["eng"], r["blocks_run"], r["prefills"]
-        check(len(r["comps"]) == C_REQUESTS and blocks_run > 0, f"{len(r['comps'])} completions")
-        phase(9, f"continuous {mode} (contiguous, {C_SLOTS} lanes, sync_every {C_SYNC}): "
-                 f"{len(r['comps'])} requests in {r['wall']:.3f} s, "
-                 f"{r['committed'] / r['wall']:.1f} committed tokens/s, MAT "
-                 f"{r['committed'] / max(r['blocks'], 1):.4f}, {r['dispatches']} dispatches, "
-                 f"{r['host_syncs']} host syncs, {blocks_run} blocks run ({r['steps']} with a "
-                 f"live lane), {n_pre} prefill calls, peak memory {r['peak'] / 2**30:.2f} GiB")
-        phase(9, f"continuous {mode}: synchronising operations per tick: {r['per_tick']} (0 "
-                 f"inside every dispatch: sync debug mode 'error')")
-        check(eng.active_slots == 0 and not eng.busy, "lanes left occupied at the end")
-        check(r["host_syncs"] == r["dispatches"], "host syncs != dispatches")
-        want = mamba_want(cfg, blocks_run, n_pre)
-        phase(9, f"continuous {mode}: launches {r['launches']}; expected {want}")
-        check(r["launches"] == want, "the mamba2 continuous path did not run the kernels as "
-                                     "the formula says")
-        r["profile"] = profile_batch(
-            eng, creqs, r["wall"] * 1e3, n=9, per_call=per_prefill,
-            expect=dict(expect, ssd_scan=by_row["ssd_scan"]["at_admission"]["ms"])) if on else None
-        release(r)
-    report_modes(9, f"{M_NAME} continuous", cont)
-    tick_phases(model, params, dvi, creqs, 0, 9, f"{M_NAME} continuous")
     ar_memo: dict = {}                 # phase 13c reuses these AR streams
-    check_against_ar(model, params, spec, creqs, cont["graphed"]["comps"],
-                     f"{M_NAME} continuous", n_phase=9, alone=True,
-                     same_shape=lambda q: ar_at_engine_rows(model, params, q), ar_memo=ar_memo)
+    cont = continuous_modes(
+        model, params, dvi, creqs, 0, 9, f"{M_NAME} continuous", prefills=prefills,
+        want=lambda r: mamba_want(cfg, r["blocks_run"], r["prefills"]),
+        profile=lambda r: profile_batch(
+            r["eng"], creqs, r["wall"] * 1e3, n=9, per_call=per_prefill,
+            expect=dict(expect, ssd_scan=by_row["ssd_scan"]["at_admission"]["ms"])),
+        same_shape=lambda q: ar_at_engine_rows(model, params, q), ar_memo=ar_memo)
+    tick_phases(model, params, dvi, creqs, 0, 9, f"{M_NAME} continuous")
 
     # ---- phase 13c: chunked prefill on the contiguous continuous engine ----
     t13 = time.perf_counter()
@@ -3281,6 +3518,209 @@ def mamba_phase(by_row):
     phase(13, f"{label}: phase 13c took {time.perf_counter() - t13:.1f} s")
     return (sync["graphed"]["launches"], cont["graphed"]["launches"],
             sync["eager"]["launches"], cont["eager"]["launches"], r)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the hybrid and MoE decoders
+# ---------------------------------------------------------------------------
+
+def ring_launches(cfg, paged: bool) -> tuple:
+    """(decode_attention, paged_decode_attention) launches of one block: a
+    layer of the draft path [0, k) runs once a feed (K + 1 feeds), a layer
+    of the target path once in the verify pass; local layers read their
+    rings through decode_attention's ring form, global layers go through
+    paged_decode_attention on a paged engine; RG-LRU layers launch no
+    attention."""
+    from repro_torch.models import transformer as tfm
+    K, k = cfg.dvi.k_spec, cfg.dvi.split_layer
+    dec = pag = 0
+    for seg in tfm.model_segments(cfg):
+        times = seg.n * (K + 1 if seg.start < k else 1)
+        if seg.kind == "local" or (seg.kind == "attn" and not paged):
+            dec += times
+        elif seg.kind == "attn":
+            pag += times
+    return dec, pag
+
+
+def hybrid_want(cfg, blocks: int, paged: bool) -> dict:
+    """The launch formula of the phase-16 paths: per block the ring and
+    global attention launches of ``ring_launches``, K + 1 lora_logits and
+    one verify_argmax; prefill runs no kernel of the port (its attention
+    and scans are plain PyTorch, as the reference's are jnp)."""
+    dec, pag = ring_launches(cfg, paged)
+    return {"decode_attention": dec * blocks, "paged_decode_attention": pag * blocks,
+            "lora_logits": (cfg.dvi.k_spec + 1) * blocks, "verify_argmax": blocks,
+            "ssd_scan": 0}
+
+
+def n_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(n_params(v) for v in tree.values())
+    return tree.numel()
+
+
+def n_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(n_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def block_weight_bytes(cfg, params) -> int:
+    """Weight bytes one block-step reads: each layer of the draft path [0, k)
+    once a feed (K + 1 feeds), each later layer once (the verify pass; the
+    MoE FFN computes every expert, an RG-LRU block reads its weights once a
+    pass), and the vocab head once a draft feed and once in the verify
+    pass."""
+    from repro_torch.models import transformer as tfm
+    K, k = cfg.dvi.k_spec, cfg.dvi.split_layer
+    layers = sum(n_bytes(params["segments"][seg.name]) * (K + 1 if seg.start < k else 1)
+                 for seg in tfm.model_segments(cfg))
+    return layers + n_bytes(params["lm_head"]) * (K + 2)
+
+
+def draw(cfg, n: int):
+    """The model of `cfg` on the card with random weights (in its dtype)
+    and a LoRA drafter drawn from SEED, as phase 4 draws vicuna's."""
+    from repro_torch.core import lora
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    dvi = lora.init_draft_params(gen, cfg)
+    dvi["B"] = torch.randn(dvi["B"].shape, generator=gen, device=DEV) * 0.05
+    torch.cuda.synchronize()
+    wb = block_weight_bytes(cfg, params)
+    phase(n, f"{cfg.name} {cfg.dtype} params drawn on the card in {time.perf_counter() - t0:.1f} s "
+             f"({cfg.num_layers} layers, {n_params(params) / 1e9:.2f}B parameters, "
+             f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; layer kinds "
+             f"{cfg.layer_pattern}); a block-step reads {wb / 1e9:.2f} GB of weights, "
+             f"{1e3 * wb / HBM_BYTES_PER_S:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    return model, params, dvi
+
+
+def hybrid_phase(by_row) -> dict:
+    """Phase 16: (a) recurrentgemma-9b at full width and depth through the
+    sync engine (phase 4's requests, the graphed run profiled; then R_LONG
+    lanes of prompts longer than its rings, so the prefill takes the
+    wrapped ring write and decoding wraps) and the contiguous continuous
+    engine (phase 8's requests and one prompt past the ring); (b)
+    ``llama4_phase``.  Returns each path's eager and graphed runs (their
+    launch counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import Request
+    out = {}
+    t0 = time.perf_counter()
+    cfg = get_config(R_NAME)
+    check(ring_launches(cfg, False) == (12, 0),
+          f"{R_NAME}: {ring_launches(cfg, False)} attention launches a block, expected 12 "
+          f"ring launches (the draft layers [0, 2) are RG-LRU)")
+    model, params, dvi = draw(cfg, 16)
+    reqs = make_requests(cfg)
+    # all 12 ring launches a block are the verify pass's (Tq = K + 1)
+    expect = {"decode_attention": by_row["decode_attention"][f"at_ring_rg_tq{cfg.dvi.k_spec + 1}"]
+              ["ms"], "verify_argmax": by_row["verify_argmax"]["at_rg_t40"]["ms"],
+              "lora_logits": by_row["lora_logits"]["at_rg"]["ms"]}
+    sync = sync_modes(model, params, dvi, reqs, 16, f"{R_NAME} sync",
+                      want=lambda r: hybrid_want(cfg, r["steps"], paged=False),
+                      profile=lambda r: profile_batch(r["eng"], reqs, r["wall"] * 1e3, n=16,
+                                                      expect=expect))
+    rng = np.random.RandomState(SEED + 16)
+    C = cfg.local_window + 128
+    long_reqs = [Request(uid=100 + i, prompt=rng.randint(
+        2, cfg.vocab_size, size=int(rng.randint(*R_LONG_PROMPTS))).astype(np.int32),
+        max_new=MAX_NEW) for i in range(R_LONG + 1)]
+    phase(16, f"{R_NAME} long prompts of {[len(r.prompt) for r in long_reqs]} tokens against "
+              f"rings of {C} slots: the prefill keeps the last {C} positions, the decode wraps")
+    check(all(len(r.prompt) > C for r in long_reqs), "the long prompts do not pass the ring")
+    long_ = sync_modes(model, params, dvi, long_reqs[:R_LONG], 16, f"{R_NAME} sync long",
+                       want=lambda r: hybrid_want(cfg, r["steps"], paged=False),
+                       buckets=(R_BUCKET,), batch_size=R_LONG)
+    creqs = continuous_requests(cfg) + long_reqs[R_LONG:]
+    cont = continuous_modes(model, params, dvi, creqs, 0, 16, f"{R_NAME} continuous",
+                            want=lambda r: hybrid_want(cfg, r["blocks_run"], paged=False),
+                            engine_kw=dict(cache_len=R_BUCKET + MAX_NEW + 256),
+                            same_shape=lambda q: ar_at_engine_rows(model, params, q))
+    out.update(recurrentgemma_sync=sync, recurrentgemma_long=long_,
+               recurrentgemma_continuous=cont)
+    phase(16, f"16a ({R_NAME}) took {time.perf_counter() - t0:.1f} s")
+    del model, params, dvi
+    release({})
+    out.update(llama4_phase())
+    return out
+
+
+def llama4_phase() -> dict:
+    """Phase 16b: llama4-scout-17b-a16e at full width, L4_LAYERS layers,
+    through the paged continuous engine, then ``llama4_witness``.  A bf16
+    completion that differs from AR beyond a near-tie is held by that
+    witness: top-1 routing turns rounding into a discrete choice (where the
+    engine's rows and AR's one-token steps differ in their last bits, a
+    token's router can pick another expert, and every later token reads
+    that token's K/V), so bf16 streams part at positions whose own top-2
+    gap is wide."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfg = get_config(L4_NAME).replace(num_layers=L4_LAYERS)
+    check(ring_launches(cfg, True) == (2 * (cfg.dvi.k_spec + 1) + 4, 2),
+          f"{cfg.name} at {L4_LAYERS} layers: {ring_launches(cfg, True)} launches a block, "
+          f"expected 2(K+1) + 4 ring and 2 paged")
+    model, params, dvi = draw(cfg, 16)
+    label = f"{L4_NAME} ({L4_LAYERS} layers) continuous"
+    deferred = []
+
+    def defer(req, got) -> bool:
+        deferred.append(req.uid)
+        phase(16, f"{label}: request {req.uid} differs beyond a bf16 near-tie: held by the "
+                  f"float32 witness of the same engine below")
+        return True
+    creqs = continuous_requests(cfg)
+    runs = continuous_modes(model, params, dvi, creqs, C_PAGES_AMPLE, 16, label,
+                            want=lambda r: hybrid_want(cfg, r["blocks_run"], paged=True),
+                            witness=defer)
+    del model, params, dvi
+    release({})
+    llama4_witness(creqs, deferred)
+    phase(16, f"16b ({L4_NAME}, {L4_LAYERS} of 48 layers, and its witness) took "
+              f"{time.perf_counter() - t0:.1f} s")
+    return {"llama4_continuous": runs}
+
+
+def llama4_witness(reqs, deferred: list) -> None:
+    """The float32 witness of phase 16b: llama4-scout at L4_WIT_LAYERS
+    layers (one (local x 3, attn) period; 8 layers of float32 weights,
+    73.4 GiB, leave no room for the engine's rings) drawn in float32 from
+    SEED, through the same engine as the bf16 path (C_SLOTS lanes, the
+    paged pool of C_PAGES_AMPLE pages, graphed), all of `reqs`: the launch
+    formula, the census, lanes empty, host syncs == dispatches, and every
+    completion equal to float32 ``ar_generate`` on its exact prompt alone
+    or first different at a float32 near-tie (F32_GAP_RTOL), where rounding
+    no longer moves a routing or a greedy pick."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import spec
+    t0 = time.perf_counter()
+    cfg = get_config(L4_NAME).replace(num_layers=L4_WIT_LAYERS, dtype="float32")
+    model, params, dvi = draw(cfg, 16)
+    label = f"{L4_NAME} ({L4_WIT_LAYERS} layers, float32 witness) continuous graphed"
+    r = continuous_run(model, params, dvi, reqs, True, C_PAGES_AMPLE, 16, label)
+    eng = r["eng"]
+    check_comps(r["comps"], reqs, cfg.vocab_size, label)
+    phase(16, f"{label} (paged, {C_PAGES_AMPLE} pages, {C_SLOTS} lanes, sync_every {C_SYNC}): "
+              f"{len(r['comps'])} requests in {r['wall']:.3f} s, {r['dispatches']} dispatches, "
+              f"{r['host_syncs']} host syncs, {r['blocks_run']} blocks run, peak memory "
+              f"{r['peak'] / 2**30:.2f} GiB; bf16 requests it holds: {deferred}")
+    check(eng.active_slots == 0 and not eng.busy, f"{label}: lanes left occupied at the end")
+    check(r["host_syncs"] == r["dispatches"], f"{label}: host syncs != dispatches")
+    launch_gate(16, label, r, hybrid_want(cfg, r["blocks_run"], paged=True))
+    check_census(16, label, r["graph"])
+    del eng
+    release(r)
+    check_against_ar(model, params, spec, reqs, r["comps"], label, n_phase=16, alone=True,
+                     rtol=F32_GAP_RTOL)
+    phase(16, f"{label}: took {time.perf_counter() - t0:.1f} s")
+    del model, params, dvi
+    release({})
 
 
 # ---------------------------------------------------------------------------
@@ -4018,6 +4458,11 @@ def main() -> int:
     t_qs = quickstart_phase()
     marks["11a,c"] = time.perf_counter() - t_start
 
+    # ---- phase 16: the hybrid and MoE decoders ----
+    release({})
+    h16 = hybrid_phase(by_row)
+    marks["16"] = time.perf_counter() - t_start
+
     # ---- phase 7: result lines ----
     for row in rows:
         name = row["name"]
@@ -4043,7 +4488,9 @@ def main() -> int:
                    "sps": b_sps["sps"]["graphed"]["launches"].get(name, 0),
                    "sps_self": b_sps["sps_self"]["graphed"]["launches"].get(name, 0),
                    "medusa": b_medusa["graphed"]["launches"].get(name, 0),
-                   "qwen25_14b": q14["launches"].get(name, 0)}
+                   "qwen25_14b": q14["launches"].get(name, 0),
+                   # phase 16: the hybrid and MoE decoders (graphed)
+                   **{path: r["graphed"]["launches"].get(name, 0) for path, r in h16.items()}}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["launches_eager_by_path"] = {
@@ -4054,7 +4501,8 @@ def main() -> int:
             "chunked": ch["eager"]["launches"].get(name, 0),
             "sps": b_sps["sps"]["eager"]["launches"].get(name, 0),
             "sps_self": b_sps["sps_self"]["eager"]["launches"].get(name, 0),
-            "medusa": b_medusa["eager"]["launches"].get(name, 0)}
+            "medusa": b_medusa["eager"]["launches"].get(name, 0),
+            **{path: r["eager"]["launches"].get(name, 0) for path, r in h16.items()}}
     ends = list(marks.values())
     phase(7, f"all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by phase: "
              + ", ".join(f"{name} {end - start:.1f}" for name, start, end

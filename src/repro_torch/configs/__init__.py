@@ -5,13 +5,18 @@ runs; qwen3-0.6b and qwen3-1.7b (GQA, ``qk_norm``, tied heads, one vocabulary)
 are the two-model speculative-decoding baseline's drafter and target;
 qwen2.5-14b is a dense GQA decoder with ``qkv_bias``; llama3-405b is copied
 for its tiny variant (its full size does not fit one card); mamba2-370m is the
-attention-free Mamba-2 stack whose prefill runs the ``ssd_scan`` kernel.
+attention-free Mamba-2 stack whose prefill runs the ``ssd_scan`` kernel;
+recurrentgemma-9b is the hybrid of RG-LRU blocks and sliding-window
+attention over per-lane ring caches (38 layers of (rglru, rglru, local));
+llama4-scout-17b-a16e interleaves three ring layers with one global layer
+and has a mixture-of-experts FFN on every layer (its full depth does not fit
+one card: the card runs it cut in depth).
 """
 from __future__ import annotations
 
-from repro_torch.configs import (llama3_405b, mamba2_370m, qwen3_0_6b, qwen3_1_7b, qwen25_14b,
-                                 vicuna_7b)
-from repro_torch.configs.base import DVIConfig, ModelConfig, SSMConfig
+from repro_torch.configs import (llama3_405b, llama4_scout_17b_a16e, mamba2_370m, qwen3_0_6b,
+                                 qwen3_1_7b, qwen25_14b, recurrentgemma_9b, vicuna_7b)
+from repro_torch.configs.base import DVIConfig, ModelConfig, MoEConfig, RGLRUConfig, SSMConfig
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0_6b,
@@ -20,6 +25,8 @@ _MODULES = {
     "llama3-405b": llama3_405b,
     "vicuna-7b": vicuna_7b,
     "mamba2-370m": mamba2_370m,
+    "recurrentgemma-9b": recurrentgemma_9b,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
 }
 
 ALL_ARCHS = list(_MODULES)
@@ -34,4 +41,5 @@ def get_config(name: str, *, tiny: bool = False) -> ModelConfig:
     return cfg
 
 
-__all__ = ["ALL_ARCHS", "DVIConfig", "ModelConfig", "SSMConfig", "get_config"]
+__all__ = ["ALL_ARCHS", "DVIConfig", "ModelConfig", "MoEConfig", "RGLRUConfig", "SSMConfig",
+           "get_config"]

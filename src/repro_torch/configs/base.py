@@ -4,10 +4,11 @@ The port may not import the JAX package (its config module imports
 ``jax.numpy`` for the dtype), so the dataclasses are copied here with
 ``torch_dtype`` in place of ``jnp_dtype``.  Field names and defaults match
 the reference exactly (``tests/test_torch_model.py`` compares them).
-``SSMConfig`` (Mamba-2) is copied too; the sub-configs of the architectures
-the port does not run yet (MoE, MLA, RG-LRU, encoder, vision) are kept as
-opaque ``Optional`` fields so a config that sets one is rejected by
-``build_model`` instead of being misread.
+``SSMConfig`` (Mamba-2), ``RGLRUConfig`` (RecurrentGemma) and ``MoEConfig``
+are copied too; the sub-configs of the architectures the port does not run
+yet (MLA, encoder, vision) are kept as opaque ``Optional`` fields so a
+config that sets one is rejected by ``build_model`` instead of being
+misread.
 """
 from __future__ import annotations
 
@@ -16,6 +17,29 @@ from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 import torch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    d_ff_shared: int = 0
+    router_aux_weight: float = 0.01
+    capacity_factor: float = 1.25   # full-sequence dispatch; decode is dropless
+    # layers 0..first_dense_layers-1 use a dense FFN instead of MoE
+    first_dense_layers: int = 0
+    d_ff_dense: int = 0
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU recurrent block [arXiv:2402.19427]."""
+    lru_width: int = 0          # 0 => d_model
+    d_conv: int = 4
+    block_pattern: Tuple[str, ...] = ("rglru", "rglru", "local")  # 1:2 attn:recurrent
+    local_window: int = 2048
 
 
 @dataclass(frozen=True)
@@ -77,10 +101,10 @@ class ModelConfig:
     norm_eps: float = 1e-5
     act: str = "silu"              # silu (SwiGLU) | gelu (GeGLU / plain)
     glu: bool = True
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     mla: Optional[Any] = None
     ssm: Optional[SSMConfig] = None
-    rglru: Optional[Any] = None
+    rglru: Optional[RGLRUConfig] = None
     encoder: Optional[Any] = None
     vision: Optional[Any] = None
     dvi: DVIConfig = field(default_factory=DVIConfig)
@@ -99,8 +123,10 @@ class ModelConfig:
 
     @property
     def layer_pattern(self) -> Tuple[str, ...]:
-        """Repeating per-layer block pattern (dense stacks: attention only,
-        or local/global interleaves when a sliding window is set)."""
+        """Repeating per-layer block pattern: ("ssm",) for Mamba-2, the
+        RG-LRU block pattern, local/global interleaves when a sliding
+        window is set, else attention only.  Its period need not divide
+        num_layers (recurrentgemma-9b: 38 = 12 (r, r, l) + (r, r))."""
         if self.arch_type == "ssm":
             return ("ssm",)
         if self.rglru is not None:
@@ -120,6 +146,15 @@ class ModelConfig:
             raise ValueError("num_heads must be a multiple of num_kv_heads")
         if not 0 < self.dvi.split_layer < self.num_layers:
             raise ValueError("split_layer must lie inside the stack")
+        if self.moe is not None and (self.moe.top_k > self.moe.num_experts
+                                     or self.moe.first_dense_layers >= self.num_layers):
+            raise ValueError("moe: top_k > num_experts or every layer dense")
+
+    @property
+    def local_window(self) -> int:
+        """The window of the "local" layers: the RG-LRU config's, else
+        ``sliding_window``."""
+        return self.rglru.local_window if self.rglru is not None else self.sliding_window
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -10,7 +10,8 @@ vicuna-7b, 12 k on mamba2-370m) reach the card in one launch.
 
 A runner owns a static buffer for everything a block-step reads or
 advances: the pending tokens, the done mask and the budgets; the cache (K/V
-or the page pools, each SSM segment's conv window and state, the lengths,
+or the page pools, each ring and its slot positions, each SSM or RG-LRU
+segment's conv window and state, the lengths,
 the block table); the replay buffer (its rows and ``ptr`` / ``count`` /
 ``gen``); and the bookkeeping's counters and histograms.  Its body is one
 block with its bookkeeping (``spec.superstep_block`` or

@@ -31,11 +31,12 @@ Gumbel-max makes no host sync.  ``Draws`` hands a block its noise
 ready-made instead (the CPU parity tests feed JAX's draws through it).
 
 The cache may be contiguous or paged (its block table rides in
-``cache["tbl"]``): the block code is layout-agnostic.  Stateful (SSM)
-segments return per-token candidate states from every ``model.step``: each
-draft feed commits its shallow candidates with ``draft_accept`` (done lanes
-stay frozen), and the final commit selects both the restacked shallow and
-the deep candidates at each lane's accepted length.
+``cache["tbl"]``): the block code is layout-agnostic.  Stateful (SSM and
+RG-LRU) segments return per-token candidate states from every
+``model.step``: each draft feed commits its shallow candidates with
+``draft_accept`` (done lanes stay frozen), and the final commit selects
+both the restacked shallow and the deep candidates at each lane's accepted
+length.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 // The flash-decode body shared by the two attention kernels
 // (decode_attention.cu over a contiguous cache, paged_decode_attention.cu
 // over pooled pages).  They differ only in where slot j of a lane lives (a
-// Map: j -> K/V row, or -1 for an unmapped slot); everything else is here.
+// Map: j -> K/V row, or -1 for an unmapped slot) and which position it
+// holds (j itself, or a ring's pos[b, j]); everything else is here.
 //
 // Work split.  The R = Tq * G query rows of a kv head (row r is query
 // t = r / G, head kvh * G + r % G) are cut into row tiles of up to MAX_ROWS
@@ -37,9 +38,11 @@
 // FMAs from shared memory into the same register layout, so the softmax,
 // the merges and the store are one code for both types.
 //
-// Masking.  Query t sees slot j when the slot is mapped and
-// j < min(len - (Tq-1-t), cap), where len counts the block's own writes and
-// cap is the lane's capacity; padded rows see nothing.  A query with no
+// Masking.  Slot j holds position map.pos(j) (j on a full cache, pos[b, j]
+// on a ring, -1 for an empty or unmapped slot).  Query t, at qpos = len - Tq
+// + t where len counts the block's own writes, sees the slot when
+// 0 <= pos <= qpos and, with a window W > 0, pos > qpos - W; padded rows see
+// nothing.  On a full cache that is j < len - (Tq-1-t).  A query with no
 // visible slot is written as 0.  Scores are scaled into base 2 and the
 // softmax runs in float32.
 #pragma once
@@ -102,10 +105,12 @@ __host__ __device__ inline Layout layout(int R, int hd, int tsize, int bs, int s
   return L;
 }
 
-// What a call's CTAs share: shapes, the slot-tile geometry, the scale.
+// What a call's CTAs share: shapes, the slot-tile geometry, the scale and
+// the sliding window (0: none).
 struct Args {
   int Tq, H, KV, hd, bs, stages, splits;
   float scale;
+  int window = 0;
 };
 
 // ---- the product step, by type ---------------------------------------------
@@ -215,11 +220,11 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 
 // One CTA of the cluster of (lane b, kv head kvh, the row tile starting at
 // row r0).  `map` says where the
-// lane's slots live: map.live(len) is the number of slots to visit,
-// map.prepare(lo, hi) stages what map.row needs for the share [lo, hi) in
-// shared memory, map.row(j) is slot j's K/V row of k/v viewed as
-// (rows, KV, hd) or -1 when unmapped, and map.cap the lane's capacity.
-// Every CTA of the cluster must call it.
+// lane's slots live: map.live(len) is the number of slots to visit (at most
+// the lane's capacity), map.prepare(lo, hi) stages what map.row needs for
+// the share [lo, hi) in shared memory, map.row(j) is slot j's K/V row of k/v
+// viewed as (rows, KV, hd) or -1 when unmapped, and map.pos(j) the position
+// a mapped slot holds (-1: empty).  Every CTA of the cluster must call it.
 template <typename T, int HD, typename Map>
 __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* __restrict__ k,
                                              const T* __restrict__ v,
@@ -237,7 +242,7 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
   const Layout L = layout(RT, hd, sizeof(T), bs, a.stages, a.splits, 0);
   T* ring = reinterpret_cast<T*>(smem + L.ring);
   T* qs = reinterpret_cast<T*>(smem + L.q);
-  int* slot_ok = reinterpret_cast<int*>(smem + L.ok);
+  int* slot_pos = reinterpret_cast<int*>(smem + L.ok);
   float* cm = reinterpret_cast<float*>(smem + L.cm);
   float* cl = reinterpret_cast<float*>(smem + L.cl);
   float* wts = reinterpret_cast<float*>(smem + L.wts);
@@ -272,7 +277,7 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
       const size_t off = row >= 0 ? ((size_t)row * a.KV + kvh) * hd + c : 0;
       cp_async16(ks + r * ld + c, k + off, row >= 0);
       cp_async16(vs + r * ld + c, v + off, row >= 0);
-      if (c == 0) slot_ok[st * bs + r] = row >= 0;
+      if (c == 0) slot_pos[st * bs + r] = row >= 0 ? map.pos(j) : -1;
     }
     cp_async_commit();
   };
@@ -281,12 +286,14 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-  // the slot limit of this thread's two rows (0 for padded rows)
-  int lim[2];
+  // the positions [qbeg, qend) this thread's two rows see (none for
+  // padded rows): qend = qpos + 1, qbeg = qend - W with a window, else 0
+  int qend[2], qbeg[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = mt * 16 + g + 8 * h;
-    lim[h] = r < nr ? min(len - (a.Tq - 1 - (r0 + r) / G), map.cap) : 0;
+    qend[h] = r < nr ? len - (a.Tq - 1 - (r0 + r) / G) : 0;
+    qbeg[h] = a.window > 0 ? max(qend[h] - a.window, 0) : 0;
   }
   const float sl2 = a.scale * LOG2E;
 
@@ -309,7 +316,6 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
     for (int sub = grp; active && sub < nsub; sub += groups) {
       float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
       scores<HD>(sc, qs + mt * 16 * ld, ks + sub * SUB * ld, ld, hd, lane);
-      const int j0 = lo + it * bs + sub * SUB;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         bool ok[2][2];
@@ -318,8 +324,8 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
         for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int js = sub * SUB + nt * 8 + 2 * t4 + e;
-            ok[nt][e] = slot_ok[st * bs + js] && j0 + nt * 8 + 2 * t4 + e < lim[h];
+            const int sp = slot_pos[st * bs + sub * SUB + nt * 8 + 2 * t4 + e];
+            ok[nt][e] = sp >= qbeg[h] && sp < qend[h];
             sc[nt][2 * h + e] *= sl2;
             if (ok[nt][e]) mx = fmaxf(mx, sc[nt][2 * h + e]);
           }
@@ -468,12 +474,14 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
 // for a CTA holding one row tile:
 // tiles of up to 64 slots (32 in float32), as many stages as a share has
 // tiles up to three, tiles halved until the CTA's shared memory fits.  A
-// paged call (page size `ps` > 0) also holds the table entries of its share.
+// paged call (page size `ps` > 0) also holds the table entries of its share,
+// a ring call (`ring`) the positions of its share's slots.
 // Returns the bytes of shared memory, or 0 when nothing fits.
-inline size_t plan(Args& a, int cap, int tsize, int ps) {
+inline size_t plan(Args& a, int cap, int tsize, int ps, bool ring = false) {
   const int R = tile_rows(a.Tq * (a.H / a.KV));
   const int share = share_slots(cap, a.splits);
-  const size_t table = ps > 0 ? (size_t)(share / ps + 2) * sizeof(int) : 0;
+  const size_t table = ring ? (size_t)share * sizeof(int)
+                       : ps > 0 ? (size_t)(share / ps + 2) * sizeof(int) : 0;
   for (int bs = tsize == 2 ? 64 : 32; bs >= SUB; bs /= 2) {
     a.bs = bs < share ? bs : share;
     const int tiles = (share + a.bs - 1) / a.bs;

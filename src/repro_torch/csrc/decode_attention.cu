@@ -22,6 +22,18 @@
 // full cache this is the reference's step mask pos <= qpos.  A query with no
 // live slot gets 0 (the model path never has one).
 //
+// The ring form (pos != null) reads a sliding-window layer's ring of S = W +
+// slack slots, position p at slot p % S (transformer.spread_write with
+// wrap): pos (B, S) int32 holds each slot's position (-1: empty), and query
+// t at qpos = lengths[b] - Tq + t sees slot j iff 0 <= pos[b, j] <= qpos
+// and, with window > 0, pos[b, j] > qpos - window: the reference's ring step
+// mask (transformer.py:343-345).  Positions fill slots in order until they
+// wrap, so the slots to visit are still the first min(lengths[b], S): a
+// third slot map (RingMap) beside the contiguous one.  Each CTA copies the
+// positions of its share into shared memory once, before its K/V tiles
+// (all copies in flight at once, as the paged map stages its table), and
+// the tiles' slot positions are read from there.
+//
 // Bound on H100: the live K and V bytes of the call (16 MB at the verify
 // pass of the sync path, B = 8, about 120 live slots a lane, 32 heads of 128
 // in bf16: 0.0049 ms at 3.35 TB/s; 0.0045 ms at a draft feed).  The design
@@ -44,45 +56,95 @@ struct ContigMap {
   __device__ int live(int len) const { return min(len, cap); }
   __device__ void prepare(int, int) {}
   __device__ long long row(int j) const { return base + j; }
+  __device__ int pos(int j) const { return j; }
 };
 
-template <typename T, int HD>
+// 4 bytes from device to shared memory (cp.async.ca: the 16-byte copies'
+// .cg takes no smaller size)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// a ring: slot j of lane b is cache row b * S + j and holds position
+// pos_row[j]; prepare() copies the share's positions into shared memory
+// (spos[j - lo]) and waits for them (and for the query rows issued before)
+struct RingMap {
+  long long base;
+  int cap;
+  const int* pos_row;   // the lane's row of pos (B, S) in device memory
+  int* spos;            // its share's positions in shared memory
+  int lo;
+  __device__ int live(int len) const { return min(len, cap); }
+  __device__ void prepare(int lo_, int hi) {
+    lo = lo_;
+    for (int i = threadIdx.x; i < hi - lo; i += attn::THREADS) cp_async4(spos + i, pos_row + lo + i);
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __device__ long long row(int j) const { return base + j; }
+  __device__ int pos(int j) const { return spos[j - lo]; }
+};
+
+template <typename T, int HD, bool RING>
 __global__ void __launch_bounds__(attn::THREADS)
 decode_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const int* __restrict__ lengths, T* __restrict__ out, attn::Args a, int S) {
+            const int* __restrict__ lengths, const int* __restrict__ pos, T* __restrict__ out,
+            attn::Args a, int S) {
   extern __shared__ __align__(16) unsigned char smem[];
   // blockIdx.y is (kv head, row tile), the tile minor
   const int b = blockIdx.z, tiles = attn::row_tiles(a.Tq * (a.H / a.KV));
-  attn::flash_decode<T, HD>(q, k, v, lengths, out, a, ContigMap{(long long)b * S, S}, b,
-                            blockIdx.y / tiles, (blockIdx.y % tiles) * attn::MAX_ROWS, smem);
+  const int kvh = blockIdx.y / tiles, r0 = (blockIdx.y % tiles) * attn::MAX_ROWS;
+  if constexpr (RING) {
+    const attn::Layout L = attn::layout(attn::tile_rows(a.Tq * (a.H / a.KV)), a.hd, sizeof(T),
+                                        a.bs, a.stages, a.splits, 0);
+    attn::flash_decode<T, HD>(q, k, v, lengths, out, a,
+                              RingMap{(long long)b * S, S, pos + (size_t)b * S,
+                                      reinterpret_cast<int*>(smem + L.extra), 0},
+                              b, kvh, r0, smem);
+  } else {
+    attn::flash_decode<T, HD>(q, k, v, lengths, out, a, ContigMap{(long long)b * S, S}, b,
+                              kvh, r0, smem);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_hd(const T* q, const T* k, const T* v, const int* lengths, const int* pos,
+                      T* out, int B, const attn::Args& a, int S, size_t smem, cudaStream_t s) {
+  if (pos != nullptr)
+    return attn::launch<decode_attn<T, HD, true>>(a, B, smem, s, q, k, v, lengths, pos, out, a,
+                                                  S);
+  return attn::launch<decode_attn<T, HD, false>>(a, B, smem, s, q, k, v, lengths, pos, out, a,
+                                                 S);
 }
 
 template <typename T>
-cudaError_t run(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                int B, attn::Args a, int S, cudaStream_t s) {
-  const size_t smem = attn::plan(a, S, sizeof(T), 0);
+cudaError_t run(const void* q, const void* k, const void* v, const int* lengths,
+                const int* pos, void* out, int B, attn::Args a, int S, cudaStream_t s) {
+  const size_t smem = attn::plan(a, S, sizeof(T), 0, pos != nullptr);
   if (smem == 0) return cudaErrorInvalidValue;
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(out);
-  if (a.hd <= 64)
-    return attn::launch<decode_attn<T, 64>>(a, B, smem, s, qp, kp, vp, lengths, op, a, S);
-  if (a.hd <= 128)
-    return attn::launch<decode_attn<T, 128>>(a, B, smem, s, qp, kp, vp, lengths, op, a, S);
-  return attn::launch<decode_attn<T, 256>>(a, B, smem, s, qp, kp, vp, lengths, op, a, S);
+  if (a.hd <= 64) return launch_hd<T, 64>(qp, kp, vp, lengths, pos, op, B, a, S, smem, s);
+  if (a.hd <= 128) return launch_hd<T, 128>(qp, kp, vp, lengths, pos, op, B, a, S, smem, s);
+  return launch_hd<T, 256>(qp, kp, vp, lengths, pos, op, B, a, S, smem, s);
 }
 
 }  // namespace
 
+// pos: null for a full cache, else the ring's (B, S) int32 positions;
+// window: 0, or the sliding window of the ring form.
 DVI_EXPORT int dvi_decode_attention(const void* q, const void* k, const void* v,
                                     const void* lengths, void* out, int B, int Tq, int H,
                                     int KV, int hd, int S, float scale, int splits,
-                                    int is_bf16, void* stream) {
-  const attn::Args a{Tq, H, KV, hd, 0, 0, splits, scale};
-  if (!attn::valid(a, B, is_bf16) || S <= 0) return cudaErrorInvalidValue;
+                                    int is_bf16, const void* pos, int window, void* stream) {
+  const attn::Args a{Tq, H, KV, hd, 0, 0, splits, scale, window};
+  if (!attn::valid(a, B, is_bf16) || S <= 0 || window < 0 || (window > 0 && pos == nullptr))
+    return cudaErrorInvalidValue;
   const int* lp = static_cast<const int*>(lengths);
+  const int* pp = static_cast<const int*>(pos);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? run<__nv_bfloat16>(q, k, v, lp, out, B, a, S, s)
-                 : run<float>(q, k, v, lp, out, B, a, S, s);
+  return is_bf16 ? run<__nv_bfloat16>(q, k, v, lp, pp, out, B, a, S, s)
+                 : run<float>(q, k, v, lp, pp, out, B, a, S, s);
 }

@@ -49,7 +49,7 @@ namespace {
 struct PagedMap {
   const int* row_tbl;   // the lane's block-table row in device memory
   int* tbl;             // its share's entries in shared memory
-  int p0, ps, mps, cap;
+  int p0, ps, mps;
   int pc;               // the lane's page count, or 0 for ceil(len / ps)
   __device__ int live(int len) const {
     return min(len, (pc > 0 ? pc : min((len + ps - 1) / ps, mps)) * ps);
@@ -63,6 +63,7 @@ struct PagedMap {
     const int page = tbl[j / ps - p0];
     return page >= 0 ? (long long)page * ps + j % ps : -1;
   }
+  __device__ int pos(int j) const { return j; }   // logical slot j holds position j
 };
 
 template <typename T, int HD>
@@ -79,7 +80,7 @@ paged_decode_attn(const T* __restrict__ q, const T* __restrict__ kp, const T* __
       attn::layout(attn::tile_rows(R), a.hd, sizeof(T), a.bs, a.stages, a.splits, 0);
   const int pc = page_counts ? min(max(page_counts[b], 1), mps) : 0;
   const PagedMap map{tables + (size_t)b * mps, reinterpret_cast<int*>(smem + L.extra), 0, ps,
-                     mps, mps * ps, pc};
+                     mps, pc};
   attn::flash_decode<T, HD>(q, kp, vp, lengths, out, a, map, b, blockIdx.y / tiles,
                             (blockIdx.y % tiles) * attn::MAX_ROWS, smem);
 }

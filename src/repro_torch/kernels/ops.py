@@ -32,9 +32,10 @@ _ARGTYPES = {
     # h, w, a, b, gamma, T, d, V, r, is_bf16, fast, u, out, stream
     "lora_logits": [_VOID, _VOID, _VOID, _VOID, _FLOAT, _INT, _INT, _INT, _INT,
                     _INT, _INT, _VOID, _VOID, _VOID],
-    # q, k, v, lengths, out, B, Tq, H, KV, hd, S, scale, splits, is_bf16, stream
+    # q, k, v, lengths, out, B, Tq, H, KV, hd, S, scale, splits, is_bf16,
+    # pos (or null), window, stream
     "decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
-                         _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID],
+                         _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID, _INT, _VOID],
     # q, k_pages, v_pages, lengths, block_tables, out, B, Tq, H, KV, hd, ps,
     # MPS, scale, splits, is_bf16, page_counts (or null), stream
     "paged_decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
@@ -324,7 +325,7 @@ class LoraLogits(torch.autograd.Function):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, pos=None, window: int = 0) -> torch.Tensor:
     """Flash-decode GQA over a contiguous cache, visiting only live slots.
 
     q (B, H, hd) attends slots j < lengths[b]; q (B, Tq, H, hd) is a block
@@ -333,9 +334,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     after the block's own write.  k/v (B, S, KV, hd);
     lengths (B,) int32.  Returns q's shape and dtype.  A query with no live
     slot is not defined (the kernel gives 0, the plain version a uniform
-    average); the model path never has one."""
-    if _device(q, k, v, lengths).type == "cpu":
-        return ref.decode_attention(q, k, v, lengths)
+    average); the model path never has one.
+
+    The ring form: `pos` (B, S) int32 gives the position each slot holds
+    (-1: empty; a sliding-window layer's ring keeps position p at slot
+    p % S), and query t, at qpos = lengths[b] - Tq + t, attends slot j iff
+    0 <= pos[b, j] <= qpos and, with `window` > 0, pos[b, j] > qpos -
+    window."""
+    tensors = (q, k, v, lengths) + ((pos,) if pos is not None else ())
+    if _device(*tensors).type == "cpu":
+        return ref.decode_attention(q, k, v, lengths, pos=pos, window=window)
     single = q.ndim == 3
     q4 = q[:, None] if single else q
     _need(q4.ndim == 4 and k.ndim == 4 and k.shape == v.shape,
@@ -347,6 +355,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _need(q.dtype == k.dtype == v.dtype, "decode_attention: q, k, v must share a dtype")
     _need(lengths.dtype == torch.int32 and lengths.shape == (B,),
           "decode_attention: lengths must be (B,) int32")
+    _need(window >= 0 and (pos is not None or window == 0),
+          "decode_attention: a window needs the ring's pos")
+    if pos is not None:
+        _need(pos.dtype == torch.int32 and pos.shape == (B, S),
+              "decode_attention: pos must be (B, S) int32")
+        _contig(pos=pos)
     is_bf16 = _check_dtype(q.dtype)
     _check_attn_shape("decode_attention", Tq, hd, q.dtype)
     q4 = q4.contiguous() if single else q4
@@ -356,7 +370,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch("decode_attention", q4.data_ptr(), k.data_ptr(), v.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd, S, 1.0 / math.sqrt(hd),
             attn_splits(S, B * KV * attn_row_tiles(Tq * (H // KV))), is_bf16,
-            _stream(q.device))
+            pos.data_ptr() if pos is not None else None, int(window), _stream(q.device))
     return out[:, 0] if single else out
 
 

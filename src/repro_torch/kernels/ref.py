@@ -30,17 +30,29 @@ def lora_logits(h: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tens
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, pos=None, window: int = 0) -> torch.Tensor:
     """Decode attention over a contiguous cache.
 
     q (B, H, hd): one query per lane attending slots j < lengths[b].
     q (B, Tq, H, hd): a block of Tq queries; ``lengths`` is the cache length
     AFTER the block's own write, and query t attends j < lengths[b]-(Tq-1-t).
-    k/v (B, S, KV, hd).  Returns q's shape in q's dtype."""
+    k/v (B, S, KV, hd).  Returns q's shape in q's dtype.
+
+    The ring form, `pos` (B, S) int32 the position each slot holds (-1:
+    empty): query t, at qpos = lengths[b] - Tq + t, attends slot j iff
+    0 <= pos[b, j] <= qpos and, with `window` > 0, pos[b, j] > qpos -
+    window (the reference's ring step mask)."""
     single = q.ndim == 3
     q4 = q[:, None] if single else q
     Tq, S = q4.shape[1], k.shape[1]
-    mask = torch.arange(S, device=q.device)[None, None, :] < _block_limits(lengths, Tq)
+    if pos is None:
+        mask = torch.arange(S, device=q.device)[None, None, :] < _block_limits(lengths, Tq)
+    else:
+        qend = _block_limits(lengths, Tq)                       # qpos + 1, (B, Tq, 1)
+        p = pos.long()[:, None, :]
+        mask = (p >= 0) & (p < qend)
+        if window:
+            mask &= p >= qend - window
     out = attend(q4, k, v, mask)
     return out[:, 0] if single else out
 

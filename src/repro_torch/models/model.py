@@ -1,5 +1,5 @@
-"""Public model API, the port of ``repro.models.model`` (dense attention and
-Mamba-2 stacks).
+"""Public model API, the port of ``repro.models.model`` (dense attention,
+Mamba-2, the RecurrentGemma hybrid and the local/global MoE stacks).
 
     model = build_model(cfg)                  # on the card; device="cpu" for tests
     params = model.init(torch.Generator(model.device).manual_seed(0))
@@ -18,6 +18,7 @@ layout (``x @ W``, W stored (d_in, d_out), segments stacked on a layer axis).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -83,12 +84,16 @@ class Model:
 
     # ---------------- embeddings ----------------
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, T) -> x (B, T, d)."""
-        return params["embed"][tokens.long()]
+        """tokens (B, T) -> x (B, T, d), scaled by sqrt(d_model) in the model
+        dtype for RG-LRU configs (the gemma-style embedding scale)."""
+        x = params["embed"][tokens.long()]
+        if self.cfg.rglru is not None:
+            x = x * math.sqrt(self.cfg.d_model)
+        return x
 
     def embed_block(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """Decode-block embedding (dense decoders need no position offset:
-        RoPE is applied inside attention)."""
+        """Decode-block embedding (no position offset: RoPE is applied inside
+        attention)."""
         return self.embed(params, tokens)
 
     # ---------------- full-sequence ----------------
@@ -111,16 +116,17 @@ class Model:
 
     def forward_train(self, params, tokens: torch.Tensor, remat: bool = False):
         """Full-model LM forward for training: tokens (B, T) -> (logits
-        (B, T, V), aux) with aux a float32 zero (dense and SSM stacks carry
-        no auxiliary loss).  A tied head multiplies by ``embed.T`` itself,
-        as the reference's ``head_matrix`` does, so autograd sends the
-        head's gradient to ``embed``; `params` may be ``trained_tree``'s,
-        without ``lm_head``."""
+        (B, T, V), aux) with aux the MoE load-balance loss summed over the
+        layers (a float32 zero without experts).  A tied head multiplies by
+        ``embed.T`` itself, as the reference's ``head_matrix`` does, so
+        autograd sends the head's gradient to ``embed``; `params` may be
+        ``trained_tree``'s, without ``lm_head``."""
         x = self.embed(params, tokens)
-        h, _ = self.hidden(params, x, remat=remat)
+        h, _, aux = tfm.forward_full(params["segments"], x, self.cfg, 0, self.cfg.num_layers,
+                                     remat=remat, with_aux=True)
         hn = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
         w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-        return hn @ w, torch.zeros((), dtype=torch.float32, device=x.device)
+        return hn @ w, aux
 
     # ---------------- cache / decode ----------------
     def init_cache(self, B: int, max_len: int) -> dict:
@@ -134,8 +140,8 @@ class Model:
 
     def prefill(self, params, tokens, cache=None, max_len: Optional[int] = None):
         """Process the prompt and build a decode cache (K/V of attention
-        segments, conv windows and SSD states of SSM segments).  Returns
-        (h, cache)."""
+        segments, the rings of local ones, conv windows and states of SSM
+        and RG-LRU segments).  Returns (h, cache)."""
         T = tokens.shape[1]
         x = self.embed(params, tokens)
         if cache is None:
@@ -171,8 +177,9 @@ class Model:
 
     def step(self, params, x, cache, lo: int = 0, hi: Optional[int] = None):
         """Block-decode layers [lo, hi) on an embedded block x (B, T, d).
-        Returns (h, cache, cands): the cache's K/V are written in place, and
-        SSM segments return their per-token candidate states in `cands`."""
+        Returns (h, cache, cands): the cache's K/V (and rings' positions)
+        are written in place, and SSM and RG-LRU segments return their
+        per-token candidate states in `cands`."""
         hi = self.cfg.num_layers if hi is None else hi
         return tfm.forward_step(params["segments"], x, self.cfg, cache, lo, hi)
 

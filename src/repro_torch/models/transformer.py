@@ -1,8 +1,11 @@
 """Segmented decoder stack with a speculative-decoding cache.
 
-Port of ``repro.models.transformer`` for two kinds of stack: dense attention
-+ dense FFN, and attention-free Mamba-2 (``models.ssm``, SSD blocks with no
-FFN).  Layers are grouped into *segments* (runs of layers of one kind), each with
+Port of ``repro.models.transformer`` for these stacks: dense attention +
+dense FFN; attention-free Mamba-2 (``models.ssm``, SSD blocks with no FFN);
+the RecurrentGemma hybrid of RG-LRU blocks (``models.rglru``) and
+sliding-window ("local") attention; and local/global attention interleaves
+with a mixture-of-experts FFN (``models.moe``, Llama-4 Scout).  Layers are
+grouped into *segments* (runs of layers of one (mixer, FFN) kind), each with
 its parameters stacked on a leading layer axis, and segments are cut at
 ``cfg.dvi.split_layer`` so the draft path (layers [0, k)) and the target path
 ([k, L)) run as separate segment ranges over one parameter tree.
@@ -23,13 +26,21 @@ Two execution modes:
   ``decode_attention`` kernel with the cache length after the block's write,
   which on a contiguous full cache is the reference's step mask
   ``pos <= qpos`` (every slot below the length is filled, stale speculative
-  slots lie above ``qpos``); the port therefore keeps no ``pos`` array.
+  slots lie above ``qpos``); the port therefore keeps no ``pos`` array for
+  full caches.  A sliding-window layer keeps a *ring* of C = W +
+  ``RING_SLACK`` slots instead, position p at slot p % C, with a per-lane
+  ``pos`` (B, C) int32 (the position each slot holds, -1 empty) shared by
+  the segment's layers and written in place with the block's K/V; the ring
+  form of ``decode_attention`` reads it with the window mask.  RG-LRU
+  segments return candidates as SSM segments do.
 
 Two cache layouts (``forward_step`` reads which from the cache):
 
 * contiguous (``init_cache``): per-lane K/V (n, B, C, KV, hd); SSM
   segments hold per-lane constant-size state, the conv window (n, B, cw-1,
-  conv_dim) and the SSD state (n, B, H, hd, ds) float32, in both layouts;
+  conv_dim) and the SSD state (n, B, H, hd, ds) float32, in both layouts,
+  as RG-LRU segments hold their window (n, B, cw-1, w) and state (n, B, w)
+  and local segments their rings;
 * paged (``init_paged_cache``): K/V pooled into shared pages
   (n, P+1, ps, KV, hd), physical page 0 the null page, read and written
   through the per-lane block table ``cache["tbl"]`` (B, MPS) with the
@@ -45,8 +56,8 @@ and ``copy_page`` copies one page on write.  All of it runs on PyTorch's
 current stream, so it is ordered after any step still running on the
 device.
 
-Not ported yet (they raise ``NotImplementedError``): MoE, MLA, RG-LRU,
-local/ring caches, cross-attention, ``kv_quant``.
+Not ported yet (they raise ``NotImplementedError``): MLA, cross-attention,
+the vision prefix, ``kv_quant``, MTP.
 """
 from __future__ import annotations
 
@@ -59,21 +70,25 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (MaskSpec, apply_rope, attend_full, dense_init,
                                        head_rms_norm, mlp, rms_norm)
 from repro_torch.serving.kv_pool import logical_to_physical
 
-# Spare capacity the reference reserves past a generation's worst case; kept
-# so caches are sized the same on both sides.
+# Extra ring slots past the window, so eager writes (rejected speculative
+# tokens, a prefill chunk's padding) never evict a slot some query still
+# sees; also the spare capacity of full caches past a generation's worst
+# case, and the bound of a prefill chunk.
 RING_SLACK = 128
 
 
 @dataclass(frozen=True)
 class Segment:
     idx: int
-    kind: str          # attn | ssm
-    ffn: str           # dense | none
+    kind: str          # attn | local | ssm | rglru
+    ffn: str           # dense | moe | none
     start: int
     n: int
     d_ff: int
@@ -86,9 +101,7 @@ class Segment:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet."""
     missing = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
-        ("rglru", cfg.rglru is not None),
-        ("local/ring caches", bool(cfg.sliding_window)),
+        ("mla", cfg.mla is not None),
         ("cross-attention", cfg.encoder is not None),
         ("vision prefix", cfg.vision is not None),
         ("kv_quant", cfg.kv_quant), ("mtp", bool(cfg.mtp_depth))) if on]
@@ -97,12 +110,19 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def layer_kinds(cfg: ModelConfig):
-    """(mixer kind, ffn kind) per layer: Mamba-2 blocks have no FFN.
-    Configs with other kinds (MoE, RG-LRU, local attention) are rejected by
-    ``check_supported``."""
+    """(mixer kind, ffn kind) per layer: Mamba-2 blocks have no FFN, MoE
+    configs a dense FFN below ``first_dense_layers`` and experts above."""
     pat = cfg.layer_pattern
-    ffn = "none" if cfg.ssm is not None else "dense"
-    return [(pat[layer % len(pat)], ffn) for layer in range(cfg.num_layers)]
+    kinds = []
+    for layer in range(cfg.num_layers):
+        if cfg.ssm is not None:
+            ffn = "none"
+        elif cfg.moe is not None and layer >= cfg.moe.first_dense_layers:
+            ffn = "moe"
+        else:
+            ffn = "dense"
+        kinds.append((pat[layer % len(pat)], ffn))
+    return kinds
 
 
 def build_segments(cfg: ModelConfig, boundaries=()):
@@ -113,7 +133,10 @@ def build_segments(cfg: ModelConfig, boundaries=()):
     for layer in range(1, cfg.num_layers + 1):
         if layer in cuts or kinds[layer] != kinds[start]:
             kind, ffn = kinds[start]
-            segs.append(Segment(len(segs), kind, ffn, start, layer - start, cfg.d_ff))
+            d_ff = cfg.d_ff
+            if ffn == "dense" and cfg.moe is not None and cfg.moe.first_dense_layers:
+                d_ff = cfg.moe.d_ff_dense or cfg.d_ff
+            segs.append(Segment(len(segs), kind, ffn, start, layer - start, d_ff))
             start = layer
     return segs
 
@@ -133,31 +156,36 @@ def segments_in_range(cfg: ModelConfig, lo: int, hi: int):
 def init_segment(gen: torch.Generator, cfg: ModelConfig, seg: Segment,
                  dtype: torch.dtype) -> dict:
     """A segment's parameters stacked on a leading layer axis: Mamba-2
-    blocks, or dense attention + dense FFN."""
+    blocks, or a mixer (attention, local attention or RG-LRU) with its FFN
+    (dense, or the experts under "moe")."""
     if seg.kind == "ssm":
         return ssm_mod.init_ssm(gen, seg.n, cfg.d_model, cfg.ssm, dtype)
-    if seg.kind != "attn" or seg.ffn != "dense":
-        raise NotImplementedError(f"segment kind {seg.kind}/{seg.ffn} not ported yet")
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     n, f, dev = seg.n, seg.d_ff, gen.device
 
     def zeros(*shape, dt=torch.float32):
         return torch.zeros(shape, dtype=dt, device=dev)
 
-    p = {"ln1": zeros(n, d), "ln2": zeros(n, d),
-         "wq": dense_init(gen, (n, d, H * hd), dtype),
-         "wk": dense_init(gen, (n, d, KV * hd), dtype),
-         "wv": dense_init(gen, (n, d, KV * hd), dtype),
-         "wo": dense_init(gen, (n, H * hd, d), dtype)}
-    if cfg.qkv_bias:
-        p.update(bq=zeros(n, H * hd, dt=dtype), bk=zeros(n, KV * hd, dt=dtype),
-                 bv=zeros(n, KV * hd, dt=dtype))
-    if cfg.qk_norm:
-        p.update(qn=zeros(n, hd), kn=zeros(n, hd))
-    p["wi"] = dense_init(gen, (n, d, f), dtype)
-    if cfg.glu:
-        p["wg"] = dense_init(gen, (n, d, f), dtype)
-    p["wo_ff"] = dense_init(gen, (n, f, d), dtype)
+    p = {"ln1": zeros(n, d), "ln2": zeros(n, d)}
+    if seg.kind == "rglru":
+        p.update(rglru_mod.init_rglru(gen, n, d, cfg.rglru, dtype))
+    else:
+        p.update(wq=dense_init(gen, (n, d, H * hd), dtype),
+                 wk=dense_init(gen, (n, d, KV * hd), dtype),
+                 wv=dense_init(gen, (n, d, KV * hd), dtype),
+                 wo=dense_init(gen, (n, H * hd, d), dtype))
+        if cfg.qkv_bias:
+            p.update(bq=zeros(n, H * hd, dt=dtype), bk=zeros(n, KV * hd, dt=dtype),
+                     bv=zeros(n, KV * hd, dt=dtype))
+        if cfg.qk_norm:
+            p.update(qn=zeros(n, hd), kn=zeros(n, hd))
+    if seg.ffn == "moe":
+        p["moe"] = moe_mod.init_moe(gen, n, d, cfg.moe, cfg.glu, dtype)
+    else:
+        p["wi"] = dense_init(gen, (n, d, f), dtype)
+        if cfg.glu:
+            p["wg"] = dense_init(gen, (n, d, f), dtype)
+        p["wo_ff"] = dense_init(gen, (n, f, d), dtype)
     return p
 
 
@@ -166,7 +194,8 @@ def init_segment(gen: torch.Generator, cfg: ModelConfig, seg: Segment,
 # ---------------------------------------------------------------------------
 
 def _layer(sp: dict, i: int) -> dict:
-    return {name: w[i] for name, w in sp.items()}
+    """Layer i of a stacked parameter tree (the experts nest under "moe")."""
+    return {name: _layer(w, i) if isinstance(w, dict) else w[i] for name, w in sp.items()}
 
 
 def _qkv(p, xn, cfg):
@@ -184,13 +213,20 @@ def _qkv(p, xn, cfg):
     return q, k, v
 
 
-def _ffn(p, x, cfg):
+def _ffn(p, x, cfg, seg: Optional[Segment] = None, dropless: bool = False):
+    """The layer's FFN with its residual: the dense MLP (also without a
+    `seg`), or the experts (``dropless`` on the block-decode path).  Returns
+    (x, aux) with aux the MoE load-balance loss (a float32 zero for a dense
+    FFN)."""
     xn = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p, xn, cfg.act, cfg.glu)
+    if seg is not None and seg.ffn == "moe":
+        y, aux = moe_mod.moe_ffn(p["moe"], xn, cfg.moe, cfg.act, cfg.glu, dropless)
+        return x + y, aux
+    return x + mlp(p, xn, cfg.act, cfg.glu), torch.zeros((), device=x.device)
 
 
-def attn_layer_full(p, x, cfg: ModelConfig, positions, spec: MaskSpec):
-    """Full-sequence attention layer.  Returns (x, k, v) with k/v the
+def attn_layer_full(p, x, cfg: ModelConfig, seg: Segment, positions, spec: MaskSpec):
+    """Full-sequence attention layer.  Returns (x, k, v, aux) with k/v the
     layer's cache contribution (B, T, KV, hd)."""
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(p, xn, cfg)
@@ -199,47 +235,58 @@ def attn_layer_full(p, x, cfg: ModelConfig, positions, spec: MaskSpec):
     out = attend_full(q, k, v, spec)
     B, T = x.shape[:2]
     x = x + out.reshape(B, T, -1) @ p["wo"]
-    return _ffn(p, x, cfg), k, v
+    x, aux = _ffn(p, x, cfg, seg)
+    return x, k, v, aux
 
 
-def spread_write(cache: torch.Tensor, blk: torch.Tensor, lengths: torch.Tensor) -> None:
+def spread_write(cache: torch.Tensor, blk: torch.Tensor, lengths: torch.Tensor,
+                 wrap: bool = False) -> None:
     """Write blk (B,T,...) into cache (B,C,...) at slots lengths + i, IN PLACE.
 
-    Full caches only (the reference's ``wrap=False``): slot index is the
-    absolute position and a write past capacity C is dropped, since only an
-    eager speculative write can land there and rollback discards it.  The
-    drop is done without a host sync: an out-of-range write is redirected
-    to slot C-1 carrying the value that slot must hold anyway (the block's
-    own token for it, or its old content), so duplicate indices always
-    write equal values."""
+    ``wrap=True`` (ring caches): slots (lengths + i) mod C, T <= C.
+    ``wrap=False`` (full caches): slot index is the absolute position and a
+    write past capacity C is dropped, since only an eager speculative write
+    can land there and rollback discards it.  The drop is done without a
+    host sync: an out-of-range write is redirected to slot C-1 carrying the
+    value that slot must hold anyway (the block's own token for it, or its
+    old content), so duplicate indices always write equal values."""
     B, C = cache.shape[:2]
     T = blk.shape[1]
+    bidx = torch.arange(B, device=cache.device)[:, None].expand(B, T)
+    if wrap:
+        slots = (lengths[:, None].long() + torch.arange(T, device=cache.device)[None, :]) % C
+        cache[bidx, slots] = blk.to(cache.dtype)
+        return
     slots = torch.clamp(lengths[:, None].long()
                         + torch.arange(T, device=cache.device)[None, :], max=C - 1)
     rel = slots - lengths[:, None].long()              # < T; < 0 iff lengths >= C
-    bidx = torch.arange(B, device=cache.device)[:, None].expand(B, T)
     src = blk[bidx, rel.clamp(min=0)].to(cache.dtype)
     keep = (rel >= 0).reshape(B, T, *([1] * (cache.ndim - 2)))
     cache[bidx, slots] = torch.where(keep, src, cache[bidx, slots])
 
 
-def attn_layer_step(p, x, kcache, vcache, lengths, cfg: ModelConfig):
+def attn_layer_step(p, x, kcache, vcache, lengths, cfg: ModelConfig,
+                    seg: Optional[Segment] = None, pos=None):
     """Block-decode attention layer against the cache.
 
     kcache/vcache: (B, C, KV, hd), updated in place with this block's K/V at
-    slots ``lengths + i`` before the attention kernel reads them."""
+    slots ``lengths + i`` (mod C on a ring) before the attention kernel
+    reads them.  `pos` (B, C): a ring's slot positions, already holding the
+    block's (``run_segment_step``); the kernel then masks by position and
+    the segment's window."""
     B, T = x.shape[:2]
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     qpos = lengths[:, None] + torch.arange(T, device=x.device)[None, :]
     q, k, v = _qkv(p, xn, cfg)
     q = apply_rope(q, qpos, cfg.rope_theta)
     k = apply_rope(k, qpos, cfg.rope_theta)
-    spread_write(kcache, k, lengths)
-    spread_write(vcache, v, lengths)
-    out = ops.decode_attention(q.contiguous(), kcache, vcache,
-                               (lengths + T).to(torch.int32))
+    ring = pos is not None
+    spread_write(kcache, k, lengths, wrap=ring)
+    spread_write(vcache, v, lengths, wrap=ring)
+    out = ops.decode_attention(q.contiguous(), kcache, vcache, (lengths + T).to(torch.int32),
+                               pos=pos, window=cfg.local_window if ring else 0)
     x = x + out.reshape(B, T, -1) @ p["wo"]
-    return _ffn(p, x, cfg)
+    return _ffn(p, x, cfg, seg, dropless=True)[0]
 
 
 def paged_write(pages: torch.Tensor, blk: torch.Tensor, phys: torch.Tensor) -> None:
@@ -252,7 +299,8 @@ def paged_write(pages: torch.Tensor, blk: torch.Tensor, phys: torch.Tensor) -> N
         (phys.reshape(-1),), blk.reshape(-1, *blk.shape[2:]).to(pages.dtype))
 
 
-def attn_layer_step_paged(p, x, kpages, vpages, tbl, lengths, cfg: ModelConfig):
+def attn_layer_step_paged(p, x, kpages, vpages, tbl, lengths, cfg: ModelConfig,
+                          seg: Optional[Segment] = None):
     """Block-decode attention layer against the pooled paged cache.
 
     kpages/vpages: (P, ps, KV, hd) physical pages shared by every lane
@@ -277,7 +325,7 @@ def attn_layer_step_paged(p, x, kpages, vpages, tbl, lengths, cfg: ModelConfig):
     out = ops.paged_decode_attention(q.contiguous(), kpages, vpages,
                                      (lengths + T).to(torch.int32), tbl)
     x = x + out.reshape(B, T, -1) @ p["wo"]
-    return _ffn(p, x, cfg)
+    return _ffn(p, x, cfg, seg, dropless=True)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -286,26 +334,37 @@ def attn_layer_step_paged(p, x, kpages, vpages, tbl, lengths, cfg: ModelConfig):
 
 def run_segment_full(sp, x, cfg: ModelConfig, seg: Segment, positions,
                      collect: bool = False, remat: bool = False):
-    """The segment over the whole sequence.  Returns (x, contribs) with
+    """The segment over the whole sequence.  Returns (x, contribs, aux) with
     contribs, when `collect` (else {}), stacked on the layer axis: {"k", "v"}
-    (n, B, T, KV, hd) for attention, {"conv", "state"} (n, B, cw-1,
-    conv_dim) / (n, B, H, hd, ds) float32 for SSM segments.
+    (n, B, T, KV, hd) for attention (local layers too), {"conv", "state"}
+    for SSM segments ((n, B, cw-1, conv_dim) / (n, B, H, hd, ds) float32)
+    and RG-LRU segments ((n, B, cw-1, w) / (n, B, w) float32); aux is the
+    segment's summed MoE load-balance loss.  Local layers mask to their
+    sliding window.
 
     Nothing here writes in place, so autograd can differentiate the whole
     segment.  With `remat` each layer's body runs under non-reentrant
     ``torch.utils.checkpoint`` (the reference wraps its scan body in
     ``jax.checkpoint``): the backward recomputes a layer's activations from
     its input instead of keeping them."""
+    zero = torch.zeros((), device=x.device)
     if seg.kind == "ssm":
         def body(lp, x):
-            return ssm_mod.ssm_forward_full(lp, x, cfg.ssm, cfg.norm_eps)
+            x, con = ssm_mod.ssm_forward_full(lp, x, cfg.ssm, cfg.norm_eps)
+            return x, con, zero
+        names = ("conv", "state")
+    elif seg.kind == "rglru":
+        def body(lp, x):
+            x, con = rglru_mod.rglru_forward_full(lp, x, cfg.rglru, cfg.norm_eps)
+            x, aux = _ffn(lp, x, cfg, seg)
+            return x, con, aux
         names = ("conv", "state")
     else:
-        spec = MaskSpec()
+        spec = MaskSpec(window=cfg.local_window if seg.kind == "local" else 0)
 
         def body(lp, x):
-            x, k, v = attn_layer_full(lp, x, cfg, positions, spec)
-            return x, {"k": k, "v": v}
+            x, k, v, aux = attn_layer_full(lp, x, cfg, seg, positions, spec)
+            return x, {"k": k, "v": v}, aux
         names = ("k", "v")
     if remat:
         plain = body
@@ -313,12 +372,42 @@ def run_segment_full(sp, x, cfg: ModelConfig, seg: Segment, positions,
         def body(lp, x):
             return checkpoint(plain, lp, x, use_reentrant=False)
     got = {name: [] for name in names}
+    aux = zero
     for i in range(seg.n):
-        x, con = body(_layer(sp, i), x)
+        x, con, a = body(_layer(sp, i), x)
+        aux = aux + a
         if collect:
             for name in names:
                 got[name].append(con[name])
-    return x, ({name: torch.stack(v) for name, v in got.items()} if collect else {})
+    return x, ({name: torch.stack(v) for name, v in got.items()} if collect else {}), aux
+
+
+def ring_positions(pos: torch.Tensor, lengths: torch.Tensor, T: int) -> None:
+    """Mark a ring's slots for the block at positions lengths .. lengths+T-1,
+    in place: slot (lengths + i) mod C holds position lengths + i (the
+    reference's ``new_pos``); every other slot keeps its position."""
+    C = pos.shape[1]
+    rel = (torch.arange(C, device=pos.device)[None, :] - lengths[:, None].long()) % C
+    pos.copy_(torch.where(rel < T, lengths[:, None].long() + rel, pos.long()).to(pos.dtype))
+
+
+def _stateful_step(step_fn, sp, x, seg_cache, n: int, take):
+    """The layers of an SSM or RG-LRU segment over a block: candidates
+    {"conv", "state"} stacked (n, B, T, ...), or with `take` each layer's
+    selected window and state written in place and no candidates."""
+    convs, states = [], []
+    for i in range(n):
+        x, cand = step_fn(_layer(sp, i), x,
+                          {"conv": seg_cache["conv"][i], "state": seg_cache["state"][i]}, take)
+        if take is not None:
+            seg_cache["conv"][i].copy_(cand["conv"])
+            seg_cache["state"][i].copy_(cand["state"])
+            continue
+        convs.append(cand["conv"])
+        states.append(cand["state"])
+    if take is not None:
+        return x, {}
+    return x, {"conv": torch.stack(convs), "state": torch.stack(states)}
 
 
 def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
@@ -326,35 +415,32 @@ def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
     """Returns (x, cands).  Attention segments write their K/V cache in
     place and have no candidates ({}); `tbl` is the block table (B, MPS)
     when the cache is paged (seg_cache then holds pooled "kp"/"vp" pages
-    instead of per-lane "k"/"v").  SSM segments leave their state untouched
-    and return the candidates {"conv", "state"} stacked (n, B, T, ...); with
-    `take` (B,), a prefill chunk's commit, they carry instead: each layer's
-    window and state after token take-1 (kept where take == 0) are written
-    in place and there are no candidates."""
+    instead of per-lane "k"/"v"); a local segment's ring first takes the
+    block's positions in its ``pos``.  SSM and RG-LRU segments leave their
+    state untouched and return the candidates {"conv", "state"} stacked
+    (n, B, T, ...); with `take` (B,), a prefill chunk's commit, they carry
+    instead: each layer's window and state after token take-1 (kept where
+    take == 0) are written in place and there are no candidates."""
     if seg.kind == "ssm":
-        convs, states = [], []
-        for i in range(seg.n):
-            x, cand = ssm_mod.ssm_step(_layer(sp, i), x,
-                                       {"conv": seg_cache["conv"][i],
-                                        "state": seg_cache["state"][i]},
-                                       cfg.ssm, cfg.norm_eps, take=take)
-            if take is not None:
-                seg_cache["conv"][i].copy_(cand["conv"])
-                seg_cache["state"][i].copy_(cand["state"])
-                continue
-            convs.append(cand["conv"])
-            states.append(cand["state"])
-        if take is not None:
-            return x, {}
-        return x, {"conv": torch.stack(convs), "state": torch.stack(states)}
+        def ssm_fn(lp, x, c, take):
+            return ssm_mod.ssm_step(lp, x, c, cfg.ssm, cfg.norm_eps, take=take)
+        return _stateful_step(ssm_fn, sp, x, seg_cache, seg.n, take)
+    if seg.kind == "rglru":
+        def rglru_fn(lp, x, c, take):
+            x, cand = rglru_mod.rglru_step(lp, x, c, cfg.rglru, cfg.norm_eps, take=take)
+            return _ffn(lp, x, cfg, seg, dropless=True)[0], cand
+        return _stateful_step(rglru_fn, sp, x, seg_cache, seg.n, take)
     if "kp" in seg_cache:
         for i in range(seg.n):
             x = attn_layer_step_paged(_layer(sp, i), x, seg_cache["kp"][i],
-                                      seg_cache["vp"][i], tbl, lengths, cfg)
+                                      seg_cache["vp"][i], tbl, lengths, cfg, seg)
         return x, {}
+    pos = seg_cache.get("pos")
+    if pos is not None:
+        ring_positions(pos, lengths, x.shape[1])
     for i in range(seg.n):
         x = attn_layer_step(_layer(sp, i), x, seg_cache["k"][i], seg_cache["v"][i],
-                            lengths, cfg)
+                            lengths, cfg, seg, pos=pos)
     return x, {}
 
 
@@ -362,45 +448,65 @@ def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
 # Cache construction / commit
 # ---------------------------------------------------------------------------
 
-def _ssm_cache(cfg: ModelConfig, seg: Segment, B: int, device) -> dict:
-    return ssm_mod.init_ssm_cache(seg.n, B, cfg.d_model, cfg.ssm, cfg.torch_dtype, device)
+def _lane_cache(cfg: ModelConfig, seg: Segment, B: int, device) -> Optional[dict]:
+    """The per-lane constant-size cache of a segment whatever the layout: an
+    SSM or RG-LRU segment's window and state, a local segment's ring (K, V
+    of (n, B, W + RING_SLACK, KV, hd) and ``pos`` (B, W + RING_SLACK), all
+    -1); None for full attention."""
+    dtype = cfg.torch_dtype
+    if seg.kind == "ssm":
+        return ssm_mod.init_ssm_cache(seg.n, B, cfg.d_model, cfg.ssm, dtype, device)
+    if seg.kind == "rglru":
+        return rglru_mod.init_rglru_cache(seg.n, B, cfg.d_model, cfg.rglru, dtype, device)
+    if seg.kind == "local":
+        C = cfg.local_window + RING_SLACK
+        shape = (seg.n, B, C, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "pos": torch.full((B, C), -1, dtype=torch.int32, device=device)}
+    return None
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
     """Contiguous cache for the full stack: per attention segment K and V of
-    shape (n, B, max_len, KV, hd) in the model dtype, per SSM segment the
-    conv window and SSD state (``ssm.init_ssm_cache``), plus per-lane
-    committed ``lengths`` (B,)."""
+    shape (n, B, max_len, KV, hd) in the model dtype, per SSM or RG-LRU
+    segment the conv window and state, per local segment its ring
+    (``_lane_cache``), plus per-lane committed ``lengths`` (B,)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = cfg.torch_dtype
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    segs = {seg.name: (_ssm_cache(cfg, seg, B, device) if seg.kind == "ssm" else
-                       {"k": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype,
-                                         device=device),
-                        "v": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype,
-                                         device=device)})
-            for seg in model_segments(cfg)}
+    segs = {}
+    for seg in model_segments(cfg):
+        c = _lane_cache(cfg, seg, B, device)
+        if c is None:
+            c = {"k": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype, device=device),
+                 "v": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype, device=device)}
+        segs[seg.name] = c
     return {"lengths": torch.zeros((B,), dtype=torch.int32, device=device), "segs": segs}
 
 
 def init_paged_cache(cfg: ModelConfig, B: int, num_pages: int, page_size: int,
                      max_pages_per_slot: int, device=None) -> dict:
-    """Paged cache: per attention segment K and V pooled into ``num_pages``
-    shared pages plus the physical null page 0, (n, num_pages + 1,
-    page_size, KV, hd) in the model dtype; SSM segments keep their per-lane
-    constant-size state, as in ``init_cache``; per-lane ``lengths`` (B,) and
-    the block table ``tbl`` (B, max_pages_per_slot) int32, all -1
-    (unmapped)."""
+    """Paged cache: per full-attention segment K and V pooled into
+    ``num_pages`` shared pages plus the physical null page 0, (n, num_pages
+    + 1, page_size, KV, hd) in the model dtype; SSM and RG-LRU segments keep
+    their per-lane constant-size state and local segments their per-lane
+    rings, as in ``init_cache`` (they gain nothing from paging); per-lane
+    ``lengths`` (B,) and the block table ``tbl`` (B, max_pages_per_slot)
+    int32, all -1 (unmapped)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = cfg.torch_dtype
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (num_pages + 1, page_size, KV, hd)
-    segs = {seg.name: (_ssm_cache(cfg, seg, B, device) if seg.kind == "ssm" else
-                       {"kp": torch.zeros((seg.n, *shape), dtype=dtype, device=device),
-                        "vp": torch.zeros((seg.n, *shape), dtype=dtype, device=device)})
-            for seg in model_segments(cfg)}
+    segs = {}
+    for seg in model_segments(cfg):
+        c = _lane_cache(cfg, seg, B, device)
+        if c is None:
+            c = {"kp": torch.zeros((seg.n, *shape), dtype=dtype, device=device),
+                 "vp": torch.zeros((seg.n, *shape), dtype=dtype, device=device)}
+        segs[seg.name] = c
     return {"lengths": torch.zeros((B,), dtype=torch.int32, device=device),
             "tbl": torch.full((B, max_pages_per_slot), -1, dtype=torch.int32, device=device),
             "segs": segs}
@@ -457,9 +563,10 @@ def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
     the prompt alone) into lane `slot` of the live cache, and set its
     length.  Contiguous segments take the source K/V in the lane's prefix;
     paged segments scatter it through the slot's block-table row (map the
-    pages with ``map_slot_pages`` first); SSM segments copy the lane's
-    constant-size conv window and state whole.  The destination lane must
-    have been reset.
+    pages with ``map_slot_pages`` first); SSM and RG-LRU segments copy the
+    lane's constant-size conv window and state whole, and local segments
+    their ring and its ``pos`` row (a (B, C) leaf, the lane on axis 0).  The
+    destination lane must have been reset.
 
     ``src=None`` is the prefix cache's table-only splice: the lane's first
     `shared_len` tokens already live in shared pages that
@@ -486,6 +593,9 @@ def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
             _insert_paged_seg(seg_c, src_c, tbl, slot, src_slot)
             continue
         for key, leaf in seg_c.items():
+            if key == "pos":
+                leaf[slot] = src_c[key][src_slot]
+                continue
             piece = src_c[key][:, src_slot]
             if key in ("k", "v"):
                 leaf[:, slot, :piece.shape[1]] = piece.to(leaf.dtype)
@@ -496,17 +606,21 @@ def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
 
 
 def reset_slot(cfg: ModelConfig, cache: dict, slot: int) -> dict:
-    """Evict lane `slot`, in place: length 0 and, for contiguous and SSM
-    segments, its K/V or its conv window and state zeroed.  Paged segments
-    need no KV work: the lane's block-table row is unmapped (-1) and its
-    pages go back to the host-side pool.  Other lanes are untouched."""
+    """Evict lane `slot`, in place: length 0 and, for contiguous, ring, SSM
+    and RG-LRU segments, its K/V or its conv window and state zeroed and a
+    ring's slot positions emptied (-1).  Paged segments need no KV work: the
+    lane's block-table row is unmapped (-1) and its pages go back to the
+    host-side pool.  Other lanes are untouched."""
     # fill_ on views: item assignment of a Python number would stage it
     # through a host tensor and block the host on the copy
     for seg_c in cache["segs"].values():
         if "kp" in seg_c:
             continue
-        for leaf in seg_c.values():
-            leaf[:, slot].zero_()
+        for key, leaf in seg_c.items():
+            if key == "pos":             # (B, C): the lane on axis 0
+                leaf[slot].fill_(-1)
+            else:
+                leaf[:, slot].zero_()
     cache["lengths"][slot].zero_()
     if "tbl" in cache:
         cache["tbl"][slot].fill_(-1)
@@ -515,16 +629,29 @@ def reset_slot(cfg: ModelConfig, cache: dict, slot: int) -> dict:
 
 def fill_cache_from_full(cfg: ModelConfig, cache: dict, contribs: dict, T: int) -> dict:
     """Copy prefill contributions into the cache, in place: K/V (stacked
-    (n,B,T,...)) into slots [0, T), SSM conv windows and states whole.  All
-    sequences are fully packed (length T)."""
+    (n,B,T,...)) into slots [0, T), SSM and RG-LRU conv windows and states
+    whole.  A ring takes positions [0, T) at slots [0, T), or, when T
+    exceeds its C slots, the last C positions p at slots p mod C; its
+    ``pos`` is set to match and -1 elsewhere.  All sequences are fully
+    packed (length T)."""
     for seg in model_segments(cfg):
         con = contribs.get(seg.name)
         if not con:
             continue
         c = cache["segs"][seg.name]
-        if seg.kind == "ssm":
+        if seg.kind in ("ssm", "rglru"):
             c["conv"].copy_(con["conv"])
             c["state"].copy_(con["state"])
+            continue
+        if "pos" in c:
+            Cap = c["k"].shape[2]
+            keep = min(T, Cap)
+            p = torch.arange(T - keep, T, device=c["pos"].device)
+            sl = p % Cap
+            c["pos"].fill_(-1)
+            c["pos"][:, sl] = p.to(torch.int32)[None, :]
+            c["k"][:, :, sl] = con["k"][:, :, T - keep:].to(c["k"].dtype)
+            c["v"][:, :, sl] = con["v"][:, :, T - keep:].to(c["v"].dtype)
             continue
         c["k"][:, :, :T] = con["k"].to(c["k"].dtype)
         c["v"][:, :, :T] = con["v"].to(c["v"].dtype)
@@ -560,17 +687,20 @@ def commit_cache(cfg: ModelConfig, cache: dict, cands: dict, accept: torch.Tenso
 # ---------------------------------------------------------------------------
 
 def forward_full(params_segs: dict, x: torch.Tensor, cfg: ModelConfig, lo: int,
-                 hi: int, collect: bool = False, remat: bool = False):
+                 hi: int, collect: bool = False, remat: bool = False,
+                 with_aux: bool = False):
     """Run layers [lo, hi) over a full sequence at positions 0..T-1, each
     layer under ``torch.utils.checkpoint`` when `remat`.  Returns
-    (x, contribs)."""
+    (x, contribs), or (x, contribs, aux) with `with_aux`: the summed MoE
+    load-balance loss, a float32 scalar."""
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
-    contribs = {}
+    contribs, aux = {}, torch.zeros((), device=x.device)
     for seg in segments_in_range(cfg, lo, hi):
-        x, contribs[seg.name] = run_segment_full(params_segs[seg.name], x, cfg, seg,
-                                                 positions, collect, remat)
-    return x, contribs
+        x, contribs[seg.name], a = run_segment_full(params_segs[seg.name], x, cfg, seg,
+                                                    positions, collect, remat)
+        aux = aux + a
+    return (x, contribs, aux) if with_aux else (x, contribs)
 
 
 def forward_step(params_segs: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,

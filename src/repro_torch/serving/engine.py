@@ -23,6 +23,13 @@ Two schedulers:
   only at superstep boundaries, and the committed streams are those of
   per-block ticking.
 
+Every stack the port runs serves on both schedulers: a hybrid of RG-LRU
+blocks and sliding-window rings (recurrentgemma-9b) on the contiguous
+continuous engine, a local/global MoE stack (llama4-scout) paged, its rings
+and recurrent states per lane in either layout and only its full-attention
+layers in the pool.  The prefix cache refuses any stack with a segment
+other than full attention, as the reference does.
+
 With ``kv_pages > 0`` the continuous scheduler runs over a paged KV pool
 (``serving.kv_pool``): lanes hold block-table rows instead of worst-case
 contiguous regions; admission checks the free-page watermark; before every
@@ -338,7 +345,8 @@ class ServingEngine:
         # the prefix cache shares pages (the paged pool), prefills uncached
         # tails at an offset inside the live cache (the chunk step: a
         # scratch prefill encodes positions from 0) and needs every segment
-        # to be attention (SSM state is per lane, not shareable by content)
+        # to be attention (SSM and RG-LRU states and rings are per lane, not
+        # shareable by content)
         if self.prefix_cache:
             if not self.paged:
                 raise ValueError("prefix_cache requires a paged KV pool (kv_pages > 0)")

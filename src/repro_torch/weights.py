@@ -9,6 +9,10 @@ straight copy of every leaf.  Two sources:
 * a ``.npz`` written by ``repro.checkpoint.ckpt.save_checkpoint``, whose keys
   are the pytree paths joined with "/" (``segments/s1/wq``).
 
+Every leaf keeps its dtype: the float32 ones of a bf16 model (norm gains,
+RG-LRU's ``lam`` and ``conv_w``, the MoE ``router``) stay float32, and the
+experts nest under each segment's "moe" as in the reference's tree.
+
 ``bfloat16`` leaves arrive either as ``ml_dtypes`` arrays (a live pytree) or,
 read back from a ``.npz``, as 2-byte void arrays (``|V2``: ``np.savez``
 stores the ``ml_dtypes`` type by its size alone); torch takes neither, so

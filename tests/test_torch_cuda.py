@@ -3,7 +3,9 @@ shapes the main path does not use (ragged vocab and d, T > 48 rows, r = 1,
 GQA groups, Tq > 1, lengths at and past the cache capacity, paged tables
 with -1 entries, all -1 lanes, page sizes 16 and 4 and per-lane page counts,
 the attention kernels' split of a lane over 1, 2, 4 and 8 CTAs at its edges),
-in float32 and bfloat16, the SSD scan at odd chunk lengths, with padded
+in float32 and bfloat16, the ring form of ``decode_attention`` at the
+hybrid and MoE decoders' local layers (hd 256 / G 16 and hd 128 / G 5,
+wrapped and not), the SSD scan at odd chunk lengths, with padded
 rows, a carried h0, strided inputs and every slice width of its hd split,
 plus the greedy sync path and the continuous paged
 path on the card, mamba2-370m-tiny's greedy path in bfloat16, the
@@ -192,6 +194,40 @@ def test_decode_attention(ops, dtype, B, Tq, H, KV, hd, S):
     q_in = q[:, 0].contiguous() if Tq == 1 else q
     torch.testing.assert_close(ops.decode_attention(q_in, k, v, lens),
                                ref.decode_attention(q_in, k, v, lens), **TOL[dtype])
+
+
+def _ring_pos(n: int, C: int, stale: int) -> np.ndarray:
+    """Slot positions of a ring of C slots after positions 0..n-1 and
+    `stale` rejected writes past them, position p at slot p % C."""
+    pos = np.full(C, -1, np.int32)
+    p = np.arange(max(0, n + stale - C), n + stale)
+    pos[p % C] = p
+    return pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq", [1, 5])
+@pytest.mark.parametrize("H,KV,hd,W", [(16, 1, 256, 2048), (40, 8, 128, 8192)])
+@pytest.mark.parametrize("wrapped", [False, True])
+def test_decode_attention_ring(ops, dtype, Tq, H, KV, hd, W, wrapped):
+    """The ring form at recurrentgemma-9b's local layers (MQA, hd 256, G 16:
+    a verify pass's 80 rows take two row tiles) and llama4-scout's (hd 128,
+    G 5), rings of W + 128 slots, lanes short of the ring or wrapped past
+    it, 3 stale writes a lane past its length."""
+    from repro_torch.kernels import ref
+    C = W + 128
+    B = 3
+    gen = torch.Generator(device="cuda").manual_seed(W + Tq + wrapped)
+    q = _randn(gen, B, Tq, H, hd, dtype=dtype)
+    k = _randn(gen, B, C, KV, hd, dtype=dtype)
+    v = _randn(gen, B, C, KV, hd, dtype=dtype)
+    lens = [C + 1, C + 300, 2 * C + 7] if wrapped else [Tq, 150, C - 3]
+    pos = torch.as_tensor(np.stack([_ring_pos(n, C, 3) for n in lens]), device="cuda")
+    lens = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    q_in = q[:, 0].contiguous() if Tq == 1 else q
+    torch.testing.assert_close(ops.decode_attention(q_in, k, v, lens, pos=pos, window=W),
+                               ref.decode_attention(q_in, k, v, lens, pos=pos, window=W),
+                               **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

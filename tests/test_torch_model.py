@@ -1,8 +1,10 @@
 """The port's config copy, weight bridge and model (prefill, a draft step and
 a verify step) against the JAX Model, for vicuna-7b-tiny (MHA),
-qwen3-0.6b-tiny (GQA, qk_norm, tied head) and mamba2-370m-tiny (Mamba-2
-SSD blocks, tied head), in float32.  Hiddens and logits within rtol 1e-5 /
-atol 2e-5, caches and SSM candidate states likewise."""
+qwen3-0.6b-tiny (GQA, qk_norm, tied head), mamba2-370m-tiny (Mamba-2
+SSD blocks, tied head), recurrentgemma-9b-tiny (RG-LRU and a local ring)
+and llama4-scout-17b-a16e-tiny (local rings, a global layer, MoE FFNs), in
+float32.  Hiddens and logits within rtol 1e-5 / atol 2e-5, caches, ring
+positions (exactly) and SSM / RG-LRU candidate states likewise."""
 import dataclasses
 
 import numpy as np
@@ -23,7 +25,8 @@ from repro_torch.core import buffer as tbuffer  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
-NAMES = ["vicuna-7b", "qwen3-0.6b", "mamba2-370m", "qwen3-1.7b", "qwen2.5-14b", "llama3-405b"]
+NAMES = ["vicuna-7b", "qwen3-0.6b", "mamba2-370m", "qwen3-1.7b", "qwen2.5-14b", "llama3-405b",
+         "recurrentgemma-9b", "llama4-scout-17b-a16e"]
 RTOL, ATOL = 1e-5, 2e-5
 NORMS = ("ln1", "ln2", "final_norm", "qn", "kn", "norm_w")
 
@@ -58,7 +61,7 @@ def test_config_copy_matches_reference(name, tiny):
     cj, ct = jax_get_config(name, tiny=tiny), get_config(name, tiny=tiny)
     for f in dataclasses.fields(ct):
         vj, vt = getattr(cj, f.name), getattr(ct, f.name)
-        if f.name == "dvi" or (f.name == "ssm" and vj is not None):
+        if f.name == "dvi" or (f.name in ("ssm", "moe", "rglru") and vj is not None):
             assert dataclasses.asdict(vj) == dataclasses.asdict(vt), f.name
         else:
             assert vj == vt, f.name
@@ -70,7 +73,7 @@ def test_config_copy_matches_reference(name, tiny):
 
 def test_unported_architectures_raise():
     cfg = get_config("vicuna-7b", tiny=True)
-    for kw in (dict(sliding_window=64), dict(kv_quant=True), dict(moe=object())):
+    for kw in (dict(kv_quant=True), dict(mla=object()), dict(encoder=object())):
         with pytest.raises(NotImplementedError):
             build_model(cfg.replace(**kw), device="cpu")
 
@@ -143,6 +146,28 @@ def test_load_npz_reads_reference_bf16_checkpoints(tmp_path):
             np.testing.assert_array_equal(node.numpy(), arr)
 
 
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "llama4-scout-17b-a16e"])
+def test_bridge_keeps_float32_leaves_of_bf16_models(name):
+    """A bf16 reference tree of the hybrid and MoE configs comes through the
+    bridge leaf for leaf in its own dtype: RG-LRU's ``lam`` and ``conv_w``
+    and the MoE ``router`` stay float32, the experts nest under "moe"."""
+    cfg_j = jax_get_config(name, tiny=True)
+    params_j = jax_build_model(cfg_j).init(jax.random.PRNGKey(0))
+    params_t = weights.params_from_numpy(get_config(name, tiny=True),
+                                         jax.tree.map(np.asarray, params_j), "cpu")
+    flat_j = {jax.tree_util.keystr(k): np.asarray(v)
+              for k, v in jax.tree_util.tree_flatten_with_path(params_j)[0]}
+    f32 = set()
+    for key, arr in flat_j.items():
+        node = params_t
+        for part in key.strip("[]'").split("']['"):
+            node = node[part]
+        assert str(node.dtype).split(".")[-1] == arr.dtype.name, key
+        if arr.dtype.name == "float32":
+            f32.add(key.split("'")[-2])
+    assert ({"lam", "conv_w"} if name.startswith("recurrent") else {"router"}) <= f32
+
+
 def test_bf16_leaves_are_bit_exact():
     x = jax.random.normal(jax.random.PRNGKey(0), (3, 5)).astype(jnp.bfloat16)
     t = weights.params_from_numpy(get_config("vicuna-7b", tiny=True),
@@ -162,15 +187,20 @@ def _prefill(pair, B=2, T=7, C=40, seed=3):
 
 
 def _close_cache(cache_j, cache_t, names=None):
-    """Lengths equal; every K/V, conv-window and SSD-state leaf close (the
-    reference's attention "pos" array has no counterpart in the port)."""
+    """Lengths equal; every K/V, conv-window and SSD / RG-LRU state leaf
+    close, a ring's "pos" equal (the reference's "pos" array of a full
+    attention cache has no counterpart in the port)."""
     np.testing.assert_array_equal(cache_t["lengths"].numpy(), np.asarray(cache_j["lengths"]))
     for name, seg in cache_t["segs"].items():
         if names is not None and name not in names:
             continue
-        assert set(seg) == set(cache_j["segs"][name]) - {"pos"}, name
+        want = set(cache_j["segs"][name]) - (set() if "pos" in seg else {"pos"})
+        assert set(seg) == want, name
         for key, leaf in seg.items():
-            _close(cache_j["segs"][name][key], leaf)
+            if key == "pos":
+                np.testing.assert_array_equal(leaf.numpy(), np.asarray(cache_j["segs"][name][key]))
+            else:
+                _close(cache_j["segs"][name][key], leaf)
 
 
 def _close_cands(cands_j, cands_t):
