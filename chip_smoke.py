@@ -9,7 +9,9 @@ vicuna-7b's speculative sampling and per-lane adaptive depth, chunked
 prefill on both models' continuous paths, the prefix cache behind the
 HTTP front end and the launchers, the paper's baselines (Medusa-lite on
 vicuna-7b, two-model SpS on the qwen3 pair) with qwen2.5-14b's DVI, and the
-hybrid and MoE decoders (recurrentgemma-9b, llama4-scout-17b-a16e).
+hybrid and MoE decoders (recurrentgemma-9b, llama4-scout-17b-a16e), and
+DeepSeek-V3's multi-head latent attention with its MTP head
+(deepseek-v3-671b).
 
     python3 chip_smoke.py
 
@@ -259,6 +261,24 @@ Phases (any failure raises and exits non-zero):
    == dispatches; phase 3 holds the ring form at both configs' shapes
    (wrapped, stale writes) and the vocab pair at V 256000 / d 4096 and
    V 202048 / d 5120;
+17. DeepSeek-V3's MLA and MTP head, weights drawn on the card (seed 0):
+   (a) deepseek-v3-671b at full width cut to DS_LAYERS of its 61 layers (3
+   dense, then 2 MoE of 256 experts, top 8, and a shared one; a third MoE
+   layer's 22.5 GB does not fit one card), bf16, through the sync engine
+   (phase 4's requests, the graphed run profiled with its records gate)
+   and the contiguous continuous engine (phase 8's requests; MLA has no
+   paged cache), eagerly and graphed, and ``mtp_logits`` once on the sync
+   prefill's hidden states (shape, finite, device time); (b) its float32
+   witness at DS_WIT_LAYERS layers (3 dense + 1 MoE, no MTP) through the
+   same engines, graphed, all requests of both.  Gates: graphed == eager
+   bit for bit, launches exact (0 ``decode_attention``, 0
+   ``paged_decode_attention``, K+1 ``lora_logits``, 1 ``verify_argmax`` a
+   block: MLA attends in plain PyTorch, as the reference does in jnp),
+   each graph's nodes == its capture's launches, 0 syncs in a dispatch,
+   host syncs == dispatches, lanes empty, each bf16 completion == AR on
+   its exact (sync: bucket-padded) prompt alone or a bf16 near-tie, beyond
+   one held by the witness, whose every completion == float32 AR alone or
+   a float32 near-tie; phase 3 holds the vocab pair at d 7168 / V 129280;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Phases 4, 8 and 9 run every path twice: eagerly (``graphs=False``) and
@@ -404,6 +424,13 @@ R_NAME, L4_NAME, L4_LAYERS = "recurrentgemma-9b", "llama4-scout-17b-a16e", 8
 L4_WIT_LAYERS = 4
 R_LONG, R_BUCKET = 2, 2400
 R_LONG_PROMPTS = (2200, 2400)
+# DeepSeek-V3 (phase 17): deepseek-v3-671b at full width cut to DS_LAYERS of
+# its 61 layers, 3 dense and 2 MoE (26.6 B parameters and 0.69 B of MTP head,
+# 54.6 GB in bf16: one MoE layer's routed experts alone are 22.5 GB, so a
+# third does not fit one card); its float32 witness at DS_WIT_LAYERS layers,
+# 3 dense and 1 MoE without the MTP head (15.1 B parameters, 60.4 GB); phase
+# 3 checks its vocab heads (tag "ds": d 7168, V 129280)
+DS_NAME, DS_LAYERS, DS_WIT_LAYERS = "deepseek-v3-671b", 5, 4
 
 
 def phase(n: int, msg: str) -> None:
@@ -1064,6 +1091,7 @@ def kernels_phase(cfg, mcfg):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     hybrids = (("rg", get_config(R_NAME)), ("l4", get_config(L4_NAME)))
+    ds = get_config(DS_NAME)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     d, V, H, KV, hd = (cfg.d_model, cfg.vocab_size, cfg.num_heads, cfg.num_kv_heads,
                        cfg.resolved_head_dim)
@@ -1232,6 +1260,15 @@ def kernels_phase(cfg, mcfg):
         l_h, _ = check_lora(ops, ref, hgen, B, hcfg.d_model, hcfg.vocab_size,
                             hcfg.dvi.lora_rank, f"{tag} draft head")
         hybrid_vocab[f"lora_{tag}"] = l_h
+    # deepseek-v3's verify and draft heads (phase 17: d 7168, V 129280), from
+    # a generator of their own
+    dgen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    for T_h in (B, T_verify):
+        h_h, w_h, _ = check_verify(ops, ref, dgen, T_h, ds.d_model, ds.vocab_size,
+                                   f"ds head T={T_h}")
+        hybrid_vocab[f"at_ds_t{T_h}"] = (h_h, w_h, T_h, ds.d_model, ds.vocab_size)
+    hybrid_vocab["lora_ds"], _ = check_lora(ops, ref, dgen, B, ds.d_model, ds.vocab_size,
+                                            ds.dvi.lora_rank, "ds draft head")
     # the mamba2 paths: the tied vocab (not a multiple of 64 columns) and the
     # scan at the prefill shapes of both schedulers
     md, mV, mK = mcfg.d_model, mcfg.vocab_size, mcfg.dvi.k_spec
@@ -1331,6 +1368,7 @@ def kernels_phase(cfg, mcfg):
                                  verify_bound(T_q, d_q, V_q)), **gemm(h, w))
                 for key, (h, w, T_q, d_q, V_q) in qwen_vocab.items()},
              # recurrentgemma-9b's and llama4-scout's verify heads (phase 16)
+             # and deepseek-v3's (phase 17)
              **{key: dict(timing(lambda h=h, w=w: ops.verify_argmax(h, w),
                                  lambda h=h, w=w: ref.verify_argmax(h, w),
                                  verify_bound(T_q, d_q, V_q)), **gemm(h, w))
@@ -1366,6 +1404,7 @@ def kernels_phase(cfg, mcfg):
                                                   cfg.dvi.lora_rank)),
                                 **gemm(q_lora[0], q_lora[1])),
              # recurrentgemma-9b's and llama4-scout's draft heads (phase 16)
+             # and deepseek-v3's (phase 17)
              **{f"at_{tag}": dict(timing(lambda a=hybrid_vocab[f"lora_{tag}"]:
                                          ops.lora_logits(*a),
                                          lambda a=hybrid_vocab[f"lora_{tag}"]:
@@ -1373,7 +1412,7 @@ def kernels_phase(cfg, mcfg):
                                          lora_bound(B, hc.d_model, hc.vocab_size,
                                                     hc.dvi.lora_rank)),
                                   **gemm(*hybrid_vocab[f"lora_{tag}"][:2]))
-                for tag, hc in hybrids},
+                for tag, hc in hybrids + (("ds", ds),)},
              gemm_note=GEMM_NOTE),
         # attention at the verify pass (Tq = K+1), with the draft feed
         # (Tq = 1) beside it: 30 and 10 of the 40 launches of a block
@@ -2033,14 +2072,14 @@ def launch_gate(n: int, label: str, r: dict, want: dict) -> None:
 
 
 def sync_modes(model, params, dvi, reqs, n: int, label: str, want, prefills=None,
-               profile=None, **kw) -> dict:
+               profile=None, ar_kw=None, **kw) -> dict:
     """A path on the sync engine (`kw` to ``sync_run``), eagerly and
     graphed: well-formed completions, the launches ``want(run)`` exact on
     both, graphed == eager bit for bit and the census (``report_modes``),
     then each graphed completion against AR on its bucket-padded prompt
-    (the near-tie rule).  ``profile(run)``, given, profiles the graphed run
-    (the eager one is not profiled: the script's time limit).  Returns the
-    runs by mode."""
+    (the near-tie rule; `ar_kw` to ``check_against_ar``).
+    ``profile(run)``, given, profiles the graphed run (the eager one is not
+    profiled: the script's time limit).  Returns the runs by mode."""
     from repro_torch.core import spec
     from repro_torch.serving.engine import Request
     runs = {}
@@ -2063,7 +2102,8 @@ def sync_modes(model, params, dvi, reqs, n: int, label: str, want, prefills=None
         del eng
         release(r)
     report_modes(n, label, runs)
-    check_against_ar(model, params, spec, padded, runs["graphed"]["comps"], label, n_phase=n)
+    check_against_ar(model, params, spec, padded, runs["graphed"]["comps"], label, n_phase=n,
+                     **(ar_kw or {}))
     return runs
 
 
@@ -3530,10 +3570,13 @@ def ring_launches(cfg, paged: bool) -> tuple:
     of the target path once in the verify pass; local layers read their
     rings through decode_attention's ring form, global layers go through
     paged_decode_attention on a paged engine; RG-LRU layers launch no
-    attention."""
+    attention, nor do MLA layers (the absorbed form is plain PyTorch, as the
+    reference's is jnp)."""
     from repro_torch.models import transformer as tfm
     K, k = cfg.dvi.k_spec, cfg.dvi.split_layer
     dec = pag = 0
+    if cfg.mla is not None:
+        return dec, pag
     for seg in tfm.model_segments(cfg):
         times = seg.n * (K + 1 if seg.start < k else 1)
         if seg.kind == "local" or (seg.kind == "attn" and not paged):
@@ -3703,22 +3746,160 @@ def llama4_witness(reqs, deferred: list) -> None:
     cfg = get_config(L4_NAME).replace(num_layers=L4_WIT_LAYERS, dtype="float32")
     model, params, dvi = draw(cfg, 16)
     label = f"{L4_NAME} ({L4_WIT_LAYERS} layers, float32 witness) continuous graphed"
-    r = continuous_run(model, params, dvi, reqs, True, C_PAGES_AMPLE, 16, label)
-    eng = r["eng"]
-    check_comps(r["comps"], reqs, cfg.vocab_size, label)
-    phase(16, f"{label} (paged, {C_PAGES_AMPLE} pages, {C_SLOTS} lanes, sync_every {C_SYNC}): "
-              f"{len(r['comps'])} requests in {r['wall']:.3f} s, {r['dispatches']} dispatches, "
-              f"{r['host_syncs']} host syncs, {r['blocks_run']} blocks run, peak memory "
-              f"{r['peak'] / 2**30:.2f} GiB; bf16 requests it holds: {deferred}")
-    check(eng.active_slots == 0 and not eng.busy, f"{label}: lanes left occupied at the end")
-    check(r["host_syncs"] == r["dispatches"], f"{label}: host syncs != dispatches")
-    launch_gate(16, label, r, hybrid_want(cfg, r["blocks_run"], paged=True))
-    check_census(16, label, r["graph"])
-    del eng
-    release(r)
-    check_against_ar(model, params, spec, reqs, r["comps"], label, n_phase=16, alone=True,
+    phase(16, f"{label}: bf16 requests it holds: {deferred}")
+    comps = witness_continuous(model, params, dvi, reqs, C_PAGES_AMPLE, 16, label)
+    check_against_ar(model, params, spec, reqs, comps, label, n_phase=16, alone=True,
                      rtol=F32_GAP_RTOL)
     phase(16, f"{label}: took {time.perf_counter() - t0:.1f} s")
+    del model, params, dvi
+    release({})
+
+
+def witness_continuous(model, params, dvi, reqs, pages: int, n: int, label: str) -> list:
+    """A float32 witness's graphed continuous engine (C_SLOTS lanes; paged
+    over `pages` pages, or contiguous with 0) on all of `reqs`, under
+    ``serve_checked``'s zero-sync gate: well-formed completions, lanes
+    empty, host syncs == dispatches, the launch formula of ``hybrid_want``
+    and the census.  Returns the completions."""
+    r = continuous_run(model, params, dvi, reqs, True, pages, n, label)
+    eng = r["eng"]
+    check_comps(r["comps"], reqs, model.cfg.vocab_size, label)
+    phase(n, f"{label} ({f'paged, {pages} pages' if pages else 'contiguous'}, {C_SLOTS} lanes, "
+             f"sync_every {C_SYNC}): {len(r['comps'])} requests in {r['wall']:.3f} s, "
+             f"{r['dispatches']} dispatches, {r['host_syncs']} host syncs, {r['blocks_run']} "
+             f"blocks run, peak memory {r['peak'] / 2**30:.2f} GiB; synchronising operations "
+             f"per tick {r['per_tick']}")
+    check(eng.active_slots == 0 and not eng.busy, f"{label}: lanes left occupied at the end")
+    check(r["host_syncs"] == r["dispatches"], f"{label}: host syncs != dispatches")
+    launch_gate(n, label, r, hybrid_want(model.cfg, r["blocks_run"], paged=pages > 0))
+    check_census(n, label, r["graph"])
+    del eng
+    release(r)
+    return r["comps"]
+
+
+# ---------------------------------------------------------------------------
+# phase 17: DeepSeek-V3's multi-head latent attention and MTP head
+# ---------------------------------------------------------------------------
+
+def mtp_check(model, params, reqs) -> None:
+    """``mtp_logits`` once on the sync path's prefill: phase 4's prompts
+    padded to 128, prefilled as the sync engine prefills them (the first
+    127 tokens), the hidden states with the tokens that follow them through
+    the MTP head: logits (B, 127, V), finite.  Its device ms (CUDA events,
+    after one warm call) is printed."""
+    prompts = torch.as_tensor(np.stack([pad_prompt(r, 128) for r in reqs]), device=DEV)
+    h, _ = model.prefill(params, prompts[:, :-1])
+    nxt = prompts[:, 1:]
+    model.mtp_logits(params, h, nxt)                       # warm
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    logits = model.mtp_logits(params, h, nxt)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b)
+    want = (len(reqs), 127, model.cfg.vocab_size)
+    finite = bool(torch.isfinite(logits).all())
+    phase(17, f"mtp_logits on the sync prefill's hidden states: shape {tuple(logits.shape)} "
+              f"(expected {want}), {logits.dtype}, finite {finite}, {ms:.3f} device ms")
+    check(tuple(logits.shape) == want and finite, "mtp_logits: wrong shape or not finite")
+    del h, logits
+    release({})
+
+
+def deepseek_phase(by_row) -> dict:
+    """Phase 17a: deepseek-v3-671b at full width, DS_LAYERS layers (3 dense,
+    2 MoE), bf16, with its MTP head: the sync engine (phase 4's requests,
+    the graphed run profiled) and the contiguous continuous engine (phase
+    8's requests), eagerly and graphed, then ``mtp_check``; then
+    ``deepseek_witness``.  A bf16 completion that differs from AR beyond a
+    near-tie is held by that witness: top-8 of 256 routing turns a bf16
+    rounding (the engine's rows against AR's one-token steps, or a batched
+    prefill's capacity drops against a prompt prefilled alone) into a
+    choice of expert.  Returns each path's eager and graphed runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    t0 = time.perf_counter()
+    cfg = get_config(DS_NAME).replace(num_layers=DS_LAYERS)
+    kinds = [ffn for _, ffn in tfm.layer_kinds(cfg)]
+    check(kinds == ["dense"] * 3 + ["moe"] * (DS_LAYERS - 3) and cfg.mtp_depth == 1
+          and ring_launches(cfg, False) == (0, 0),
+          f"{cfg.name} at {DS_LAYERS} layers: FFN kinds {kinds}, mtp_depth {cfg.mtp_depth}")
+    model, params, dvi = draw(cfg, 17)
+    segs = [(s.name, s.kind, s.ffn, s.n) for s in tfm.model_segments(cfg)]
+    phase(17, f"{DS_NAME}: segments {segs}, MTP head {n_params(params['mtp']) / 1e9:.2f}B "
+              f"parameters")
+    deferred = []
+
+    def defer(label):
+        def hold(req, got) -> bool:
+            deferred.append((label, req.uid))
+            phase(17, f"{label}: request {req.uid} differs beyond a bf16 near-tie: held by the "
+                      f"float32 witness of the same engines below")
+            return True
+        return hold
+    reqs = make_requests(cfg)
+    expect = {"verify_argmax": by_row["verify_argmax"]["at_ds_t40"]["ms"],
+              "lora_logits": by_row["lora_logits"]["at_ds"]["ms"]}
+    label = f"{DS_NAME} ({DS_LAYERS} layers) sync"
+    sync = sync_modes(model, params, dvi, reqs, 17, label,
+                      want=lambda r: hybrid_want(cfg, r["steps"], paged=False),
+                      profile=lambda r: profile_batch(r["eng"], reqs, r["wall"] * 1e3, n=17,
+                                                      expect=expect),
+                      ar_kw=dict(alone=True, witness=defer("sync")))
+    creqs = continuous_requests(cfg)
+    cont = continuous_modes(model, params, dvi, creqs, 0, 17,
+                            f"{DS_NAME} ({DS_LAYERS} layers) continuous",
+                            want=lambda r: hybrid_want(cfg, r["blocks_run"], paged=False),
+                            witness=defer("continuous"))
+    mtp_check(model, params, reqs)
+    del model, params, dvi
+    release({})
+    phase(17, f"17a ({DS_NAME}, {DS_LAYERS} of 61 layers) took {time.perf_counter() - t0:.1f} s")
+    deepseek_witness(reqs, creqs, deferred)
+    phase(17, f"17 ({DS_NAME} and its witness) took {time.perf_counter() - t0:.1f} s")
+    return {"deepseek_sync": sync, "deepseek_continuous": cont}
+
+
+def deepseek_witness(reqs, creqs, deferred: list) -> None:
+    """Phase 17b, the float32 witness of 17a: deepseek-v3-671b at
+    DS_WIT_LAYERS layers (3 dense + 1 MoE, no MTP head) drawn in float32
+    from SEED, through the same engines graphed: the sync engine on all of
+    `reqs` and the contiguous continuous engine (C_SLOTS lanes) on all of
+    `creqs`.  Gates: the launch formula, the census, host syncs ==
+    dispatches and lanes empty (continuous), and every completion equal to
+    float32 ``ar_generate`` on its exact (sync: bucket-padded) prompt alone
+    or first different at a float32 near-tie (F32_GAP_RTOL).  Its one MoE
+    layer is the last, so a batched prefill's capacity drops reach no
+    cache and AR alone computes the engine's function."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import spec
+    from repro_torch.serving.engine import Request
+    t0 = time.perf_counter()
+    cfg = get_config(DS_NAME).replace(num_layers=DS_WIT_LAYERS, dtype="float32", mtp_depth=0)
+    model, params, dvi = draw(cfg, 17)
+    label = f"{DS_NAME} ({DS_WIT_LAYERS} layers, float32 witness)"
+    phase(17, f"{label}: bf16 requests it holds: {deferred}")
+    r = sync_run(model, params, dvi, reqs, True, 17, f"{label} sync graphed")
+    eng = r["eng"]
+    padded = [Request(uid=q.uid, prompt=eng._pad(q, eng._bucket(len(q.prompt))),
+                      max_new=q.max_new) for q in reqs]
+    check_comps(r["comps"], reqs, cfg.vocab_size, f"{label} sync")
+    phase(17, f"{label} sync graphed: {len(r['comps'])} requests in {r['steps']} block-steps, "
+              f"wall {r['wall']:.3f} s, peak memory {r['peak'] / 2**30:.2f} GiB")
+    launch_gate(17, f"{label} sync", r, hybrid_want(cfg, r["steps"], paged=False))
+    check_census(17, f"{label} sync", r["graph"])
+    sync_comps = r["comps"]
+    del eng
+    release(r)
+    cont_comps = witness_continuous(model, params, dvi, creqs, 0, 17,
+                                    f"{label} continuous graphed")
+    check_against_ar(model, params, spec, padded, sync_comps, f"{label} sync", n_phase=17,
+                     alone=True, rtol=F32_GAP_RTOL)
+    check_against_ar(model, params, spec, creqs, cont_comps, f"{label} continuous",
+                     n_phase=17, alone=True, rtol=F32_GAP_RTOL)
+    phase(17, f"{label}: took {time.perf_counter() - t0:.1f} s")
     del model, params, dvi
     release({})
 
@@ -4463,6 +4644,11 @@ def main() -> int:
     h16 = hybrid_phase(by_row)
     marks["16"] = time.perf_counter() - t_start
 
+    # ---- phase 17: DeepSeek-V3's MLA and MTP head ----
+    release({})
+    h16.update(deepseek_phase(by_row))
+    marks["17"] = time.perf_counter() - t_start
+
     # ---- phase 7: result lines ----
     for row in rows:
         name = row["name"]
@@ -4489,7 +4675,7 @@ def main() -> int:
                    "sps_self": b_sps["sps_self"]["graphed"]["launches"].get(name, 0),
                    "medusa": b_medusa["graphed"]["launches"].get(name, 0),
                    "qwen25_14b": q14["launches"].get(name, 0),
-                   # phase 16: the hybrid and MoE decoders (graphed)
+                   # phases 16 and 17: the hybrid, MoE and MLA decoders (graphed)
                    **{path: r["graphed"]["launches"].get(name, 0) for path, r in h16.items()}}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path

@@ -10,13 +10,18 @@ recurrentgemma-9b is the hybrid of RG-LRU blocks and sliding-window
 attention over per-lane ring caches (38 layers of (rglru, rglru, local));
 llama4-scout-17b-a16e interleaves three ring layers with one global layer
 and has a mixture-of-experts FFN on every layer (its full depth does not fit
-one card: the card runs it cut in depth).
+one card: the card runs it cut in depth); deepseek-v3-671b attends through
+multi-head latent attention over a latent cache, with three dense layers
+before 256 routed experts (top 8) and a shared one, and a multi-token
+prediction head (cut in depth on the card too).
 """
 from __future__ import annotations
 
-from repro_torch.configs import (llama3_405b, llama4_scout_17b_a16e, mamba2_370m, qwen3_0_6b,
-                                 qwen3_1_7b, qwen25_14b, recurrentgemma_9b, vicuna_7b)
-from repro_torch.configs.base import DVIConfig, ModelConfig, MoEConfig, RGLRUConfig, SSMConfig
+from repro_torch.configs import (deepseek_v3_671b, llama3_405b, llama4_scout_17b_a16e,
+                                 mamba2_370m, qwen3_0_6b, qwen3_1_7b, qwen25_14b,
+                                 recurrentgemma_9b, vicuna_7b)
+from repro_torch.configs.base import (DVIConfig, MLAConfig, ModelConfig, MoEConfig, RGLRUConfig,
+                                      SSMConfig)
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0_6b,
@@ -27,6 +32,7 @@ _MODULES = {
     "mamba2-370m": mamba2_370m,
     "recurrentgemma-9b": recurrentgemma_9b,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
+    "deepseek-v3-671b": deepseek_v3_671b,
 }
 
 ALL_ARCHS = list(_MODULES)
@@ -41,5 +47,5 @@ def get_config(name: str, *, tiny: bool = False) -> ModelConfig:
     return cfg
 
 
-__all__ = ["ALL_ARCHS", "DVIConfig", "ModelConfig", "MoEConfig", "RGLRUConfig", "SSMConfig",
-           "get_config"]
+__all__ = ["ALL_ARCHS", "DVIConfig", "MLAConfig", "ModelConfig", "MoEConfig", "RGLRUConfig",
+           "SSMConfig", "get_config"]

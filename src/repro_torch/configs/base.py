@@ -4,11 +4,11 @@ The port may not import the JAX package (its config module imports
 ``jax.numpy`` for the dtype), so the dataclasses are copied here with
 ``torch_dtype`` in place of ``jnp_dtype``.  Field names and defaults match
 the reference exactly (``tests/test_torch_model.py`` compares them).
-``SSMConfig`` (Mamba-2), ``RGLRUConfig`` (RecurrentGemma) and ``MoEConfig``
-are copied too; the sub-configs of the architectures the port does not run
-yet (MLA, encoder, vision) are kept as opaque ``Optional`` fields so a
-config that sets one is rejected by ``build_model`` instead of being
-misread.
+``SSMConfig`` (Mamba-2), ``RGLRUConfig`` (RecurrentGemma), ``MoEConfig`` and
+``MLAConfig`` (DeepSeek-V3's multi-head latent attention) are copied too;
+the sub-configs of the architectures the port does not run yet (encoder,
+vision) are kept as opaque ``Optional`` fields so a config that sets one is
+rejected by ``build_model`` instead of being misread.
 """
 from __future__ import annotations
 
@@ -31,6 +31,16 @@ class MoEConfig:
     # layers 0..first_dense_layers-1 use a dense FFN instead of MoE
     first_dense_layers: int = 0
     d_ff_dense: int = 0
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3 multi-head latent attention [arXiv:2412.19437]."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -102,7 +112,7 @@ class ModelConfig:
     act: str = "silu"              # silu (SwiGLU) | gelu (GeGLU / plain)
     glu: bool = True
     moe: Optional[MoEConfig] = None
-    mla: Optional[Any] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     encoder: Optional[Any] = None

@@ -20,6 +20,9 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+# dense_init draws a tensor above this many elements (16 GiB in float32) a
+# leading slice at a time
+DRAW_SLICE = 1 << 32
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -208,9 +211,17 @@ def conv1d_causal(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal init scaled by 1/sqrt(fan_in), drawn in float32 on the
-    generator's device, then cast.  The numbers differ from ``jax.random``;
-    parity tests copy weights across instead of re-drawing them."""
+    generator's device, scaled in place, then cast; a tensor of more than
+    ``DRAW_SLICE`` elements is drawn one slice of its leading axis at a time
+    (two layers of 256 experts are 30 GB a matrix in float32).  The numbers
+    differ from ``jax.random``; parity tests copy weights across instead of
+    re-drawing them."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    if math.prod(shape) > DRAW_SLICE and len(shape) > 1 and shape[0] > 1:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        for i in range(shape[0]):
+            out[i] = dense_init(gen, shape[1:], dtype, scale)
+        return out
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)

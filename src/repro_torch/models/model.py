@@ -1,5 +1,6 @@
 """Public model API, the port of ``repro.models.model`` (dense attention,
-Mamba-2, the RecurrentGemma hybrid and the local/global MoE stacks).
+Mamba-2, the RecurrentGemma hybrid, the local/global MoE stacks and
+DeepSeek-V3's MLA stack with its multi-token prediction head).
 
     model = build_model(cfg)                  # on the card; device="cpu" for tests
     params = model.init(torch.Generator(model.device).manual_seed(0))
@@ -10,6 +11,7 @@ Mamba-2, the RecurrentGemma hybrid and the local/global MoE stacks).
     h, cache = model.prefill_chunk(params, chunk, cache, take)   # chunked prefill
     h, cache, cands = model.step(params, x_blk, cache, lo, hi)
     cache = model.commit(cache, cands, accept)
+    logits2 = model.mtp_logits(params, h, tokens_next)   # MTP head (mtp_depth)
 
 DVI composes these: the draft path is ``step`` with ``hi = k`` plus the LoRA
 draft head (``repro_torch.core.lora``); the target path is ``lo = k`` and the
@@ -51,8 +53,9 @@ def refresh_head(cfg: ModelConfig, params: dict) -> None:
 
 def trained_tree(cfg: ModelConfig, params: dict) -> dict:
     """The parameters training updates and checkpoints write: the
-    reference's tree, which for a tied head has no ``lm_head`` (its copy of
-    ``embed.T`` is derived, not trained)."""
+    reference's tree (with its ``mtp`` subtree, when the config has one),
+    which for a tied head has no ``lm_head`` (its copy of ``embed.T`` is
+    derived, not trained)."""
     if cfg.tie_embeddings:
         return {k: v for k, v in params.items() if k != "lm_head"}
     return params
@@ -80,7 +83,21 @@ class Model:
             params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype)
         for seg in tfm.model_segments(cfg):
             params["segments"][seg.name] = tfm.init_segment(gen, cfg, seg, dtype)
+        if cfg.mtp_depth:
+            # DeepSeek-V3's MTP: a projection of [h_t ; emb(t+1)] and one more
+            # layer (the stack's attention, a dense FFN) predict token t+2
+            params["mtp"] = {
+                "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model), dtype),
+                "norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=self.device),
+                "layer": tfm.init_segment(gen, cfg, self._mtp_segment(), dtype),
+            }
         return tie_head(cfg, params)
+
+    def _mtp_segment(self) -> tfm.Segment:
+        """The MTP head's one layer: attention with a dense FFN of
+        ``d_ff_dense`` on an MoE config."""
+        cfg = self.cfg
+        return tfm.Segment(0, "attn", "dense", 0, 1, cfg.moe.d_ff_dense if cfg.moe else cfg.d_ff)
 
     # ---------------- embeddings ----------------
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -187,6 +204,20 @@ class Model:
         """Advance by `accept` (B,) tokens; SSM states take the candidates
         at index accept-1 (unchanged where accept == 0)."""
         return tfm.commit_cache(self.cfg, cache, cands, accept)
+
+    # ---------------- MTP auxiliary head (DeepSeek-V3) ----------------
+    def mtp_logits(self, params, h, tokens_next):
+        """Logits (B, T, V) for token t+2 from [norm(h_t) ; emb(t+1)]: the
+        ``mtp`` projection, then its one layer over the sequence at
+        positions 0..T-1, then the verifier head.  h (B, T, d) hidden
+        states, tokens_next (B, T) the tokens that follow them."""
+        cfg, mtp = self.cfg, params["mtp"]
+        emb = params["embed"][tokens_next.long()]
+        z = torch.cat([rms_norm(h, mtp["norm"], cfg.norm_eps), emb], dim=-1) @ mtp["proj"]
+        B, T = z.shape[:2]
+        pos = torch.arange(T, device=z.device)[None, :].expand(B, T)
+        z = tfm.run_segment_full(mtp["layer"], z, cfg, self._mtp_segment(), pos)[0]
+        return self.logits(params, z)
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -3,12 +3,14 @@
 Port of ``repro.models.transformer`` for these stacks: dense attention +
 dense FFN; attention-free Mamba-2 (``models.ssm``, SSD blocks with no FFN);
 the RecurrentGemma hybrid of RG-LRU blocks (``models.rglru``) and
-sliding-window ("local") attention; and local/global attention interleaves
-with a mixture-of-experts FFN (``models.moe``, Llama-4 Scout).  Layers are
-grouped into *segments* (runs of layers of one (mixer, FFN) kind), each with
-its parameters stacked on a leading layer axis, and segments are cut at
-``cfg.dvi.split_layer`` so the draft path (layers [0, k)) and the target path
-([k, L)) run as separate segment ranges over one parameter tree.
+sliding-window ("local") attention; local/global attention interleaves
+with a mixture-of-experts FFN (``models.moe``, Llama-4 Scout); and
+DeepSeek-V3's multi-head latent attention (``models.mla``) over dense and
+MoE FFNs.  Layers are grouped into *segments* (runs of layers of one
+(mixer, FFN) kind), each with its parameters stacked on a leading layer
+axis, and segments are cut at ``cfg.dvi.split_layer`` so the draft path
+(layers [0, k)) and the target path ([k, L)) run as separate segment
+ranges over one parameter tree.
 
 Two execution modes:
 
@@ -32,7 +34,13 @@ Two execution modes:
   ``pos`` (B, C) int32 (the position each slot holds, -1 empty) shared by
   the segment's layers and written in place with the block's K/V; the ring
   form of ``decode_attention`` reads it with the window mask.  RG-LRU
-  segments return candidates as SSM segments do.
+  segments return candidates as SSM segments do.  An MLA segment caches
+  each token's latent ``ckv`` (n, B, C, kv_lora_rank) and shared RoPE key
+  ``krope`` (n, B, C, qk_rope_head_dim), slot index = position as in a
+  full cache, written in place like K/V and read by the absorbed form in
+  plain PyTorch (no kernel: the reference attends MLA in ``jnp``); its
+  ``pos`` (B, C) is the reference's bookkeeping (the prefill's positions,
+  -1 empty), which no read consults: it is not a ring.
 
 Two cache layouts (``forward_step`` reads which from the cache):
 
@@ -46,7 +54,8 @@ Two cache layouts (``forward_step`` reads which from the cache):
   through the per-lane block table ``cache["tbl"]`` (B, MPS) with the
   addressing rule ``serving.kv_pool.logical_to_physical``; attention goes
   through the ``paged_decode_attention`` kernel.  Page ownership lives on
-  the host (``serving.kv_pool.KVPool``).
+  the host (``serving.kv_pool.KVPool``).  MLA latent caches have no paged
+  layout (as in the reference).
 
 Continuous batching edits one lane of a live cache in place:
 ``insert_slot`` splices a prefilled lane in (or, with ``src=None``, the
@@ -56,8 +65,8 @@ and ``copy_page`` copies one page on write.  All of it runs on PyTorch's
 current stream, so it is ordered after any step still running on the
 device.
 
-Not ported yet (they raise ``NotImplementedError``): MLA, cross-attention,
-the vision prefix, ``kv_quant``, MTP.
+Not ported yet (they raise ``NotImplementedError``): cross-attention, the
+vision prefix, ``kv_quant``.
 """
 from __future__ import annotations
 
@@ -70,6 +79,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
@@ -101,10 +111,9 @@ class Segment:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet."""
     missing = [name for name, on in (
-        ("mla", cfg.mla is not None),
         ("cross-attention", cfg.encoder is not None),
         ("vision prefix", cfg.vision is not None),
-        ("kv_quant", cfg.kv_quant), ("mtp", bool(cfg.mtp_depth))) if on]
+        ("kv_quant", cfg.kv_quant)) if on]
     if missing:
         raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
 
@@ -156,8 +165,8 @@ def segments_in_range(cfg: ModelConfig, lo: int, hi: int):
 def init_segment(gen: torch.Generator, cfg: ModelConfig, seg: Segment,
                  dtype: torch.dtype) -> dict:
     """A segment's parameters stacked on a leading layer axis: Mamba-2
-    blocks, or a mixer (attention, local attention or RG-LRU) with its FFN
-    (dense, or the experts under "moe")."""
+    blocks, or a mixer (attention, local attention, MLA or RG-LRU) with its
+    FFN (dense, or the experts under "moe")."""
     if seg.kind == "ssm":
         return ssm_mod.init_ssm(gen, seg.n, cfg.d_model, cfg.ssm, dtype)
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -169,6 +178,8 @@ def init_segment(gen: torch.Generator, cfg: ModelConfig, seg: Segment,
     p = {"ln1": zeros(n, d), "ln2": zeros(n, d)}
     if seg.kind == "rglru":
         p.update(rglru_mod.init_rglru(gen, n, d, cfg.rglru, dtype))
+    elif cfg.mla is not None:
+        p.update(mla_mod.init_mla(gen, n, d, H, cfg.mla, dtype))
     else:
         p.update(wq=dense_init(gen, (n, d, H * hd), dtype),
                  wk=dense_init(gen, (n, d, KV * hd), dtype),
@@ -226,17 +237,24 @@ def _ffn(p, x, cfg, seg: Optional[Segment] = None, dropless: bool = False):
 
 
 def attn_layer_full(p, x, cfg: ModelConfig, seg: Segment, positions, spec: MaskSpec):
-    """Full-sequence attention layer.  Returns (x, k, v, aux) with k/v the
-    layer's cache contribution (B, T, KV, hd)."""
+    """Full-sequence attention layer.  Returns (x, contrib, aux) with
+    contrib the layer's cache contribution: {"k", "v"} (B, T, KV, hd), or
+    an MLA layer's latents {"ckv", "krope"} (B, T, r_kv) / (B, T, dr)."""
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(p, xn, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    out = attend_full(q, k, v, spec)
-    B, T = x.shape[:2]
-    x = x + out.reshape(B, T, -1) @ p["wo"]
+    if cfg.mla is not None:
+        out, contrib = mla_mod.mla_full(p, xn, cfg.num_heads, cfg.mla, positions, spec,
+                                        cfg.rope_theta)
+        x = x + out
+    else:
+        q, k, v = _qkv(p, xn, cfg)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        out = attend_full(q, k, v, spec)
+        B, T = x.shape[:2]
+        x = x + out.reshape(B, T, -1) @ p["wo"]
+        contrib = {"k": k, "v": v}
     x, aux = _ffn(p, x, cfg, seg)
-    return x, k, v, aux
+    return x, contrib, aux
 
 
 def spread_write(cache: torch.Tensor, blk: torch.Tensor, lengths: torch.Tensor,
@@ -289,6 +307,18 @@ def attn_layer_step(p, x, kcache, vcache, lengths, cfg: ModelConfig,
     return _ffn(p, x, cfg, seg, dropless=True)[0]
 
 
+def mla_layer_step(p, x, ckv_cache, krope_cache, lengths, cfg: ModelConfig,
+                   seg: Optional[Segment] = None):
+    """Block-decode MLA layer: the absorbed form (``mla.mla_step``) against
+    the latent caches (B, C, r_kv) / (B, C, dr), the block's latents written
+    in place at slots ``lengths + i`` first, then the FFN (dropless)."""
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    qpos = lengths[:, None] + torch.arange(x.shape[1], device=x.device)[None, :]
+    x = x + mla_mod.mla_step(p, xn, ckv_cache, krope_cache, lengths, cfg.num_heads, cfg.mla,
+                             qpos, cfg.rope_theta)
+    return _ffn(p, x, cfg, seg, dropless=True)[0]
+
+
 def paged_write(pages: torch.Tensor, blk: torch.Tensor, phys: torch.Tensor) -> None:
     """Write blk (B, T, KV, hd) into pages (P, ps, KV, hd) at flat physical
     slots phys (B, T), IN PLACE.  Lanes own disjoint pages, so indices
@@ -336,7 +366,8 @@ def run_segment_full(sp, x, cfg: ModelConfig, seg: Segment, positions,
                      collect: bool = False, remat: bool = False):
     """The segment over the whole sequence.  Returns (x, contribs, aux) with
     contribs, when `collect` (else {}), stacked on the layer axis: {"k", "v"}
-    (n, B, T, KV, hd) for attention (local layers too), {"conv", "state"}
+    (n, B, T, KV, hd) for attention (local layers too), {"ckv", "krope"}
+    (n, B, T, r_kv) / (n, B, T, dr) for MLA, {"conv", "state"}
     for SSM segments ((n, B, cw-1, conv_dim) / (n, B, H, hd, ds) float32)
     and RG-LRU segments ((n, B, cw-1, w) / (n, B, w) float32); aux is the
     segment's summed MoE load-balance loss.  Local layers mask to their
@@ -363,9 +394,8 @@ def run_segment_full(sp, x, cfg: ModelConfig, seg: Segment, positions,
         spec = MaskSpec(window=cfg.local_window if seg.kind == "local" else 0)
 
         def body(lp, x):
-            x, k, v, aux = attn_layer_full(lp, x, cfg, seg, positions, spec)
-            return x, {"k": k, "v": v}, aux
-        names = ("k", "v")
+            return attn_layer_full(lp, x, cfg, seg, positions, spec)
+        names = ("ckv", "krope") if cfg.mla is not None else ("k", "v")
     if remat:
         plain = body
 
@@ -412,15 +442,16 @@ def _stateful_step(step_fn, sp, x, seg_cache, n: int, take):
 
 def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
                      tbl=None, take=None):
-    """Returns (x, cands).  Attention segments write their K/V cache in
-    place and have no candidates ({}); `tbl` is the block table (B, MPS)
-    when the cache is paged (seg_cache then holds pooled "kp"/"vp" pages
-    instead of per-lane "k"/"v"); a local segment's ring first takes the
-    block's positions in its ``pos``.  SSM and RG-LRU segments leave their
-    state untouched and return the candidates {"conv", "state"} stacked
-    (n, B, T, ...); with `take` (B,), a prefill chunk's commit, they carry
-    instead: each layer's window and state after token take-1 (kept where
-    take == 0) are written in place and there are no candidates."""
+    """Returns (x, cands).  Attention segments write their K/V cache (MLA
+    segments their latents) in place and have no candidates ({}); `tbl` is
+    the block table (B, MPS) when the cache is paged (seg_cache then holds
+    pooled "kp"/"vp" pages instead of per-lane "k"/"v"); a local segment's
+    ring first takes the block's positions in its ``pos``.  SSM and RG-LRU
+    segments leave their state untouched and return the candidates
+    {"conv", "state"} stacked (n, B, T, ...); with `take` (B,), a prefill
+    chunk's commit, they carry instead: each layer's window and state after
+    token take-1 (kept where take == 0) are written in place and there are
+    no candidates."""
     if seg.kind == "ssm":
         def ssm_fn(lp, x, c, take):
             return ssm_mod.ssm_step(lp, x, c, cfg.ssm, cfg.norm_eps, take=take)
@@ -430,6 +461,11 @@ def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
             x, cand = rglru_mod.rglru_step(lp, x, c, cfg.rglru, cfg.norm_eps, take=take)
             return _ffn(lp, x, cfg, seg, dropless=True)[0], cand
         return _stateful_step(rglru_fn, sp, x, seg_cache, seg.n, take)
+    if "ckv" in seg_cache:          # MLA: slot = position, its "pos" is no ring's
+        for i in range(seg.n):
+            x = mla_layer_step(_layer(sp, i), x, seg_cache["ckv"][i], seg_cache["krope"][i],
+                               lengths, cfg, seg)
+        return x, {}
     if "kp" in seg_cache:
         for i in range(seg.n):
             x = attn_layer_step_paged(_layer(sp, i), x, seg_cache["kp"][i],
@@ -469,9 +505,11 @@ def _lane_cache(cfg: ModelConfig, seg: Segment, B: int, device) -> Optional[dict
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
     """Contiguous cache for the full stack: per attention segment K and V of
-    shape (n, B, max_len, KV, hd) in the model dtype, per SSM or RG-LRU
-    segment the conv window and state, per local segment its ring
-    (``_lane_cache``), plus per-lane committed ``lengths`` (B,)."""
+    shape (n, B, max_len, KV, hd) in the model dtype (MLA: the latents
+    ``ckv`` (n, B, max_len, r_kv) and ``krope`` (n, B, max_len, dr), and
+    ``pos`` (B, max_len) int32, -1 empty), per SSM or RG-LRU segment the
+    conv window and state, per local segment its ring (``_lane_cache``),
+    plus per-lane committed ``lengths`` (B,)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = cfg.torch_dtype
@@ -479,7 +517,14 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
     segs = {}
     for seg in model_segments(cfg):
         c = _lane_cache(cfg, seg, B, device)
-        if c is None:
+        if c is None and cfg.mla is not None:
+            m = cfg.mla
+            c = {"ckv": torch.zeros((seg.n, B, max_len, m.kv_lora_rank), dtype=dtype,
+                                    device=device),
+                 "krope": torch.zeros((seg.n, B, max_len, m.qk_rope_head_dim), dtype=dtype,
+                                      device=device),
+                 "pos": torch.full((B, max_len), -1, dtype=torch.int32, device=device)}
+        elif c is None:
             c = {"k": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype, device=device),
                  "v": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype, device=device)}
         segs[seg.name] = c
@@ -494,8 +539,11 @@ def init_paged_cache(cfg: ModelConfig, B: int, num_pages: int, page_size: int,
     their per-lane constant-size state and local segments their per-lane
     rings, as in ``init_cache`` (they gain nothing from paging); per-lane
     ``lengths`` (B,) and the block table ``tbl`` (B, max_pages_per_slot)
-    int32, all -1 (unmapped)."""
+    int32, all -1 (unmapped).  MLA latent caches have no paged layout
+    (``NotImplementedError``, as in the reference)."""
     check_supported(cfg)
+    if cfg.mla is not None:
+        raise NotImplementedError("paged KV: MLA latent caches not supported")
     device = resolve_device(device)
     dtype = cfg.torch_dtype
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -561,12 +609,14 @@ def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
     """Continuous-batching cache surgery, in place: copy lane `src_slot` of
     `src` (a freshly prefilled B = 1 contiguous cache, which may be sized to
     the prompt alone) into lane `slot` of the live cache, and set its
-    length.  Contiguous segments take the source K/V in the lane's prefix;
+    length.  Contiguous segments take the source K/V (MLA: its latents and
+    its ``pos`` row, a (B, C) leaf with the lane on axis 0) in the lane's
+    prefix, so the source may be partly built (a chunk-sized scratch);
     paged segments scatter it through the slot's block-table row (map the
     pages with ``map_slot_pages`` first); SSM and RG-LRU segments copy the
     lane's constant-size conv window and state whole, and local segments
-    their ring and its ``pos`` row (a (B, C) leaf, the lane on axis 0).  The
-    destination lane must have been reset.
+    their ring and its ``pos`` row whole (a ring's capacity is the same in
+    every cache).  The destination lane must have been reset.
 
     ``src=None`` is the prefix cache's table-only splice: the lane's first
     `shared_len` tokens already live in shared pages that
@@ -593,11 +643,12 @@ def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
             _insert_paged_seg(seg_c, src_c, tbl, slot, src_slot)
             continue
         for key, leaf in seg_c.items():
-            if key == "pos":
-                leaf[slot] = src_c[key][src_slot]
+            if key == "pos":             # a ring's whole row, or an MLA prefix
+                row = src_c[key][src_slot]
+                leaf[slot, :row.shape[0]] = row
                 continue
             piece = src_c[key][:, src_slot]
-            if key in ("k", "v"):
+            if key in ("k", "v", "ckv", "krope"):
                 leaf[:, slot, :piece.shape[1]] = piece.to(leaf.dtype)
             else:
                 leaf[:, slot] = piece.to(leaf.dtype)
@@ -606,11 +657,12 @@ def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
 
 
 def reset_slot(cfg: ModelConfig, cache: dict, slot: int) -> dict:
-    """Evict lane `slot`, in place: length 0 and, for contiguous, ring, SSM
-    and RG-LRU segments, its K/V or its conv window and state zeroed and a
-    ring's slot positions emptied (-1).  Paged segments need no KV work: the
-    lane's block-table row is unmapped (-1) and its pages go back to the
-    host-side pool.  Other lanes are untouched."""
+    """Evict lane `slot`, in place: length 0 and, for contiguous, ring, MLA,
+    SSM and RG-LRU segments, its K/V, latents, or conv window and state
+    zeroed and a ring's or an MLA segment's slot positions emptied (-1).
+    Paged segments need no KV work: the lane's block-table row is unmapped
+    (-1) and its pages go back to the host-side pool.  Other lanes are
+    untouched."""
     # fill_ on views: item assignment of a Python number would stage it
     # through a host tensor and block the host on the copy
     for seg_c in cache["segs"].values():
@@ -630,10 +682,11 @@ def reset_slot(cfg: ModelConfig, cache: dict, slot: int) -> dict:
 def fill_cache_from_full(cfg: ModelConfig, cache: dict, contribs: dict, T: int) -> dict:
     """Copy prefill contributions into the cache, in place: K/V (stacked
     (n,B,T,...)) into slots [0, T), SSM and RG-LRU conv windows and states
-    whole.  A ring takes positions [0, T) at slots [0, T), or, when T
-    exceeds its C slots, the last C positions p at slots p mod C; its
-    ``pos`` is set to match and -1 elsewhere.  All sequences are fully
-    packed (length T)."""
+    whole, MLA latents ((n,B,T,...)) into slots [0, T) with ``pos`` [0, T)
+    there (the rest of ``pos`` kept, as the reference keeps it).  A ring
+    takes positions [0, T) at slots [0, T), or, when T exceeds its C slots,
+    the last C positions p at slots p mod C; its ``pos`` is set to match
+    and -1 elsewhere.  All sequences are fully packed (length T)."""
     for seg in model_segments(cfg):
         con = contribs.get(seg.name)
         if not con:
@@ -642,6 +695,11 @@ def fill_cache_from_full(cfg: ModelConfig, cache: dict, contribs: dict, T: int) 
         if seg.kind in ("ssm", "rglru"):
             c["conv"].copy_(con["conv"])
             c["state"].copy_(con["state"])
+            continue
+        if "ckv" in c:                   # MLA: not a ring, whatever its "pos"
+            c["ckv"][:, :, :T] = con["ckv"].to(c["ckv"].dtype)
+            c["krope"][:, :, :T] = con["krope"].to(c["krope"].dtype)
+            c["pos"][:, :T] = torch.arange(T, dtype=torch.int32, device=c["pos"].device)
             continue
         if "pos" in c:
             Cap = c["k"].shape[2]

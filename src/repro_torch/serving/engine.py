@@ -332,6 +332,9 @@ class ServingEngine:
         if self.paged:
             if self.scheduler != "continuous":
                 raise ValueError("paged KV requires scheduler='continuous'")
+            if cfg.mla is not None:      # the reference fails at its first admission
+                raise NotImplementedError("paged KV: MLA latent caches not supported "
+                                          "(serve an MLA model with kv_pages=0)")
             self._pool = KVPool(self.kv_pages, self.kv_page_size)
             self._mps = self._pool.pages_for(self._cap)      # block-table width
             # host mirror of cache["tbl"]: a tick's row updates go to the

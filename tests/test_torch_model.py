@@ -1,8 +1,9 @@
 """The port's config copy, weight bridge and model (prefill, a draft step and
 a verify step) against the JAX Model, for vicuna-7b-tiny (MHA),
 qwen3-0.6b-tiny (GQA, qk_norm, tied head), mamba2-370m-tiny (Mamba-2
-SSD blocks, tied head), recurrentgemma-9b-tiny (RG-LRU and a local ring)
-and llama4-scout-17b-a16e-tiny (local rings, a global layer, MoE FFNs), in
+SSD blocks, tied head), recurrentgemma-9b-tiny (RG-LRU and a local ring),
+llama4-scout-17b-a16e-tiny (local rings, a global layer, MoE FFNs) and
+deepseek-v3-671b-tiny (MLA over latent caches, a dense layer then MoE), in
 float32.  Hiddens and logits within rtol 1e-5 / atol 2e-5, caches, ring
 positions (exactly) and SSM / RG-LRU candidate states likewise."""
 import dataclasses
@@ -26,9 +27,9 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
 NAMES = ["vicuna-7b", "qwen3-0.6b", "mamba2-370m", "qwen3-1.7b", "qwen2.5-14b", "llama3-405b",
-         "recurrentgemma-9b", "llama4-scout-17b-a16e"]
+         "recurrentgemma-9b", "llama4-scout-17b-a16e", "deepseek-v3-671b"]
 RTOL, ATOL = 1e-5, 2e-5
-NORMS = ("ln1", "ln2", "final_norm", "qn", "kn", "norm_w")
+NORMS = ("ln1", "ln2", "final_norm", "qn", "kn", "norm_w", "q_ln", "kv_ln", "norm")
 
 
 def _perturb_norms(tree, rng):
@@ -61,7 +62,7 @@ def test_config_copy_matches_reference(name, tiny):
     cj, ct = jax_get_config(name, tiny=tiny), get_config(name, tiny=tiny)
     for f in dataclasses.fields(ct):
         vj, vt = getattr(cj, f.name), getattr(ct, f.name)
-        if f.name == "dvi" or (f.name in ("ssm", "moe", "rglru") and vj is not None):
+        if f.name == "dvi" or (f.name in ("ssm", "moe", "rglru", "mla") and vj is not None):
             assert dataclasses.asdict(vj) == dataclasses.asdict(vt), f.name
         else:
             assert vj == vt, f.name
@@ -73,7 +74,7 @@ def test_config_copy_matches_reference(name, tiny):
 
 def test_unported_architectures_raise():
     cfg = get_config("vicuna-7b", tiny=True)
-    for kw in (dict(kv_quant=True), dict(mla=object()), dict(encoder=object())):
+    for kw in (dict(kv_quant=True), dict(vision=object()), dict(encoder=object())):
         with pytest.raises(NotImplementedError):
             build_model(cfg.replace(**kw), device="cpu")
 

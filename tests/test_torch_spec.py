@@ -1,6 +1,7 @@
 """The port's greedy speculative decoding against repro.core.spec, and its
 losslessness against its own ar_generate, for vicuna-7b-tiny,
-qwen3-0.6b-tiny and mamba2-370m-tiny in float32.  Tokens, block statistics and replay-buffer
+qwen3-0.6b-tiny, mamba2-370m-tiny, qwen2.5-14b-tiny and deepseek-v3-671b-tiny
+(MLA, MoE) in float32.  Tokens, block statistics and replay-buffer
 tuples must be equal; hiddens within rtol 1e-5 / atol 2e-5.
 
 The deep layers' residual branches (``wo``/``wo_ff``, or the SSM block's
@@ -27,7 +28,7 @@ from repro_torch.core import buffer as tbuffer  # noqa: E402
 from repro_torch.core import spec as tspec  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
-NAMES = ["vicuna-7b", "qwen3-0.6b", "mamba2-370m", "qwen2.5-14b"]
+NAMES = ["vicuna-7b", "qwen3-0.6b", "mamba2-370m", "qwen2.5-14b", "deepseek-v3-671b"]
 RESIDUAL_OUT = ("wo", "wo_ff", "out_proj")
 RTOL, ATOL = 1e-5, 2e-5
 B, TP, NEW = 3, 8, 20
