@@ -9,9 +9,10 @@ vicuna-7b's speculative sampling and per-lane adaptive depth, chunked
 prefill on both models' continuous paths, the prefix cache behind the
 HTTP front end and the launchers, the paper's baselines (Medusa-lite on
 vicuna-7b, two-model SpS on the qwen3 pair) with qwen2.5-14b's DVI, and the
-hybrid and MoE decoders (recurrentgemma-9b, llama4-scout-17b-a16e), and
+hybrid and MoE decoders (recurrentgemma-9b, llama4-scout-17b-a16e),
 DeepSeek-V3's multi-head latent attention with its MTP head
-(deepseek-v3-671b).
+(deepseek-v3-671b), and whisper-large-v3's encoder with cross-attention and
+paligemma-3b's patch prefix, through ``aux_inputs``.
 
     python3 chip_smoke.py
 
@@ -279,6 +280,29 @@ Phases (any failure raises and exits non-zero):
    its exact (sync: bucket-padded) prompt alone or a bf16 near-tie, beyond
    one held by the witness, whose every completion == float32 AR alone or
    a float32 near-tie; phase 3 holds the vocab pair at d 7168 / V 129280;
+18. whisper-large-v3 (32 encoder and 32 decoder layers, d 1280, 1500 stub
+   frames) and then paligemma-3b (18 layers, d 2048, MQA of 8 heads of 256,
+   256 stub patches) at full width and depth, bf16, weights, drafter and
+   stubs drawn on the card from the seed, each on phase 4's 8 requests
+   padded to 128 (32 new tokens) with its stubs as ``aux_inputs``: (a, b)
+   ``speculative_generate`` eagerly, then ``graphs.GenerateRunner``
+   graphed (timed, then profiled with the records gate), with gates:
+   launches exact (whisper 80 ``decode_attention`` a block, 40 causal and
+   40 of the non-causal form that carries cross-attention, 5
+   ``lora_logits``, 1 ``verify_argmax``; paligemma 26 / 5 / 1), every vocab
+   launch on the head's loader (whisper's V 51866 rows are not 16-byte
+   multiples: the element one), graphed == eager bit for bit, each graph's
+   kernel nodes == its capture's launches, 0 synchronising operations in
+   a block-step, the static cache at its addresses after the eager
+   prefill, each lane == ``ar_generate`` or a bf16 near-tie; (c) one
+   ``lm_loss`` step at 4 x 128 tokens with the stubs, forward and backward:
+   the loss and every gradient finite, the encoder's or ``vision_proj``'s
+   non-zero.  It reports the prefill's and the encoder's device ms, wall
+   and device ms a block-step against the bound of the weights and cross
+   K/V a block-step reads, tokens/s, busy share, graph nodes, ``replay()``
+   host ms and peak memory; phase 3 holds decode_attention at both
+   models' widths (Tq 1 and 5), its non-causal form over 1500 frames, and
+   the vocab pair at d 1280 / V 51866 and d 2048 / V 257216;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Phases 4, 8 and 9 run every path twice: eagerly (``graphs=False``) and
@@ -431,6 +455,17 @@ R_LONG_PROMPTS = (2200, 2400)
 # 3 dense and 1 MoE without the MTP head (15.1 B parameters, 60.4 GB); phase
 # 3 checks its vocab heads (tag "ds": d 7168, V 129280)
 DS_NAME, DS_LAYERS, DS_WIT_LAYERS = "deepseek-v3-671b", 5, 4
+# Whisper and PaliGemma (phase 18): whisper-large-v3 (32 encoder and 32
+# decoder layers, 1500 stub frames of 1280) and paligemma-3b (18 layers, 256
+# stub patches of 1152) at full width and depth in bf16, weights and stubs
+# drawn on the card from SEED; phase 4's 8 requests padded to B_TP through
+# speculative_generate (eager) and graphs.GenerateRunner (graphed) with the
+# stubs as aux_inputs; AUX_CAP cache slots past paligemma's patches (B_TP +
+# MAX_NEW + K + 2 + 128, K = 4: the port's default capacity); one training
+# step each of AUX_TRAIN_B x AUX_TRAIN_T tokens
+W_NAME, PG_NAME = "whisper-large-v3", "paligemma-3b"
+AUX_CAP = B_TP + MAX_NEW + 4 + 2 + 128
+AUX_TRAIN_B, AUX_TRAIN_T = 4, 128
 
 
 def phase(n: int, msg: str) -> None:
@@ -559,13 +594,16 @@ def loader_used(ops, name: str) -> str:
     return "fast" if paths["fast"] else "element"
 
 
-def check_verify(ops, ref, gen, T, d, V, label):
+def check_verify(ops, ref, gen, T, d, V, label, loader="fast"):
+    """verify_argmax at (T, d, V) in bf16 against its plain version, on the
+    loader the path's head takes (`loader`: whisper's V 51866 rows of
+    103732 bytes take the element one)."""
     h = torch.randn((T, d), generator=gen, device=DEV).to(torch.bfloat16)
     w = (torch.randn((d, V), generator=gen, device=DEV) / d ** 0.5).to(torch.bfloat16)
     ops.reset_launches()
     arg, mx = ops.verify_argmax(h, w)
-    check(loader_used(ops, "verify_argmax") == "fast",
-          f"verify_argmax {label}: the paths' shapes must take the fast loader")
+    check(loader_used(ops, "verify_argmax") == loader,
+          f"verify_argmax {label}: this shape must take the {loader} loader")
     logits = h.float() @ w.float()
     top2 = logits.topk(2, dim=-1).values
     gap = top2[:, 0] - top2[:, 1]
@@ -589,7 +627,7 @@ def check_verify(ops, ref, gen, T, d, V, label):
     return h, w, err
 
 
-def check_lora(ops, ref, gen, T, d, V, r, label):
+def check_lora(ops, ref, gen, T, d, V, r, label, loader="fast"):
     h = torch.randn((T, d), generator=gen, device=DEV).to(torch.bfloat16)
     w = (torch.randn((d, V), generator=gen, device=DEV) / d ** 0.5).to(torch.bfloat16)
     a = torch.randn((d, r), generator=gen, device=DEV) / d ** 0.5
@@ -597,8 +635,8 @@ def check_lora(ops, ref, gen, T, d, V, r, label):
     gamma = 2.0
     ops.reset_launches()
     out = ops.lora_logits(h, w, a, b, gamma)
-    check(loader_used(ops, "lora_logits") == "fast",
-          f"lora_logits {label}: the paths' shapes must take the fast loader")
+    check(loader_used(ops, "lora_logits") == loader,
+          f"lora_logits {label}: this shape must take the {loader} loader")
     err, rel, ok = close("lora_logits", out, ref.lora_logits(h, w, a, b, gamma))
     atol, rtol = TOL["lora_logits"]
     phase(3, f"lora_logits {label}: T={T} d={d} V={V} r={r} max abs err {err:.3e} "
@@ -754,6 +792,37 @@ def check_attention(ops, ref, gen, B, Tq, H, KV, hd, S, lengths, label):
              f"(atol {atol} rtol {rtol}), the others exactly 0: ok={ok}")
     check(ok, f"decode_attention {label} disagrees with its plain version")
     return (q_in, k, v, lens), err
+
+
+def check_cross(ops, ref, gen, B, Tq, H, hd, F, label):
+    """The non-causal form of decode_attention (a decoder's cross-attention
+    over an encoder's F frames of K/V, lengths all F) against its plain
+    version: every query sees every frame."""
+    q = torch.randn((B, Tq, H, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    k = torch.randn((B, F, H, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    v = torch.randn((B, F, H, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    lens = torch.full((B,), F, dtype=torch.int32, device=DEV)
+    ops.reset_launches()
+    out = ops.decode_attention(q, k, v, lens, causal=False)
+    err, _, ok = close("decode_attention", out, ref.decode_attention(q, k, v, lens, causal=False))
+    atol, rtol = TOL["decode_attention"]
+    phase(3, f"decode_attention non-causal {label}: B={B} Tq={Tq} H=KV={H} hd={hd} S=F={F} "
+             f"C={ops.attn_splits(F, B * H * ops.attn_row_tiles(Tq))} max abs err {err:.3e} "
+             f"(atol {atol} rtol {rtol}), forms {dict(ops.attn_forms)}: ok={ok}")
+    check(ok and ops.attn_forms == {"causal": 0, "ring": 0, "cross": 1},
+          f"decode_attention non-causal {label} disagrees with its plain version")
+    return (q, k, v, lens), err
+
+
+def cross_bound(args) -> tuple:
+    """The least time of one non-causal call: q read and the output written
+    once, every lane's F frames of K and V read once, the lengths; QK^T and
+    P.V over every frame for every query, at the bf16 rate."""
+    q, k, v, lens = args
+    B, Tq, H, hd = q.shape
+    F = k.shape[1]
+    return bound(q.numel() * 2 * 2 + B * F * H * hd * 2 * 2 + B * 4,
+                 4 * hd * F * Tq * H * B / BF16_FLOP_PER_S)
 
 
 def attn_bound(q, lengths, cap, KV, hd) -> tuple:
@@ -1092,6 +1161,7 @@ def kernels_phase(cfg, mcfg):
     from repro_torch.kernels import ops, ref
     hybrids = (("rg", get_config(R_NAME)), ("l4", get_config(L4_NAME)))
     ds = get_config(DS_NAME)
+    wcfg, pcfg = get_config(W_NAME), get_config(PG_NAME)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     d, V, H, KV, hd = (cfg.d_model, cfg.vocab_size, cfg.num_heads, cfg.num_kv_heads,
                        cfg.resolved_head_dim)
@@ -1269,6 +1339,41 @@ def kernels_phase(cfg, mcfg):
         hybrid_vocab[f"at_ds_t{T_h}"] = (h_h, w_h, T_h, ds.d_model, ds.vocab_size)
     hybrid_vocab["lora_ds"], _ = check_lora(ops, ref, dgen, B, ds.d_model, ds.vocab_size,
                                             ds.dvi.lora_rank, "ds draft head")
+    # whisper-large-v3 and paligemma-3b (phase 18), from generators of their
+    # own: self-attention at whisper's MHA of 20 heads of 64 and paligemma's
+    # MQA of 8 heads of 256 (at Tq 1 and K + 1, lengths of phase 18's
+    # prompts padded to B_TP; paligemma's 256 patches ahead of them, in a
+    # cache of AUX_CAP + 256 slots), the non-causal form over whisper's 1500
+    # encoder frames, and both heads at a block's 8 lanes and a verify
+    # pass's 40 rows (whisper's V 51866 rows are not 16-byte multiples: the
+    # element loader)
+    agen18 = torch.Generator(device=DEV).manual_seed(SEED + 14)
+    arng18 = np.random.RandomState(SEED + 14)
+    aux_attn, aux_vocab = {}, {}
+    P = pcfg.vision.num_patches
+    for tag, acfg, pre in (("whisper", wcfg, 0), ("pg", pcfg, P)):
+        lens18 = list(pre + arng18.randint(B_TP + K + 1, B_TP + MAX_NEW + K + 1, size=B))
+        for Tq in (K + 1, 1):
+            lens_q = [n - (K + 1) + Tq for n in lens18]
+            a_args, _ = check_attention(ops, ref, agen18, B, Tq, acfg.num_heads,
+                                        acfg.num_kv_heads, acfg.resolved_head_dim, AUX_CAP + pre,
+                                        lens_q, f"{tag} Tq={Tq} (phase 18)")
+            aux_attn[f"at_{tag}_tq{Tq}"] = (a_args, lens_q, AUX_CAP + pre, acfg.num_kv_heads,
+                                            acfg.resolved_head_dim)
+        loader = "fast" if acfg.vocab_size * 2 % 16 == 0 else "element"
+        for T_h in (B, T_verify):
+            h_h, w_h, _ = check_verify(ops, ref, agen18, T_h, acfg.d_model, acfg.vocab_size,
+                                       f"{tag} head T={T_h}", loader=loader)
+            aux_vocab[f"at_{tag}_t{T_h}"] = (h_h, w_h, T_h, acfg.d_model, acfg.vocab_size, loader)
+        l_h, _ = check_lora(ops, ref, agen18, B, acfg.d_model, acfg.vocab_size,
+                            acfg.dvi.lora_rank, f"{tag} draft head", loader=loader)
+        aux_vocab[f"lora_{tag}"] = (l_h, acfg, loader)
+    F = wcfg.encoder.num_frames
+    cross_cases = {}
+    for Tq in (K + 1, 1):
+        cross_cases[f"at_cross_tq{Tq}"], _ = check_cross(ops, ref, agen18, B, Tq, wcfg.num_heads,
+                                                         wcfg.resolved_head_dim, F,
+                                                         f"whisper Tq={Tq} (phase 18)")
     # the mamba2 paths: the tied vocab (not a multiple of 64 columns) and the
     # scan at the prefill shapes of both schedulers
     md, mV, mK = mcfg.d_model, mcfg.vocab_size, mcfg.dvi.k_spec
@@ -1312,13 +1417,20 @@ def kernels_phase(cfg, mcfg):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def attn_timing(args, lengths, kv=KV):
+    def attn_timing(args, lengths, kv=KV, cap=cap, hd=hd):
         q, k, v, lens = args
         sq, sk, sv, smask = sdpa_inputs(q if q.ndim == 4 else q[:, None], k, v, lens)
         return timing(lambda: ops.decode_attention(q, k, v, lens),
                       lambda: ref.decode_attention(q, k, v, lens),
                       attn_bound(q, lengths, cap, kv, hd),
                       library=lambda: sdpa(sq, sk, sv, attn_mask=smask))
+
+    def cross_timing(args):
+        q, k, v, lens = args
+        sq, sk, sv = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        return timing(lambda: ops.decode_attention(q, k, v, lens, causal=False),
+                      lambda: ref.decode_attention(q, k, v, lens, causal=False),
+                      cross_bound(args), library=lambda: sdpa(sq, sk, sv))
 
     def ring_timing(args):
         q, k, v, lens, pos, W = args
@@ -1373,6 +1485,12 @@ def kernels_phase(cfg, mcfg):
                                  lambda h=h, w=w: ref.verify_argmax(h, w),
                                  verify_bound(T_q, d_q, V_q)), **gemm(h, w))
                 for key, (h, w, T_q, d_q, V_q) in hybrid_vocab.items() if key.startswith("at_")},
+             # whisper-large-v3's and paligemma-3b's verify heads (phase 18),
+             # with the loader each takes
+             **{key: dict(timing(lambda h=c[0], w=c[1]: ops.verify_argmax(h, w),
+                                 lambda h=c[0], w=c[1]: ref.verify_argmax(h, w),
+                                 verify_bound(*c[2:5])), **gemm(c[0], c[1]), loader=c[5])
+                for key, c in aux_vocab.items() if key.startswith("at_")},
              gemm_note=GEMM_NOTE),
         dict(name="lora_logits", route="cuda", source="src/repro_torch/csrc/lora_logits.cu",
              replaces="src/repro/kernels/lora_logits.py:53", max_abs_err=err_l,
@@ -1413,6 +1531,16 @@ def kernels_phase(cfg, mcfg):
                                                     hc.dvi.lora_rank)),
                                   **gemm(*hybrid_vocab[f"lora_{tag}"][:2]))
                 for tag, hc in hybrids + (("ds", ds),)},
+             # whisper-large-v3's and paligemma-3b's draft heads (phase 18)
+             **{f"at_{tag}": dict(timing(lambda a=aux_vocab[f"lora_{tag}"][0]:
+                                         ops.lora_logits(*a),
+                                         lambda a=aux_vocab[f"lora_{tag}"][0]:
+                                         ref.lora_logits(*a),
+                                         lora_bound(B, ac.d_model, ac.vocab_size,
+                                                    ac.dvi.lora_rank)),
+                                  **gemm(*aux_vocab[f"lora_{tag}"][0][:2]),
+                                  loader=aux_vocab[f"lora_{tag}"][2])
+                for tag, ac in (("whisper", wcfg), ("pg", pcfg))},
              gemm_note=GEMM_NOTE),
         # attention at the verify pass (Tq = K+1), with the draft feed
         # (Tq = 1) beside it: 30 and 10 of the 40 launches of a block
@@ -1429,7 +1557,12 @@ def kernels_phase(cfg, mcfg):
              # the qwen GQA groups of phase 15
              **{key: attn_timing(c[0], c[1], kv=Q_KV) for key, c in qwen_attn.items()},
              # the ring form at the local layers of phase 16
-             **{key: ring_timing(args) for key, args in ring_cases.items()}),
+             **{key: ring_timing(args) for key, args in ring_cases.items()},
+             # whisper's and paligemma's self-attention and whisper's
+             # cross-attention, the non-causal form (phase 18)
+             **{key: attn_timing(c[0], c[1], kv=c[3], cap=c[2], hd=c[4])
+                for key, c in aux_attn.items()},
+             **{key: cross_timing(args) for key, args in cross_cases.items()}),
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/csrc/paged_decode_attention.cu",
              replaces="src/repro/kernels/paged_decode_attention.py:127", max_abs_err=err_p,
@@ -1564,21 +1697,33 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
     call of the path (``ssd_scan``: one per layer in a prefill call), whose
     time is printed too.  Returns the busy share, device ms and device
     launches per block-step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels import ops
     runner = eng._ensure_runner()
     for r in reqs:
         eng.submit_request(r)
     torch.cuda.synchronize()
-    steps0 = eng.stats["steps"]
+
+    def run() -> int:
+        steps0 = eng.stats["steps"]
+        eng.run()
+        return eng.stats["steps"] - steps0
+    return profile_run(run, runner.prime, wall_ms, n, expect, per_call)
+
+
+def profile_run(run, prime, wall_ms: float, n: int, expect: dict = None,
+                per_call: dict = None) -> dict:
+    """``profile_batch``'s window and gates around `run()` (the work again,
+    returning its block-steps), opened and closed by `prime()` (one primed
+    replay of each graph, returning the replays)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
     ops.reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        primes = runner.prime()
+        primes = prime()
         primed = dict(ops.launches)
-        eng.run()
+        ran_steps = run()
         ran = {name: k - primed[name] for name, k in ops.launches.items()}
-        primes += runner.prime()
+        primes += prime()
         torch.cuda.synchronize()
     counted = dict(ops.launches)
     events = device_events(prof)
@@ -1595,7 +1740,6 @@ def profile_batch(eng, reqs, wall_ms: float, n: int = 4, expect: dict = None,
     gemm = covered_ms([s for name, v in spans.items()
                        if any(k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass"))
                        for s in v])
-    ran_steps = eng.stats["steps"] - steps0
     steps = ran_steps + primes         # each primed replay does a block-step's work
     launches = sum(k for _, k in by_name.values())
     phase(n, f"profile of the same requests again ({ran_steps} block-steps, {primes} primed "
@@ -1654,8 +1798,10 @@ def path_attention_ms(row, K: int, k: int, L: int) -> float:
     return (n_feed * row["at_draft_feed"]["ms"] + n_verify * row["ms"]) / (n_feed + n_verify)
 
 
-def top2_gap(model, params, prefix: torch.Tensor, n_prompt: int = 0, max_new: int = 0) -> tuple:
-    """The AR verifier's top-2 logits for the token after `prefix` (1, p).
+def top2_gap(model, params, prefix: torch.Tensor, n_prompt: int = 0, max_new: int = 0,
+             aux_inputs=None) -> tuple:
+    """The AR verifier's top-2 logits for the token after `prefix` (1, p),
+    with the lane's modality stubs `aux_inputs` (batch 1) if any.
     With `n_prompt`, as ar_generate of `max_new` tokens computed them: the
     prompt (the first n_prompt tokens) prefilled alone into a cache of
     ar_generate's capacity, then one-token steps over its last token and
@@ -1663,7 +1809,7 @@ def top2_gap(model, params, prefix: torch.Tensor, n_prompt: int = 0, max_new: in
     the whole prefix is another function there, since the full path's
     capacity drops depend on the token count."""
     if not n_prompt:
-        h, _ = model.prefill(params, prefix)
+        h, _ = model.prefill(params, prefix, aux_inputs)
     else:
         from repro_torch.models import transformer as tfm
         _, cache = model.prefill(params, prefix[:, :n_prompt - 1],
@@ -3609,17 +3755,26 @@ def n_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def block_weight_bytes(cfg, params) -> int:
-    """Weight bytes one block-step reads: each layer of the draft path [0, k)
-    once a feed (K + 1 feeds), each later layer once (the verify pass; the
-    MoE FFN computes every expert, an RG-LRU block reads its weights once a
-    pass), and the vocab head once a draft feed and once in the verify
-    pass."""
+def block_weight_bytes(cfg, params, lanes: int = N_REQUESTS) -> int:
+    """Bytes of weights (and cross K/V) one block-step reads: each layer of
+    the draft path [0, k) once a feed (K + 1 feeds), each later layer once
+    (the verify pass; the MoE FFN computes every expert, an RG-LRU block
+    reads its weights once a pass), and the vocab head once a draft feed and
+    once in the verify pass.  A cross layer's ``wk_x`` / ``wv_x`` are read
+    at prefill only; each read of the layer reads instead its cross K/V of
+    `lanes` lanes of F frames (the encoder's output, ``xk`` / ``xv``)."""
     from repro_torch.models import transformer as tfm
     K, k = cfg.dvi.k_spec, cfg.dvi.split_layer
-    layers = sum(n_bytes(params["segments"][seg.name]) * (K + 1 if seg.start < k else 1)
-                 for seg in tfm.model_segments(cfg))
-    return layers + n_bytes(params["lm_head"]) * (K + 2)
+    total = n_bytes(params["lm_head"]) * (K + 2)
+    for seg in tfm.model_segments(cfg):
+        sp = params["segments"][seg.name]
+        per = n_bytes(sp)
+        if seg.cross:
+            per += (2 * seg.n * lanes * cfg.encoder.num_frames * cfg.num_heads
+                    * cfg.resolved_head_dim * sp["wk_x"].element_size()
+                    - n_bytes(sp["wk_x"]) - n_bytes(sp["wv_x"]))
+        total += per * (K + 1 if seg.start < k else 1)
+    return total
 
 
 def draw(cfg, n: int):
@@ -3902,6 +4057,242 @@ def deepseek_witness(reqs, creqs, deferred: list) -> None:
     phase(17, f"{label}: took {time.perf_counter() - t0:.1f} s")
     del model, params, dvi
     release({})
+
+
+# ---------------------------------------------------------------------------
+# phase 18: whisper-large-v3's encoder with cross-attention, paligemma-3b's
+# patch prefix
+# ---------------------------------------------------------------------------
+
+def stub_inputs(cfg, B: int, seed: int) -> dict:
+    """The modality stubs of `cfg` for B lanes, float32, drawn on the card
+    from `seed`: an encoder's frame embeddings (B, F, d_enc), a vision
+    prefix's patch embeddings (B, P, d_embed)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    aux = {}
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        aux["frame_embeds"] = torch.randn((B, e.num_frames, e.d_model or cfg.d_model),
+                                          generator=gen, device=DEV)
+    if cfg.vision is not None:
+        aux["patch_embeds"] = torch.randn((B, cfg.vision.num_patches, cfg.vision.d_embed),
+                                          generator=gen, device=DEV)
+    return aux
+
+
+def aux_want(cfg, blocks: int) -> tuple:
+    """(launches, decode_attention launches by form) of `blocks` blocks:
+    ``ring_launches``' causal ones, as many non-causal ones (one cross-
+    attention a decoder layer read) for an encoder config, K + 1
+    lora_logits and one verify_argmax a block; prefill and the encoder
+    launch no kernel of the port (plain PyTorch, as the reference's jnp)."""
+    dec, _ = ring_launches(cfg, False)
+    cross = dec if cfg.encoder is not None else 0
+    return ({"decode_attention": (dec + cross) * blocks, "paged_decode_attention": 0,
+             "lora_logits": (cfg.dvi.k_spec + 1) * blocks, "verify_argmax": blocks,
+             "ssd_scan": 0},
+            {"causal": dec * blocks, "ring": 0, "cross": cross * blocks})
+
+
+def event_ms(fn) -> float:
+    """Device ms of one call of `fn` between two CUDA events, after one
+    warm call."""
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def aux_gates(n: int, label: str, r: dict, cfg, loader: str) -> None:
+    """The launch formula and the forms of decode_attention over the run's
+    block-steps, exact, and every vocab launch on `loader`."""
+    want, forms = aux_want(cfg, r["steps"])
+    phase(n, f"{label}: launches {r['launches']}, decode_attention by form {r['forms']}; "
+             f"expected {want}, {forms}; vocab launches by loader {r['paths']} (expected "
+             f"all {loader})")
+    check(r["launches"] == want and r["forms"] == forms,
+          f"{label}: the kernels did not run as the formula says")
+    check(all(v[loader] == r["launches"][name] for name, v in r["paths"].items()),
+          f"{label}: a vocab launch left the {loader} loader")
+
+
+def aux_counts(res, wall: float) -> dict:
+    from repro_torch.core.spec import GEN_COUNTERS
+    from repro_torch.kernels import ops
+    return dict(tokens=res.tokens.clone(), lengths=res.lengths.clone(), steps=res.steps,
+                wall=wall, launches=dict(ops.launches), forms=dict(ops.attn_forms),
+                paths={name: dict(v) for name, v in ops.vocab_paths.items()},
+                peak=torch.cuda.max_memory_allocated(),
+                **{name: int(getattr(res, name)) for name in GEN_COUNTERS})
+
+
+def aux_model_phase(name: str, by_row: dict) -> dict:
+    """Phase 18a / 18b: `name` at full width and depth in bf16 (weights, the
+    drafter and the stubs drawn from SEED) on phase 4's 8 requests padded
+    to B_TP, MAX_NEW new tokens, the stubs as aux_inputs:
+    ``speculative_generate`` eagerly, then ``graphs.GenerateRunner``
+    graphed (its block-step under sync debug mode "error"), timed, then
+    profiled once more with the records gate (``profile_run``).  Gates:
+    the launch formula and decode_attention's forms (``aux_gates``) on
+    both, every vocab launch on the head's loader, graphed == eager bit for
+    bit (streams, lengths, counters), each graph's kernel nodes == its
+    capture's launches, each lane == ``ar_generate`` or a bf16 near-tie.
+    Returns the runs by mode."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import buffer as buffer_mod
+    from repro_torch.core import graphs, spec
+    t0 = time.perf_counter()
+    cfg = get_config(name)
+    model, params, dvi = draw(cfg, 18)
+    K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
+    reqs = make_requests(cfg)
+    prompts = padded_prompts(reqs)
+    aux = stub_inputs(cfg, N_REQUESTS, SEED + 18)
+    cap = AUX_CAP + model.prefix_len()
+    loader = "fast" if cfg.vocab_size * 2 % 16 == 0 else "element"
+    tag = "whisper" if cfg.encoder is not None else "pg"
+    label = f"18 {name}"
+    # the prefill's device ms (and the encoder's alone), CUDA events
+    pre_ms = event_ms(lambda: model.prefill(params, prompts[:, :-1], aux, max_len=cap))
+    enc_ms = event_ms(lambda: model.encode(params, aux)) if cfg.encoder is not None else None
+    phase(18, f"{label}: prefill of {N_REQUESTS} x {B_TP - 1} tokens "
+              + (f"behind {model.prefix_len()} patches " if cfg.vision is not None else "")
+              + f"{pre_ms:.2f} device ms"
+              + (f", the encoder over {N_REQUESTS} x {cfg.encoder.num_frames} frames alone "
+                 f"{enc_ms:.2f}" if enc_ms is not None else "") + f"; cache of {cap} slots")
+    runs = {}
+    reset_counts()
+    t1 = time.perf_counter()
+    res = spec.speculative_generate(model, params, dvi, prompts, MAX_NEW, cache_len=cap,
+                                    aux_inputs=aux)
+    torch.cuda.synchronize()
+    runs["eager"] = aux_counts(res, time.perf_counter() - t1)
+    del res
+    aux_gates(18, f"{label} eager", runs["eager"], cfg, loader)
+    runner = graphs.GenerateRunner(model, params, dvi,
+                                   buffer_mod.init_buffer(cfg, device=DEV), max_new=MAX_NEW,
+                                   graphs=True)
+    st, step = runner.prepare(*prompts.shape)
+    check(st["cache"]["segs"]["s0"]["k"].shape[2] == cap,
+          f"{label}: the runner's static cache holds {st['cache']['segs']['s0']['k'].shape[2]} "
+          f"slots, not {cap}")
+    guard_syncs(step)
+    ptrs = graphs.tensor_ptrs(st["cache"])
+    reset_counts()
+    g0 = runner.graph_stats()
+    t1 = time.perf_counter()
+    res = runner.generate(prompts, None, aux)
+    torch.cuda.synchronize()
+    r = runs["graphed"] = aux_counts(res, time.perf_counter() - t1)
+    # the eager prefill wrote the static cache (the cross K/V too) in place
+    graphs.check_ptrs(st["cache"], ptrs)
+    g = runner.graph_stats()
+    r.update(graph=g, replays=g["replays"] - g0["replays"],
+             replay_ms=1e3 * (g["replay_host_s"] - g0["replay_host_s"])
+             / max(g["replays"] - g0["replays"], 1))
+    aux_gates(18, f"{label} graphed", r, cfg, loader)
+    check_census(18, f"{label} graphed", g)
+    att = by_row["decode_attention"]
+    n_feed, n_verify = (K + 1) * k, L - k
+    mix = [(n_feed, att[f"at_{tag}_tq1"]["ms"]), (n_verify, att[f"at_{tag}_tq{K + 1}"]["ms"])]
+    if cfg.encoder is not None:
+        mix += [(n_feed, att["at_cross_tq1"]["ms"]), (n_verify, att[f"at_cross_tq{K + 1}"]["ms"])]
+    expect = {"decode_attention": sum(c * ms for c, ms in mix) / sum(c for c, _ in mix),
+              "verify_argmax": by_row["verify_argmax"][f"at_{tag}_t{N_REQUESTS * (K + 1)}"]["ms"],
+              "lora_logits": by_row["lora_logits"][f"at_{tag}"]["ms"]}
+    r["profile"] = profile_run(lambda: runner.generate(prompts, None, aux).steps, runner.prime,
+                               r["wall"] * 1e3, 18, expect=expect)
+    # the block-step's own device ms: primed replays (every lane done, the
+    # same kernels on the same shapes) back to back between two events
+    blk_dev = event_ms(lambda: [step.prime() for _ in range(BLOCK_REPS)]) / BLOCK_REPS
+    del st, step, runner, res
+    release({})
+    phase(18, f"{label}: the runner's static cache at its addresses after the eager prefill "
+              f"wrote it: True")
+    e = runs["eager"]
+    same = (torch.equal(e["tokens"], r["tokens"]) and torch.equal(e["lengths"], r["lengths"])
+            and all(e[key] == r[key] for key in ("steps", "blocks", "committed",
+                                                 "accepted_drafts", "drafted")))
+    phase(18, f"{label}: graphed GenerateRunner == eager speculative_generate bit for bit "
+              f"(streams, lengths, counters): {same}")
+    check(same, f"{label}: the graphed run differs from the eager one")
+    r_ar = spec.ar_generate(model, params, prompts, MAX_NEW, cache_len=cap, aux_inputs=aux)
+    r["equal_ar"] = lossless_lanes(model, params, r["tokens"], r["lengths"], r_ar, 18, label,
+                                   aux)
+    del r_ar
+    steps, p = max(r["steps"], 1), r["profile"]
+    wb = block_weight_bytes(cfg, params)
+    for mode, x in runs.items():
+        phase(18, f"{label}, {mode}: {x['steps']} block-steps in {x['wall']:.3f} s, wall "
+                  f"{1e3 * x['wall'] / max(x['steps'], 1):.2f} ms a block-step (the prefill "
+                  f"included), {x['committed'] / x['wall']:.1f} committed tokens/s, MAT "
+                  f"{x['committed'] / max(x['blocks'], 1):.4f}, acceptance "
+                  f"{x['accepted_drafts'] / max(x['drafted'], 1):.4f}; peak "
+                  f"{x['peak'] / 2**30:.2f} GiB")
+    phase(18, f"{label}, graphed: device busy {p['device_ms']:.3f} ms a block-step with the "
+              f"window's eager prefill ({100 * p['busy']:.1f}% of the wall); a replay alone "
+              f"{blk_dev:.3f} device ms (mean of {BLOCK_REPS} back to back); wall "
+              f"{(1e3 * r['wall'] - pre_ms) / steps:.2f} ms a block-step less one prefill's "
+              f"{pre_ms:.2f} device ms; graph "
+              f"nodes {g['nodes']}, {g['captures']} captures in {g['capture_s']:.2f} s, "
+              f"replay() {r['replay_ms']:.3f} host ms over {r['replays']} replays; a block-step "
+              f"reads {wb / 1e9:.3f} GB of weights and cross K/V: bound "
+              f"{1e3 * wb / HBM_BYTES_PER_S:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+              f"{1e3 * wb / HBM_BYTES_PER_S / blk_dev:.3f} of the device ms; "
+              f"{r['equal_ar']} of {N_REQUESTS} lanes equal AR")
+    r.update(prefill_ms=pre_ms, encoder_ms=enc_ms, block_device_ms=blk_dev, bytes=wb)
+    train = aux_train_step(model, params, cfg)
+    del model, params, dvi
+    release({})
+    phase(18, f"{label} took {time.perf_counter() - t0:.1f} s")
+    return dict(runs, train=train)
+
+
+def aux_train_step(model, params, cfg) -> dict:
+    """Phase 18c: one training step of ``lm_loss`` with its aux_inputs at
+    AUX_TRAIN_B x AUX_TRAIN_T tokens (each layer rematerialised), forward
+    and backward, eager.  Gates: the loss finite, every gradient finite,
+    the encoder's (whisper) or ``vision_proj``'s (paligemma) non-zero."""
+    from repro_torch.kernels import ops
+    from repro_torch.training import loss_and_grads
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    tokens = torch.randint(2, cfg.vocab_size, (AUX_TRAIN_B, AUX_TRAIN_T), generator=gen,
+                           device=DEV, dtype=torch.int32)
+    aux = stub_inputs(cfg, AUX_TRAIN_B, SEED + 20)
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, metrics, grads = loss_and_grads(model, params, tokens, remat=True, aux_inputs=aux)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    which = "encoder/" if cfg.encoder is not None else "vision_proj"
+    mine = {key: g for key, g in grads.items() if key.startswith(which)}
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                                for g in grads.values())
+    nonzero = bool(mine) and all(float(g.float().abs().sum()) > 0 for g in mine.values())
+    phase(18, f"18c {cfg.name}: lm_loss at {AUX_TRAIN_B} x {AUX_TRAIN_T} tokens with its "
+              f"aux_inputs, forward and backward (remat) in {ms:.1f} ms wall: loss "
+              f"{float(loss):.4f}, {len(grads)} gradient leaves all finite {finite}, the "
+              f"{len(mine)} {which.rstrip('/')} leaves non-zero {nonzero}; launches "
+              f"{dict(ops.launches)}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(finite and nonzero, f"18c {cfg.name}: a loss or gradient is not finite, or the "
+                              f"{which} gradient is zero")
+    out = dict(ms=ms, loss=float(loss), launches=dict(ops.launches))
+    del loss, metrics, grads, mine
+    return out
+
+
+def aux_phase(by_row: dict) -> dict:
+    """Phase 18: ``aux_model_phase`` on whisper-large-v3 (18a), then on
+    paligemma-3b (18b), each with its training step (18c)."""
+    t0 = time.perf_counter()
+    out = {"whisper": aux_model_phase(W_NAME, by_row)}
+    out["paligemma"] = aux_model_phase(PG_NAME, by_row)
+    phase(18, f"18 took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4234,11 +4625,13 @@ def baseline_run(runner, prompts, profiled: bool) -> dict:
     return out
 
 
-def lossless_lanes(model, params, tokens, lengths, r_ar, n_phase: int, label: str) -> int:
+def lossless_lanes(model, params, tokens, lengths, r_ar, n_phase: int, label: str,
+                   aux_inputs=None) -> int:
     """Each lane of a greedy run (`tokens`, `lengths`) against
-    ``ar_generate``'s stream `r_ar` on the same prompts (B_TP tokens) up to
-    Tp + MAX_NEW; a first difference passes only at a bf16 near-tie of the
-    AR top-2 logits.  Returns the lanes equal."""
+    ``ar_generate``'s stream `r_ar` on the same prompts (B_TP tokens, and
+    the modality stubs `aux_inputs`) up to Tp + MAX_NEW; a first difference
+    passes only at a bf16 near-tie of the AR top-2 logits.  Returns the
+    lanes equal."""
     Tp, n, equal = B_TP, tokens.shape[0], 0
     for b in range(n):
         nb = min(int(lengths[b]), int(r_ar.lengths[b]), Tp + MAX_NEW)
@@ -4247,7 +4640,9 @@ def lossless_lanes(model, params, tokens, lengths, r_ar, n_phase: int, label: st
             equal += 1
             continue
         p = int(diff[0])
-        t1, t2 = top2_gap(model, params, r_ar.tokens[b:b + 1, :p])
+        lane_aux = (None if aux_inputs is None else
+                    {key: v[b:b + 1] for key, v in aux_inputs.items()})
+        t1, t2 = top2_gap(model, params, r_ar.tokens[b:b + 1, :p], aux_inputs=lane_aux)
         phase(n_phase, f"{label}: lane {b} first differs from AR at position {p}, AR top-2 "
                        f"logits {t1:.4f} / {t2:.4f}, gap {t1 - t2:.4e}")
         check(t1 - t2 <= GAP_RTOL * max(abs(t1), 1.0),
@@ -4649,6 +5044,11 @@ def main() -> int:
     h16.update(deepseek_phase(by_row))
     marks["17"] = time.perf_counter() - t_start
 
+    # ---- phase 18: whisper's encoder and cross-attention, paligemma's patches ----
+    release({})
+    a18 = aux_phase(by_row)
+    marks["18"] = time.perf_counter() - t_start
+
     # ---- phase 7: result lines ----
     for row in rows:
         name = row["name"]
@@ -4676,7 +5076,12 @@ def main() -> int:
                    "medusa": b_medusa["graphed"]["launches"].get(name, 0),
                    "qwen25_14b": q14["launches"].get(name, 0),
                    # phases 16 and 17: the hybrid, MoE and MLA decoders (graphed)
-                   **{path: r["graphed"]["launches"].get(name, 0) for path, r in h16.items()}}
+                   **{path: r["graphed"]["launches"].get(name, 0) for path, r in h16.items()},
+                   # phase 18: whisper and paligemma (graphed GenerateRunner),
+                   # and their training steps (eager)
+                   **{path: r["graphed"]["launches"].get(name, 0) for path, r in a18.items()},
+                   **{f"{path}_train": r["train"]["launches"].get(name, 0)
+                      for path, r in a18.items()}}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["launches_eager_by_path"] = {
@@ -4688,7 +5093,8 @@ def main() -> int:
             "sps": b_sps["sps"]["eager"]["launches"].get(name, 0),
             "sps_self": b_sps["sps_self"]["eager"]["launches"].get(name, 0),
             "medusa": b_medusa["eager"]["launches"].get(name, 0),
-            **{path: r["eager"]["launches"].get(name, 0) for path, r in h16.items()}}
+            **{path: r["eager"]["launches"].get(name, 0) for path, r in h16.items()},
+            **{path: r["eager"]["launches"].get(name, 0) for path, r in a18.items()}}
     ends = list(marks.values())
     phase(7, f"all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by phase: "
              + ", ".join(f"{name} {end - start:.1f}" for name, start, end

@@ -13,15 +13,19 @@ and has a mixture-of-experts FFN on every layer (its full depth does not fit
 one card: the card runs it cut in depth); deepseek-v3-671b attends through
 multi-head latent attention over a latent cache, with three dense layers
 before 256 routed experts (top 8) and a shared one, and a multi-token
-prediction head (cut in depth on the card too).
+prediction head (cut in depth on the card too); whisper-large-v3 is an
+encoder-decoder whose decoder cross-attends the encoder's output over stub
+frame embeddings, and paligemma-3b puts stub patch embeddings, projected,
+in front of the text tokens under a bidirectional prefix mask (both take
+``aux_inputs``).  These are all 11 of the reference's configs.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_v3_671b, llama3_405b, llama4_scout_17b_a16e,
-                                 mamba2_370m, qwen3_0_6b, qwen3_1_7b, qwen25_14b,
-                                 recurrentgemma_9b, vicuna_7b)
-from repro_torch.configs.base import (DVIConfig, MLAConfig, ModelConfig, MoEConfig, RGLRUConfig,
-                                      SSMConfig)
+                                 mamba2_370m, paligemma_3b, qwen3_0_6b, qwen3_1_7b, qwen25_14b,
+                                 recurrentgemma_9b, vicuna_7b, whisper_large_v3)
+from repro_torch.configs.base import (DVIConfig, EncoderConfig, MLAConfig, ModelConfig, MoEConfig,
+                                      RGLRUConfig, SSMConfig, VisionStubConfig)
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0_6b,
@@ -33,6 +37,8 @@ _MODULES = {
     "recurrentgemma-9b": recurrentgemma_9b,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
     "deepseek-v3-671b": deepseek_v3_671b,
+    "whisper-large-v3": whisper_large_v3,
+    "paligemma-3b": paligemma_3b,
 }
 
 ALL_ARCHS = list(_MODULES)
@@ -47,5 +53,5 @@ def get_config(name: str, *, tiny: bool = False) -> ModelConfig:
     return cfg
 
 
-__all__ = ["ALL_ARCHS", "DVIConfig", "MLAConfig", "ModelConfig", "MoEConfig", "RGLRUConfig",
-           "SSMConfig", "get_config"]
+__all__ = ["ALL_ARCHS", "DVIConfig", "EncoderConfig", "MLAConfig", "ModelConfig", "MoEConfig",
+           "RGLRUConfig", "SSMConfig", "VisionStubConfig", "get_config"]

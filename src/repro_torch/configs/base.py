@@ -4,17 +4,16 @@ The port may not import the JAX package (its config module imports
 ``jax.numpy`` for the dtype), so the dataclasses are copied here with
 ``torch_dtype`` in place of ``jnp_dtype``.  Field names and defaults match
 the reference exactly (``tests/test_torch_model.py`` compares them).
-``SSMConfig`` (Mamba-2), ``RGLRUConfig`` (RecurrentGemma), ``MoEConfig`` and
-``MLAConfig`` (DeepSeek-V3's multi-head latent attention) are copied too;
-the sub-configs of the architectures the port does not run yet (encoder,
-vision) are kept as opaque ``Optional`` fields so a config that sets one is
-rejected by ``build_model`` instead of being misread.
+``SSMConfig`` (Mamba-2), ``RGLRUConfig`` (RecurrentGemma), ``MoEConfig``,
+``MLAConfig`` (DeepSeek-V3's multi-head latent attention), ``EncoderConfig``
+(Whisper's encoder over stub frame embeddings) and ``VisionStubConfig``
+(PaliGemma's stub patch embeddings) are copied too.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,6 +60,22 @@ class SSMConfig:
     head_dim: int = 64
     chunk_size: int = 128
     ngroups: int = 1
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Audio/vision encoder backbone (frontend stubbed to embeddings)."""
+    num_layers: int
+    num_frames: int            # precomputed frame/patch positions fed by the caller
+    d_model: int = 0           # 0 => same as decoder d_model
+    num_heads: int = 0
+
+
+@dataclass(frozen=True)
+class VisionStubConfig:
+    """VLM prefix: precomputed patch embeddings prepended to the text tokens."""
+    num_patches: int
+    d_embed: int               # dim of incoming patch embeddings (pre-projector)
 
 
 @dataclass(frozen=True)
@@ -115,8 +130,8 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
-    encoder: Optional[Any] = None
-    vision: Optional[Any] = None
+    encoder: Optional[EncoderConfig] = None
+    vision: Optional[VisionStubConfig] = None
     dvi: DVIConfig = field(default_factory=DVIConfig)
     mtp_depth: int = 0
     kv_quant: bool = False
@@ -159,6 +174,53 @@ class ModelConfig:
         if self.moe is not None and (self.moe.top_k > self.moe.num_experts
                                      or self.moe.first_dense_layers >= self.num_layers):
             raise ValueError("moe: top_k > num_experts or every layer dense")
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings, blocks, head and, for an
+        encoder, its layers and the decoder's cross-attention), the
+        reference's formula."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        hd = self.resolved_head_dim
+        n = V * d
+        if not self.tie_embeddings:
+            n += V * d
+        if self.mla is not None:
+            m = self.mla
+            per_layer_attn = (
+                d * m.q_lora_rank
+                + m.q_lora_rank * self.num_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * self.num_heads * (m.qk_nope_head_dim + m.v_head_dim)
+                + self.num_heads * m.v_head_dim * d)
+        elif self.arch_type == "ssm":
+            s = self.ssm
+            d_in = s.expand * d
+            per_layer_attn = (d * (2 * d_in + 2 * s.ngroups * s.d_state + d_in // s.head_dim)
+                              + d_in * d)
+        else:
+            per_layer_attn = (d * (self.num_heads + 2 * self.num_kv_heads) * hd
+                              + self.num_heads * hd * d)
+        glu_mult = 3 if self.glu else 2
+        if self.moe is not None:
+            mo = self.moe
+            moe_layers = L - mo.first_dense_layers
+            ffn = mo.first_dense_layers * glu_mult * d * (mo.d_ff_dense or self.d_ff)
+            ffn += moe_layers * (
+                mo.num_experts * glu_mult * d * mo.d_ff_expert
+                + mo.num_shared_experts * glu_mult * d * (mo.d_ff_shared or mo.d_ff_expert)
+                + d * mo.num_experts)
+        elif self.arch_type == "ssm":
+            ffn = 0
+        else:
+            ffn = L * glu_mult * d * self.d_ff
+        n += L * per_layer_attn + ffn + 2 * L * d
+        if self.encoder is not None:
+            e = self.encoder
+            ed = e.d_model or d
+            # encoder self-attention and FFN, and the decoder's cross-attention
+            n += e.num_layers * (4 * ed * ed + glu_mult * ed * self.d_ff)
+            n += L * 4 * d * ed
+        return n
 
     @property
     def local_window(self) -> int:

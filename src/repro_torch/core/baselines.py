@@ -116,13 +116,15 @@ def two_model_block(target: Model, t_params: dict, draft: Model, d_params: dict,
     ones = torch.ones((B,), dtype=torch.int32, device=dev)
     dc, pend, toks = d_cache, pending, []
     for _ in range(K):
-        h, dc, cands = draft.step(d_params, draft.embed_block(d_params, pend[:, None]), dc)
+        x = draft.embed_block(d_params, pend[:, None], dc["lengths"])
+        h, dc, cands = draft.step(d_params, x, dc)
         pend = spec.verify_tokens(draft, d_params, h)[:, 0]
         dc = draft.commit(dc, cands, ones)
         toks.append(pend)
     d_blk = torch.stack(toks, dim=1)                             # (B, K)
     tok_blk = torch.cat([pending[:, None], d_blk], dim=1)        # (B, K+1)
-    h, t_cache2, t_cands = target.step(t_params, target.embed_block(t_params, tok_blk), t_cache)
+    h, t_cache2, t_cands = target.step(
+        t_params, target.embed_block(t_params, tok_blk, t_cache["lengths"]), t_cache)
     y_star = spec.verify_tokens(target, t_params, h)             # (B, K+1)
     matches = d_blk == y_star[:, :K]
     m = torch.cumprod(matches.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
@@ -234,13 +236,14 @@ def medusa_block(model: Model, params: dict, heads: dict, st: dict, *, limit: in
     pending, done, cache = st["pending"], st["done"], st["cache"]
     B = pending.shape[0]
     t0 = cache["lengths"]
-    h, cache1, cands1 = model.step(params, model.embed_block(params, pending[:, None]), cache)
+    h, cache1, cands1 = model.step(params, model.embed_block(params, pending[:, None], t0), cache)
     cache1 = model.commit(cache1, cands1, torch.ones((B,), dtype=torch.int32,
                                                      device=pending.device))
     h0 = h[:, 0]
     props = spec.verify_tokens(model, params, torch.cat([h0[None], medusa_hiddens(heads, h0)]))
     d_blk = props.T.contiguous()                                 # (B, K)
-    hb, cache2, cands2 = model.step(params, model.embed_block(params, d_blk), cache1)
+    hb, cache2, cands2 = model.step(params, model.embed_block(params, d_blk, cache1["lengths"]),
+                                    cache1)
     y_star = spec.verify_tokens(model, params, hb)               # (B, K)
     matches = d_blk[:, 1:] == y_star[:, :K - 1]
     m = (1 + torch.cumprod(matches.to(torch.int32), dim=1).sum(dim=1)).to(torch.int32)

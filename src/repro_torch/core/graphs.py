@@ -501,7 +501,9 @@ class BlockRunner:
 
     def prepare(self, B: int, Tp: int):
         """The static state and block-step of batches of B prompts of Tp
-        tokens, made (and captured) on first use."""
+        tokens, made (and captured) on first use.  Each static cache holds
+        the stream's worst case, ``RING_SLACK`` and a VLM's patches; "out"
+        counts tokens only."""
         if (B, Tp) in self._shapes:
             return self._shapes[(B, Tp)]
         dev, block, keep = self.device, self.block, self.keep
@@ -510,7 +512,7 @@ class BlockRunner:
                   done=torch.ones((B,), dtype=torch.bool, device=dev),
                   out=torch.zeros((B, total), dtype=torch.int32, device=dev),
                   out_len=torch.zeros((B,), dtype=torch.int32, device=dev),
-                  **{name: model.init_cache(B, total + tfm.RING_SLACK)
+                  **{name: model.init_cache(B, total + tfm.RING_SLACK + model.prefix_len())
                      for name, (model, _) in self.caches.items()},
                   **self.extra,
                   **{name: torch.zeros((), dtype=torch.int64, device=dev)
@@ -532,12 +534,14 @@ class BlockRunner:
                                               frame=frame)
         return self._shapes[(B, Tp)]
 
-    def generate(self, prompts: torch.Tensor, live_mask: Optional[torch.Tensor] = None
-                 ) -> GenResult:
+    def generate(self, prompts: torch.Tensor, live_mask: Optional[torch.Tensor] = None,
+                 aux_inputs: Optional[dict] = None) -> GenResult:
         """``max_new`` tokens on prompts (B, Tp), Tp >= 2, through the
-        block-step; lanes outside `live_mask` (default: none) start done.
-        The result's tensors are the static buffers of this shape, which the
-        next batch of the shape overwrites."""
+        block-step; lanes outside `live_mask` (default: none) start done;
+        `aux_inputs` go to the prefills (an encoder's frames, whose cross
+        K/V the prefill writes into the static cache in place; a VLM's
+        patches).  The result's tensors are the static buffers of this
+        shape, which the next batch of the shape overwrites."""
         B, Tp = prompts.shape
         if Tp < 2:
             raise ValueError("need at least 2 prompt tokens (one prefill + one pending)")
@@ -546,7 +550,7 @@ class BlockRunner:
         prompts = prompts.to(torch.int32)
         # the prefills are eager: they fill the static caches in place
         for name, (model, params) in self.caches.items():
-            _, pc = model.prefill(params, prompts[:, :Tp - 1], cache=st[name])
+            _, pc = model.prefill(params, prompts[:, :Tp - 1], aux_inputs, cache=st[name])
             st[name]["lengths"].copy_(pc["lengths"])
         st["pending"].copy_(prompts[:, Tp - 1])
         st["out"].zero_()

@@ -141,17 +141,18 @@ def dense_train_losses(model: Model, params: dict, dvi_params: dict, tokens: tor
     verifier greedy), and the composite loss applies with the dense accept
     mask as reward.  Positions are stride-subsampled to at most
     `max_positions` before the (N, V) logits.  The backbone runs without
-    autograd; gradients reach only the LoRA factors.  Decoders without an
-    encoder or aux inputs only."""
+    autograd; gradients reach only the LoRA factors.  `aux_inputs` are the
+    modality stubs (``Model.embed`` / ``Model.encode``): a VLM's patch
+    positions lead the sequence and count as positions, as in the
+    reference."""
     cfg = model.cfg
-    if cfg.encoder is not None or aux_inputs is not None:
-        raise NotImplementedError("encoders and aux inputs (vision, audio) are a later "
-                                  "slice of the port (ROADMAP item 15)")
     k = cfg.dvi.split_layer
     with torch.no_grad():
-        x = model.embed(params, tokens)
-        h_k, _ = model.hidden(params, x, 0, k)
-        h_L, _ = model.hidden(params, h_k, k)
+        enc = model.encode(params, aux_inputs) if cfg.encoder is not None else None
+        x = model.embed(params, tokens, aux_inputs)
+        P = model.prefix_len()
+        h_k, _ = model.hidden(params, x, 0, k, prefix_len=P, enc_out=enc)
+        h_L, _ = model.hidden(params, h_k, k, prefix_len=P, enc_out=enc)
     d = h_k.shape[-1]
     # position i's tuple: (h_k[i], predicts token i+1); drop the last position
     hk = h_k[:, :-1].reshape(-1, d)

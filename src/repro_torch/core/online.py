@@ -93,15 +93,15 @@ def make_update_fn(model: Model, mode: str = "full", lr: float = 1e-3):
 def online_loop(model: Model, params: dict, prompt_stream, state: OnlineTrainerState, *,
                 max_new: int = 64, updates_per_batch: int = 1, mode: str = "full",
                 lr: float = 1e-3, gen: Optional[torch.Generator] = None,
-                log_every: int = 0, graphs: bool = True):
+                log_every: int = 0, aux_inputs_fn=None, graphs: bool = True):
     """The paper's generate-and-improve loop over a prompt stream.
 
     prompt_stream: iterable of (B, Tp) int arrays or tensors (one Tp per
     batch).  Each batch is generated through ``graphs.GenerateRunner`` (one
     CUDA graph a block-step on the card with `graphs`), the counterpart of
-    the reference's jitted ``speculative_generate``, then
-    `updates_per_batch` updates follow.  Returns (state, history) with the
-    reference's per-batch keys."""
+    the reference's jitted ``speculative_generate``, with the modality stubs
+    ``aux_inputs_fn(prompts)`` when given, then `updates_per_batch` updates
+    follow.  Returns (state, history) with the reference's per-batch keys."""
     gen = gen if gen is not None else torch.Generator(device=model.device).manual_seed(0)
     update = make_update_fn(model, mode, lr)
     runner = graphs_mod.GenerateRunner(model, params, state.dvi_params, state.buf,
@@ -110,7 +110,8 @@ def online_loop(model: Model, params: dict, prompt_stream, state: OnlineTrainerS
     for bi, prompts in enumerate(prompt_stream):
         prompts = torch.as_tensor(prompts, device=model.device)
         live = torch.ones((prompts.shape[0],), dtype=torch.bool, device=model.device)
-        res = runner.generate(prompts, live)
+        aux = aux_inputs_fn(prompts) if aux_inputs_fn else None
+        res = runner.generate(prompts, live, aux)
         block_acc = float(res.accepted_drafts) / max(float(res.drafted), 1.0)
         mat = float(res.committed) / max(float(res.blocks), 1.0)
         for _ in range(updates_per_batch):

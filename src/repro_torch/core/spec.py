@@ -238,7 +238,7 @@ def spec_block_step(model: Model, params: dict, dvi_params: dict,
     cache_c, pend = cache, pending
     hks, toks, shallow, dprobs = [], [], [], []
     for j in range(K + 1):
-        x = model.embed_block(params, pend[:, None])
+        x = model.embed_block(params, pend[:, None], cache_c["lengths"])
         h_k, cache_c, cands = model.step(params, x, cache_c, 0, k)
         dlog = draft_logits(model, params, dvi_params, h_k[:, 0])
         if sampling:
@@ -457,14 +457,24 @@ def superstep_block(model: Model, params: dict, dvi_params: dict, st: dict,
 def speculative_generate(model: Model, params: dict, dvi_params: dict,
                          prompts: torch.Tensor, max_new: int,
                          k_spec: Optional[int] = None,
+                         cache_len: Optional[int] = None,
                          eos_id: int = 1,
                          collect: bool = False,
                          buf: Optional[dict] = None,
+                         aux_inputs: Optional[dict] = None,
                          temperature: float = 0.0,
                          generator: Optional[torch.Generator] = None,
                          live_mask: Optional[torch.Tensor] = None) -> GenResult:
     """Batched lossless speculative generation with optional tuple logging.
     prompts: (B, Tp) with Tp >= 2, one length for the batch.
+
+    aux_inputs: the modality stubs the prefill takes (``Model.prefill``:
+    an encoder's frame embeddings, a VLM's patch embeddings).  cache_len:
+    the decode cache's capacity; by default the stream's worst case plus
+    ``RING_SLACK`` and a VLM's patches, which the cache holds in front of
+    the tokens (the reference's default leaves the patches out, so its
+    prefill overflows the cache once P exceeds max_new + K + 131; ROADMAP
+    §3).  The ``out`` buffer and the length limit count tokens only.
 
     temperature == 0 (the paper's setting): greedy drafting and
     longest-prefix verification.  temperature > 0: the drafter samples and
@@ -483,9 +493,10 @@ def speculative_generate(model: Model, params: dict, dvi_params: dict,
     dev = prompts.device
     prompts = prompts.to(torch.int32)
     total = Tp + max_new + K + 2
+    cache_cap = cache_len or (total + tfm.RING_SLACK + model.prefix_len())
 
     # ---- prefill all but the last prompt token; it becomes `pending` ----
-    _, cache = model.prefill(params, prompts[:, :Tp - 1], max_len=total + tfm.RING_SLACK)
+    _, cache = model.prefill(params, prompts[:, :Tp - 1], aux_inputs, max_len=cache_cap)
     pending = prompts[:, Tp - 1]
     out = torch.zeros((B, total), dtype=torch.int32, device=dev)
     out[:, :Tp] = prompts

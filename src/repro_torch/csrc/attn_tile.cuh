@@ -42,7 +42,9 @@
 // on a ring, -1 for an empty or unmapped slot).  Query t, at qpos = len - Tq
 // + t where len counts the block's own writes, sees the slot when
 // 0 <= pos <= qpos and, with a window W > 0, pos > qpos - W; padded rows see
-// nothing.  On a full cache that is j < len - (Tq-1-t).  A query with no
+// nothing.  On a full cache that is j < len - (Tq-1-t).  A non-causal call
+// (Args::causal false: cross-attention over an encoder's K/V) lets every
+// query of the block see j < len.  A query with no
 // visible slot is written as 0.  Scores are scaled into base 2 and the
 // softmax runs in float32.
 #pragma once
@@ -105,12 +107,14 @@ __host__ __device__ inline Layout layout(int R, int hd, int tsize, int bs, int s
   return L;
 }
 
-// What a call's CTAs share: shapes, the slot-tile geometry, the scale and
-// the sliding window (0: none).
+// What a call's CTAs share: shapes, the slot-tile geometry, the scale, the
+// sliding window (0: none) and whether query t stops at its own position
+// (causal) or every query sees all len slots.
 struct Args {
   int Tq, H, KV, hd, bs, stages, splits;
   float scale;
   int window = 0;
+  bool causal = true;
 };
 
 // ---- the product step, by type ---------------------------------------------
@@ -292,7 +296,7 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = mt * 16 + g + 8 * h;
-    qend[h] = r < nr ? len - (a.Tq - 1 - (r0 + r) / G) : 0;
+    qend[h] = r < nr ? (a.causal ? len - (a.Tq - 1 - (r0 + r) / G) : len) : 0;
     qbeg[h] = a.window > 0 ? max(qend[h] - a.window, 0) : 0;
   }
   const float sl2 = a.scale * LOG2E;

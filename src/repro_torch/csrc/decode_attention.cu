@@ -22,6 +22,13 @@
 // full cache this is the reference's step mask pos <= qpos.  A query with no
 // live slot gets 0 (the model path never has one).
 //
+// The non-causal form (causal = 0) is a decoder's cross-attention over the
+// encoder's K/V (transformer._cross_attn; the reference computes it as
+// attend_full with every frame visible): every query of the block sees the
+// slots j < lengths[b], lengths all F.  Only the per-row limit differs
+// (attn_tile.cuh: qend = len), so it reads each live K/V row once for all
+// Tq * G rows, as the causal form does.
+//
 // The ring form (pos != null) reads a sliding-window layer's ring of S = W +
 // slack slots, position p at slot p % S (transformer.spread_write with
 // wrap): pos (B, S) int32 holds each slot's position (-1: empty), and query
@@ -134,13 +141,17 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* lengths,
 }  // namespace
 
 // pos: null for a full cache, else the ring's (B, S) int32 positions;
-// window: 0, or the sliding window of the ring form.
+// window: 0, or the sliding window of the ring form; causal: 0 for the
+// non-causal form (every query sees j < lengths[b]), which the ring form
+// rejects.
 DVI_EXPORT int dvi_decode_attention(const void* q, const void* k, const void* v,
                                     const void* lengths, void* out, int B, int Tq, int H,
                                     int KV, int hd, int S, float scale, int splits,
-                                    int is_bf16, const void* pos, int window, void* stream) {
-  const attn::Args a{Tq, H, KV, hd, 0, 0, splits, scale, window};
-  if (!attn::valid(a, B, is_bf16) || S <= 0 || window < 0 || (window > 0 && pos == nullptr))
+                                    int is_bf16, const void* pos, int window, int causal,
+                                    void* stream) {
+  const attn::Args a{Tq, H, KV, hd, 0, 0, splits, scale, window, causal != 0};
+  if (!attn::valid(a, B, is_bf16) || S <= 0 || window < 0 || (window > 0 && pos == nullptr) ||
+      (causal == 0 && pos != nullptr))
     return cudaErrorInvalidValue;
   const int* lp = static_cast<const int*>(lengths);
   const int* pp = static_cast<const int*>(pos);

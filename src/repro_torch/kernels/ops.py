@@ -33,9 +33,9 @@ _ARGTYPES = {
     "lora_logits": [_VOID, _VOID, _VOID, _VOID, _FLOAT, _INT, _INT, _INT, _INT,
                     _INT, _INT, _VOID, _VOID, _VOID],
     # q, k, v, lengths, out, B, Tq, H, KV, hd, S, scale, splits, is_bf16,
-    # pos (or null), window, stream
+    # pos (or null), window, causal, stream
     "decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
-                         _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID, _INT, _VOID],
+                         _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID, _INT, _INT, _VOID],
     # q, k_pages, v_pages, lengths, block_tables, out, B, Tq, H, KV, hd, ps,
     # MPS, scale, splits, is_bf16, page_counts (or null), stream
     "paged_decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
@@ -72,6 +72,10 @@ ATTN_SUBTILE = 16         # slots of one warp's sub-tile; shares are multiples
 # "element" (one element a load), as ``vocab_fast`` chose it.
 vocab_paths: Dict[str, Dict[str, int]] = {name: {"fast": 0, "element": 0}
                                           for name in ("verify_argmax", "lora_logits")}
+# Launches of decode_attention by form since the last reset_launches():
+# "causal" (a block over a contiguous cache), "ring" (the ring form) or
+# "cross" (the non-causal form over an encoder's K/V).
+attn_forms: Dict[str, int] = {"causal": 0, "ring": 0, "cross": 0}
 
 
 def reset_launches() -> None:
@@ -79,12 +83,14 @@ def reset_launches() -> None:
         launches[name] = 0
     for paths in vocab_paths.values():
         paths.update(fast=0, element=0)
+    attn_forms.update(causal=0, ring=0, cross=0)
 
 
 def counts() -> dict:
-    """A copy of ``launches`` and ``vocab_paths``."""
+    """A copy of ``launches``, ``vocab_paths`` and ``attn_forms``."""
     return {"launches": dict(launches),
-            "vocab_paths": {name: dict(v) for name, v in vocab_paths.items()}}
+            "vocab_paths": {name: dict(v) for name, v in vocab_paths.items()},
+            "attn_forms": dict(attn_forms)}
 
 
 def add_counts(delta: dict) -> None:
@@ -95,6 +101,8 @@ def add_counts(delta: dict) -> None:
     for name, paths in delta["vocab_paths"].items():
         for path, n in paths.items():
             vocab_paths[name][path] += n
+    for form, n in delta.get("attn_forms", {}).items():
+        attn_forms[form] += n
 
 
 _fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -325,7 +333,8 @@ class LoraLogits(torch.autograd.Function):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, pos=None, window: int = 0) -> torch.Tensor:
+                     lengths: torch.Tensor, pos=None, window: int = 0,
+                     causal: bool = True) -> torch.Tensor:
     """Flash-decode GQA over a contiguous cache, visiting only live slots.
 
     q (B, H, hd) attends slots j < lengths[b]; q (B, Tq, H, hd) is a block
@@ -340,10 +349,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (-1: empty; a sliding-window layer's ring keeps position p at slot
     p % S), and query t, at qpos = lengths[b] - Tq + t, attends slot j iff
     0 <= pos[b, j] <= qpos and, with `window` > 0, pos[b, j] > qpos -
-    window."""
+    window.
+
+    The non-causal form, ``causal=False`` (cross-attention over an
+    encoder's K/V, lengths all F): every query of the block attends the
+    slots j < lengths[b].  The ring form is causal."""
     tensors = (q, k, v, lengths) + ((pos,) if pos is not None else ())
     if _device(*tensors).type == "cpu":
-        return ref.decode_attention(q, k, v, lengths, pos=pos, window=window)
+        return ref.decode_attention(q, k, v, lengths, pos=pos, window=window, causal=causal)
     single = q.ndim == 3
     q4 = q[:, None] if single else q
     _need(q4.ndim == 4 and k.ndim == 4 and k.shape == v.shape,
@@ -357,6 +370,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           "decode_attention: lengths must be (B,) int32")
     _need(window >= 0 and (pos is not None or window == 0),
           "decode_attention: a window needs the ring's pos")
+    _need(causal or pos is None, "decode_attention: the ring form is causal")
     if pos is not None:
         _need(pos.dtype == torch.int32 and pos.shape == (B, S),
               "decode_attention: pos must be (B, S) int32")
@@ -370,7 +384,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch("decode_attention", q4.data_ptr(), k.data_ptr(), v.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd, S, 1.0 / math.sqrt(hd),
             attn_splits(S, B * KV * attn_row_tiles(Tq * (H // KV))), is_bf16,
-            pos.data_ptr() if pos is not None else None, int(window), _stream(q.device))
+            pos.data_ptr() if pos is not None else None, int(window), int(causal),
+            _stream(q.device))
+    attn_forms["ring" if pos is not None else "causal" if causal else "cross"] += 1
     return out[:, 0] if single else out
 
 

@@ -30,7 +30,8 @@ def lora_logits(h: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tens
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, pos=None, window: int = 0) -> torch.Tensor:
+                     lengths: torch.Tensor, pos=None, window: int = 0,
+                     causal: bool = True) -> torch.Tensor:
     """Decode attention over a contiguous cache.
 
     q (B, H, hd): one query per lane attending slots j < lengths[b].
@@ -41,12 +42,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The ring form, `pos` (B, S) int32 the position each slot holds (-1:
     empty): query t, at qpos = lengths[b] - Tq + t, attends slot j iff
     0 <= pos[b, j] <= qpos and, with `window` > 0, pos[b, j] > qpos -
-    window (the reference's ring step mask)."""
+    window (the reference's ring step mask).
+
+    ``causal=False`` (cross-attention over an encoder's K/V): every query of
+    the block attends the slots j < lengths[b]; the ring form is causal."""
+    if not causal and pos is not None:
+        raise ValueError("decode_attention: the ring form is causal")
     single = q.ndim == 3
     q4 = q[:, None] if single else q
     Tq, S = q4.shape[1], k.shape[1]
     if pos is None:
-        mask = torch.arange(S, device=q.device)[None, None, :] < _block_limits(lengths, Tq)
+        lim = _block_limits(lengths, Tq) if causal else lengths.long()[:, None, None]
+        mask = torch.arange(S, device=q.device)[None, None, :] < lim
     else:
         qend = _block_limits(lengths, Tq)                       # qpos + 1, (B, Tq, 1)
         p = pos.long()[:, None, :]

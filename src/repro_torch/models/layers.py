@@ -1,5 +1,6 @@
-"""Shared layer primitives: RMSNorm, RoPE, GQA attention, GLU MLPs, the
-causal depthwise convolution of the Mamba-2 block.
+"""Shared layer primitives: RMSNorm, RoPE, Whisper's sinusoidal positions,
+GQA attention, GLU MLPs, the causal depthwise convolution of the Mamba-2
+block.
 
 Port of ``repro.models.layers`` with the same conventions:
 
@@ -55,6 +56,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_at(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings, float32, at integer `positions`
+    (any shape) -> (*positions.shape, dim): the rows of the reference's
+    ``sinusoidal_positions`` table at those positions, computed there
+    without building the table."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device)
+                      / (half - 1))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(num_pos: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (num_pos, dim), float32."""
+    return sinusoidal_at(torch.arange(num_pos, device=device), dim)
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,14 @@ the RecurrentGemma hybrid of RG-LRU blocks (``models.rglru``) and
 sliding-window ("local") attention; local/global attention interleaves
 with a mixture-of-experts FFN (``models.moe``, Llama-4 Scout); and
 DeepSeek-V3's multi-head latent attention (``models.mla``) over dense and
-MoE FFNs.  Layers are grouped into *segments* (runs of layers of one
-(mixer, FFN) kind), each with its parameters stacked on a leading layer
-axis, and segments are cut at ``cfg.dvi.split_layer`` so the draft path
-(layers [0, k)) and the target path ([k, L)) run as separate segment
-ranges over one parameter tree.
+MoE FFNs; Whisper's decoder, whose layers cross-attend the encoder's
+output after their self-attention (``Segment.cross``, no RoPE), and its
+bidirectional encoder; PaliGemma's decoder, whose first P positions (the
+projected patches) attend each other bidirectionally.  Layers are grouped
+into *segments* (runs of layers of one (mixer, FFN) kind), each with its
+parameters stacked on a leading layer axis, and segments are cut at
+``cfg.dvi.split_layer`` so the draft path (layers [0, k)) and the target
+path ([k, L)) run as separate segment ranges over one parameter tree.
 
 Two execution modes:
 
@@ -40,7 +43,11 @@ Two execution modes:
   full cache, written in place like K/V and read by the absorbed form in
   plain PyTorch (no kernel: the reference attends MLA in ``jnp``); its
   ``pos`` (B, C) is the reference's bookkeeping (the prefill's positions,
-  -1 empty), which no read consults: it is not a ring.
+  -1 empty), which no read consults: it is not a ring.  A cross segment
+(Whisper) also caches each layer's cross K/V of the encoder's output,
+``xk`` / ``xv`` (n, B, F, H, hd), written once by the prefill, and the
+cache holds ``xlen`` (B,) int32, all F, the length the non-causal form of
+``decode_attention`` reads them with.
 
 Two cache layouts (``forward_step`` reads which from the cache):
 
@@ -54,8 +61,8 @@ Two cache layouts (``forward_step`` reads which from the cache):
   through the per-lane block table ``cache["tbl"]`` (B, MPS) with the
   addressing rule ``serving.kv_pool.logical_to_physical``; attention goes
   through the ``paged_decode_attention`` kernel.  Page ownership lives on
-  the host (``serving.kv_pool.KVPool``).  MLA latent caches have no paged
-  layout (as in the reference).
+  the host (``serving.kv_pool.KVPool``).  MLA latent caches and
+  cross-attention caches have no paged layout (as in the reference).
 
 Continuous batching edits one lane of a live cache in place:
 ``insert_slot`` splices a prefilled lane in (or, with ``src=None``, the
@@ -65,8 +72,7 @@ and ``copy_page`` copies one page on write.  All of it runs on PyTorch's
 current stream, so it is ordered after any step still running on the
 device.
 
-Not ported yet (they raise ``NotImplementedError``): cross-attention, the
-vision prefix, ``kv_quant``.
+Not ported yet (it raises ``NotImplementedError``): ``kv_quant``.
 """
 from __future__ import annotations
 
@@ -102,6 +108,7 @@ class Segment:
     start: int
     n: int
     d_ff: int
+    cross: bool = False  # cross-attends the encoder's output (every decoder layer of "audio")
 
     @property
     def name(self) -> str:
@@ -109,13 +116,9 @@ class Segment:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet."""
-    missing = [name for name, on in (
-        ("cross-attention", cfg.encoder is not None),
-        ("vision prefix", cfg.vision is not None),
-        ("kv_quant", cfg.kv_quant)) if on]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
+    """Raise for what the port does not run yet: the int8 KV cache."""
+    if cfg.kv_quant:
+        raise NotImplementedError(f"{cfg.name}: not ported yet: kv_quant")
 
 
 def layer_kinds(cfg: ModelConfig):
@@ -145,7 +148,8 @@ def build_segments(cfg: ModelConfig, boundaries=()):
             d_ff = cfg.d_ff
             if ffn == "dense" and cfg.moe is not None and cfg.moe.first_dense_layers:
                 d_ff = cfg.moe.d_ff_dense or cfg.d_ff
-            segs.append(Segment(len(segs), kind, ffn, start, layer - start, d_ff))
+            segs.append(Segment(len(segs), kind, ffn, start, layer - start, d_ff,
+                                cross=cfg.arch_type == "audio"))
             start = layer
     return segs
 
@@ -190,6 +194,11 @@ def init_segment(gen: torch.Generator, cfg: ModelConfig, seg: Segment,
                      bv=zeros(n, KV * hd, dt=dtype))
         if cfg.qk_norm:
             p.update(qn=zeros(n, hd), kn=zeros(n, hd))
+    if seg.cross and seg.kind in ("attn", "local"):
+        p.update(ln_x=zeros(n, d), wq_x=dense_init(gen, (n, d, H * hd), dtype),
+                 wk_x=dense_init(gen, (n, d, H * hd), dtype),
+                 wv_x=dense_init(gen, (n, d, H * hd), dtype),
+                 wo_x=dense_init(gen, (n, H * hd, d), dtype))
     if seg.ffn == "moe":
         p["moe"] = moe_mod.init_moe(gen, n, d, cfg.moe, cfg.glu, dtype)
     else:
@@ -236,10 +245,30 @@ def _ffn(p, x, cfg, seg: Optional[Segment] = None, dropless: bool = False):
     return x + mlp(p, xn, cfg.act, cfg.glu), torch.zeros((), device=x.device)
 
 
-def attn_layer_full(p, x, cfg: ModelConfig, seg: Segment, positions, spec: MaskSpec):
+def _cross_attn(p, x, xk, xv, cfg: ModelConfig, xlen=None):
+    """Cross-attention with its residual: the queries of x (B, T, d) over
+    every frame of the encoder's K/V xk / xv (B, F, H, hd).  Without `xlen`
+    (the full pass) plain ``attend_full`` with no mask, as the reference
+    computes it; with `xlen` (B,) int32, all F (the step path), the
+    non-causal form of the ``decode_attention`` kernel."""
+    B, T = x.shape[:2]
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    xn = rms_norm(x, p["ln_x"], cfg.norm_eps)
+    q = (xn @ p["wq_x"]).reshape(B, T, H, hd)
+    if xlen is None:
+        out = attend_full(q, xk, xv, MaskSpec(bidirectional=True))
+    else:
+        out = ops.decode_attention(q.contiguous(), xk, xv, xlen, causal=False)
+    return x + out.reshape(B, T, H * hd) @ p["wo_x"]
+
+
+def attn_layer_full(p, x, cfg: ModelConfig, seg: Segment, positions, spec: MaskSpec,
+                    enc_out=None, use_rope: bool = True):
     """Full-sequence attention layer.  Returns (x, contrib, aux) with
     contrib the layer's cache contribution: {"k", "v"} (B, T, KV, hd), or
-    an MLA layer's latents {"ckv", "krope"} (B, T, r_kv) / (B, T, dr)."""
+    an MLA layer's latents {"ckv", "krope"} (B, T, r_kv) / (B, T, dr); a
+    cross layer also attends every frame of `enc_out` (B, F, d) after its
+    self-attention and adds its cross K/V {"xk", "xv"} (B, F, H, hd)."""
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         out, contrib = mla_mod.mla_full(p, xn, cfg.num_heads, cfg.mla, positions, spec,
@@ -247,12 +276,20 @@ def attn_layer_full(p, x, cfg: ModelConfig, seg: Segment, positions, spec: MaskS
         x = x + out
     else:
         q, k, v = _qkv(p, xn, cfg)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
         out = attend_full(q, k, v, spec)
         B, T = x.shape[:2]
         x = x + out.reshape(B, T, -1) @ p["wo"]
         contrib = {"k": k, "v": v}
+    if seg.cross:
+        B, F = enc_out.shape[:2]
+        H, hd = cfg.num_heads, cfg.resolved_head_dim
+        xk = (enc_out @ p["wk_x"]).reshape(B, F, H, hd)
+        xv = (enc_out @ p["wv_x"]).reshape(B, F, H, hd)
+        x = _cross_attn(p, x, xk, xv, cfg)
+        contrib = dict(contrib, xk=xk, xv=xv)
     x, aux = _ffn(p, x, cfg, seg)
     return x, contrib, aux
 
@@ -284,26 +321,32 @@ def spread_write(cache: torch.Tensor, blk: torch.Tensor, lengths: torch.Tensor,
 
 
 def attn_layer_step(p, x, kcache, vcache, lengths, cfg: ModelConfig,
-                    seg: Optional[Segment] = None, pos=None):
+                    seg: Optional[Segment] = None, pos=None, cross=None):
     """Block-decode attention layer against the cache.
 
     kcache/vcache: (B, C, KV, hd), updated in place with this block's K/V at
     slots ``lengths + i`` (mod C on a ring) before the attention kernel
     reads them.  `pos` (B, C): a ring's slot positions, already holding the
     block's (``run_segment_step``); the kernel then masks by position and
-    the segment's window."""
+    the segment's window.  `cross` (xk, xv, xlen): a cross layer's cached
+    encoder K/V (B, F, H, hd) and their length (B,), attended after the
+    self-attention through the kernel's non-causal form.  An "audio"
+    config has no RoPE (its positions are added at the embedding)."""
     B, T = x.shape[:2]
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    qpos = lengths[:, None] + torch.arange(T, device=x.device)[None, :]
     q, k, v = _qkv(p, xn, cfg)
-    q = apply_rope(q, qpos, cfg.rope_theta)
-    k = apply_rope(k, qpos, cfg.rope_theta)
+    if cfg.arch_type != "audio":
+        qpos = lengths[:, None] + torch.arange(T, device=x.device)[None, :]
+        q = apply_rope(q, qpos, cfg.rope_theta)
+        k = apply_rope(k, qpos, cfg.rope_theta)
     ring = pos is not None
     spread_write(kcache, k, lengths, wrap=ring)
     spread_write(vcache, v, lengths, wrap=ring)
     out = ops.decode_attention(q.contiguous(), kcache, vcache, (lengths + T).to(torch.int32),
                                pos=pos, window=cfg.local_window if ring else 0)
     x = x + out.reshape(B, T, -1) @ p["wo"]
+    if cross is not None:
+        x = _cross_attn(p, x, *cross[:2], cfg, xlen=cross[2])
     return _ffn(p, x, cfg, seg, dropless=True)[0]
 
 
@@ -363,15 +406,20 @@ def attn_layer_step_paged(p, x, kpages, vpages, tbl, lengths, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def run_segment_full(sp, x, cfg: ModelConfig, seg: Segment, positions,
-                     collect: bool = False, remat: bool = False):
+                     collect: bool = False, remat: bool = False, prefix_len: int = 0,
+                     enc_out=None):
     """The segment over the whole sequence.  Returns (x, contribs, aux) with
     contribs, when `collect` (else {}), stacked on the layer axis: {"k", "v"}
     (n, B, T, KV, hd) for attention (local layers too), {"ckv", "krope"}
     (n, B, T, r_kv) / (n, B, T, dr) for MLA, {"conv", "state"}
     for SSM segments ((n, B, cw-1, conv_dim) / (n, B, H, hd, ds) float32)
-    and RG-LRU segments ((n, B, cw-1, w) / (n, B, w) float32); aux is the
-    segment's summed MoE load-balance loss.  Local layers mask to their
-    sliding window.
+    and RG-LRU segments ((n, B, cw-1, w) / (n, B, w) float32), and a cross
+    segment's {"xk", "xv"} (n, B, F, H, hd) besides; aux is the segment's
+    summed MoE load-balance loss.  Local layers mask to their sliding
+    window; the first `prefix_len` positions (a VLM's patches) attend each
+    other bidirectionally; an "audio" config's attention segment without
+    `enc_out` (Whisper's encoder) is bidirectional throughout, and "audio"
+    uses no RoPE.
 
     Nothing here writes in place, so autograd can differentiate the whole
     segment.  With `remat` each layer's body runs under non-reentrant
@@ -391,11 +439,18 @@ def run_segment_full(sp, x, cfg: ModelConfig, seg: Segment, positions,
             return x, con, aux
         names = ("conv", "state")
     else:
-        spec = MaskSpec(window=cfg.local_window if seg.kind == "local" else 0)
+        if seg.kind == "local":
+            spec = MaskSpec(window=cfg.local_window, prefix_len=prefix_len)
+        elif cfg.arch_type == "audio" and seg.kind == "attn" and enc_out is None:
+            spec = MaskSpec(bidirectional=True)          # the encoder's self-attention
+        else:
+            spec = MaskSpec(prefix_len=prefix_len)
+        use_rope = cfg.arch_type != "audio"
 
         def body(lp, x):
-            return attn_layer_full(lp, x, cfg, seg, positions, spec)
-        names = ("ckv", "krope") if cfg.mla is not None else ("k", "v")
+            return attn_layer_full(lp, x, cfg, seg, positions, spec, enc_out, use_rope)
+        names = (("ckv", "krope") if cfg.mla is not None else ("k", "v")) + (
+            ("xk", "xv") if seg.cross else ())
     if remat:
         plain = body
 
@@ -441,7 +496,7 @@ def _stateful_step(step_fn, sp, x, seg_cache, n: int, take):
 
 
 def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
-                     tbl=None, take=None):
+                     tbl=None, take=None, xlen=None):
     """Returns (x, cands).  Attention segments write their K/V cache (MLA
     segments their latents) in place and have no candidates ({}); `tbl` is
     the block table (B, MPS) when the cache is paged (seg_cache then holds
@@ -451,7 +506,8 @@ def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
     {"conv", "state"} stacked (n, B, T, ...); with `take` (B,), a prefill
     chunk's commit, they carry instead: each layer's window and state after
     token take-1 (kept where take == 0) are written in place and there are
-    no candidates."""
+    no candidates.  A cross segment's layers attend their cached ``xk`` /
+    ``xv`` with the lengths `xlen` (B,) after their self-attention."""
     if seg.kind == "ssm":
         def ssm_fn(lp, x, c, take):
             return ssm_mod.ssm_step(lp, x, c, cfg.ssm, cfg.norm_eps, take=take)
@@ -475,8 +531,9 @@ def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
     if pos is not None:
         ring_positions(pos, lengths, x.shape[1])
     for i in range(seg.n):
+        cross = (seg_cache["xk"][i], seg_cache["xv"][i], xlen) if seg.cross else None
         x = attn_layer_step(_layer(sp, i), x, seg_cache["k"][i], seg_cache["v"][i],
-                            lengths, cfg, seg, pos=pos)
+                            lengths, cfg, seg, pos=pos, cross=cross)
     return x, {}
 
 
@@ -509,7 +566,9 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
     ``ckv`` (n, B, max_len, r_kv) and ``krope`` (n, B, max_len, dr), and
     ``pos`` (B, max_len) int32, -1 empty), per SSM or RG-LRU segment the
     conv window and state, per local segment its ring (``_lane_cache``),
-    plus per-lane committed ``lengths`` (B,)."""
+    per cross segment its ``xk`` / ``xv`` (n, B, F, H, hd), plus per-lane
+    committed ``lengths`` (B,) and, with cross segments, ``xlen`` (B,)
+    int32 all F (the encoder's frames)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = cfg.torch_dtype
@@ -527,8 +586,16 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
         elif c is None:
             c = {"k": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype, device=device),
                  "v": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype, device=device)}
+        if seg.cross:
+            shape = (seg.n, B, cfg.encoder.num_frames, cfg.num_heads, hd)
+            c.update(xk=torch.zeros(shape, dtype=dtype, device=device),
+                     xv=torch.zeros(shape, dtype=dtype, device=device))
         segs[seg.name] = c
-    return {"lengths": torch.zeros((B,), dtype=torch.int32, device=device), "segs": segs}
+    cache = {"lengths": torch.zeros((B,), dtype=torch.int32, device=device), "segs": segs}
+    if any(seg.cross for seg in model_segments(cfg)):
+        cache["xlen"] = torch.full((B,), cfg.encoder.num_frames, dtype=torch.int32,
+                                   device=device)
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, B: int, num_pages: int, page_size: int,
@@ -539,11 +606,13 @@ def init_paged_cache(cfg: ModelConfig, B: int, num_pages: int, page_size: int,
     their per-lane constant-size state and local segments their per-lane
     rings, as in ``init_cache`` (they gain nothing from paging); per-lane
     ``lengths`` (B,) and the block table ``tbl`` (B, max_pages_per_slot)
-    int32, all -1 (unmapped).  MLA latent caches have no paged layout
-    (``NotImplementedError``, as in the reference)."""
+    int32, all -1 (unmapped).  MLA latent caches and cross-attention caches
+    have no paged layout (``NotImplementedError``, as in the reference)."""
     check_supported(cfg)
     if cfg.mla is not None:
         raise NotImplementedError("paged KV: MLA latent caches not supported")
+    if cfg.encoder is not None:
+        raise NotImplementedError("paged KV: cross-attention caches not supported")
     device = resolve_device(device)
     dtype = cfg.torch_dtype
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -686,12 +755,17 @@ def fill_cache_from_full(cfg: ModelConfig, cache: dict, contribs: dict, T: int) 
     there (the rest of ``pos`` kept, as the reference keeps it).  A ring
     takes positions [0, T) at slots [0, T), or, when T exceeds its C slots,
     the last C positions p at slots p mod C; its ``pos`` is set to match
-    and -1 elsewhere.  All sequences are fully packed (length T)."""
+    and -1 elsewhere.  A cross segment's ``xk`` / ``xv`` take the prefill's
+    whole, in place (the block-step graphs hold their addresses).  All
+    sequences are fully packed (length T)."""
     for seg in model_segments(cfg):
         con = contribs.get(seg.name)
         if not con:
             continue
         c = cache["segs"][seg.name]
+        if seg.cross:
+            c["xk"].copy_(con["xk"])
+            c["xv"].copy_(con["xv"])
         if seg.kind in ("ssm", "rglru"):
             c["conv"].copy_(con["conv"])
             c["state"].copy_(con["state"])
@@ -714,9 +788,8 @@ def fill_cache_from_full(cfg: ModelConfig, cache: dict, contribs: dict, T: int) 
         c["k"][:, :, :T] = con["k"].to(c["k"].dtype)
         c["v"][:, :, :T] = con["v"].to(c["v"].dtype)
     B = cache["lengths"].shape[0]
-    return {"lengths": torch.full((B,), T, dtype=torch.int32,
-                                  device=cache["lengths"].device),
-            "segs": cache["segs"]}
+    return dict(cache, lengths=torch.full((B,), T, dtype=torch.int32,
+                                          device=cache["lengths"].device))
 
 
 def commit_cache(cfg: ModelConfig, cache: dict, cands: dict, accept: torch.Tensor) -> dict:
@@ -746,17 +819,20 @@ def commit_cache(cfg: ModelConfig, cache: dict, cands: dict, accept: torch.Tenso
 
 def forward_full(params_segs: dict, x: torch.Tensor, cfg: ModelConfig, lo: int,
                  hi: int, collect: bool = False, remat: bool = False,
-                 with_aux: bool = False):
+                 with_aux: bool = False, prefix_len: int = 0, enc_out=None):
     """Run layers [lo, hi) over a full sequence at positions 0..T-1, each
-    layer under ``torch.utils.checkpoint`` when `remat`.  Returns
-    (x, contribs), or (x, contribs, aux) with `with_aux`: the summed MoE
-    load-balance loss, a float32 scalar."""
+    layer under ``torch.utils.checkpoint`` when `remat`, the first
+    `prefix_len` positions bidirectional among themselves, cross layers
+    attending `enc_out` (B, F, d).  Returns (x, contribs), or (x, contribs,
+    aux) with `with_aux`: the summed MoE load-balance loss, a float32
+    scalar."""
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
     contribs, aux = {}, torch.zeros((), device=x.device)
     for seg in segments_in_range(cfg, lo, hi):
         x, contribs[seg.name], a = run_segment_full(params_segs[seg.name], x, cfg, seg,
-                                                    positions, collect, remat)
+                                                    positions, collect, remat, prefix_len,
+                                                    enc_out)
         aux = aux + a
     return (x, contribs, aux) if with_aux else (x, contribs)
 
@@ -774,7 +850,8 @@ def forward_step(params_segs: dict, x: torch.Tensor, cfg: ModelConfig, cache: di
     cands = {}
     for seg in segments_in_range(cfg, lo, hi):
         x, cand = run_segment_step(params_segs[seg.name], x, cache["segs"][seg.name],
-                                   cache["lengths"], cfg, seg, cache.get("tbl"), take)
+                                   cache["lengths"], cfg, seg, cache.get("tbl"), take,
+                                   cache.get("xlen"))
         if cand:
             cands[seg.name] = cand
     return x, cache, cands

@@ -10,8 +10,12 @@ straight copy of every leaf.  Two sources:
   are the pytree paths joined with "/" (``segments/s1/wq``).
 
 Every leaf keeps its dtype: the float32 ones of a bf16 model (norm gains,
-RG-LRU's ``lam`` and ``conv_w``, the MoE ``router``) stay float32, and the
-experts nest under each segment's "moe" as in the reference's tree.
+RG-LRU's ``lam`` and ``conv_w``, the MoE ``router``) stay float32, the
+experts nest under each segment's "moe" as in the reference's tree, and
+Whisper's ``encoder`` subtree, its decoder's cross weights (``ln_x``,
+``wq_x``, ``wk_x``, ``wv_x``, ``wo_x``) and PaliGemma's ``vision_proj``
+come through like any other leaf; a tied head (both of those configs) gets
+its ``lm_head`` copy (``tie_head``).
 
 ``bfloat16`` leaves arrive either as ``ml_dtypes`` arrays (a live pytree) or,
 read back from a ``.npz``, as 2-byte void arrays (``|V2``: ``np.savez``

@@ -5,7 +5,8 @@ with -1 entries, all -1 lanes, page sizes 16 and 4 and per-lane page counts,
 the attention kernels' split of a lane over 1, 2, 4 and 8 CTAs at its edges),
 in float32 and bfloat16, the ring form of ``decode_attention`` at the
 hybrid and MoE decoders' local layers (hd 256 / G 16 and hd 128 / G 5,
-wrapped and not), the SSD scan at odd chunk lengths, with padded
+wrapped and not), the non-causal form over Whisper's 1500 encoder frames at hd 64 and
+paligemma's MQA at hd 256, the SSD scan at odd chunk lengths, with padded
 rows, a carried h0, strided inputs and every slice width of its hd split,
 plus the greedy sync path and the continuous paged
 path on the card, mamba2-370m-tiny's greedy path in bfloat16, the
@@ -194,6 +195,33 @@ def test_decode_attention(ops, dtype, B, Tq, H, KV, hd, S):
     q_in = q[:, 0].contiguous() if Tq == 1 else q
     torch.testing.assert_close(ops.decode_attention(q_in, k, v, lens),
                                ref.decode_attention(q_in, k, v, lens), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq", [1, 5])
+@pytest.mark.parametrize("B,H,KV,hd,S,causal", [(8, 20, 20, 64, 1500, False),
+                                                (3, 8, 2, 64, 40, False),
+                                                (8, 20, 20, 64, 200, True),
+                                                (4, 8, 1, 256, 420, True)])
+def test_decode_attention_cross_and_whisper_paligemma_widths(ops, dtype, Tq, B, H, KV, hd, S,
+                                                             causal):
+    """Whisper's widths (MHA of 20 heads of 64), the non-causal form over
+    its 1500 encoder frames (every query sees j < lengths, one lane
+    shorter), and paligemma's MQA (8 heads of 256 over one kv head)."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(B * S + Tq + hd)
+    q = _randn(gen, B, Tq, H, hd, dtype=dtype)
+    k = _randn(gen, B, S, KV, hd, dtype=dtype)
+    v = _randn(gen, B, S, KV, hd, dtype=dtype)
+    lens = np.full(B, S) if not causal else np.random.default_rng(S).integers(Tq, S + 1, size=B)
+    lens[-1] = S // 3 + Tq
+    lens = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    q_in = q[:, 0].contiguous() if Tq == 1 else q
+    ops.reset_launches()
+    got = ops.decode_attention(q_in, k, v, lens, causal=causal)
+    torch.testing.assert_close(got, ref.decode_attention(q_in, k, v, lens, causal=causal),
+                               **TOL[dtype])
+    assert ops.attn_forms == {"causal": int(causal), "ring": 0, "cross": int(not causal)}
 
 
 def _ring_pos(n: int, C: int, stale: int) -> np.ndarray:

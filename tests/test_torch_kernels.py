@@ -182,6 +182,32 @@ def test_decode_attention_block_matches_attend_step_mask(B, Tq, H, KV, hd, C):
     np.testing.assert_allclose(one.numpy(), out_t[:, -1].numpy(), atol=ATOL)
 
 
+@pytest.mark.parametrize("B,Tq,H,hd,F", [(2, 5, 4, 64, 24), (3, 1, 20, 64, 30),
+                                         (2, 5, 8, 32, 1500)])
+def test_noncausal_decode_attention_is_cross_attention(B, Tq, H, hd, F):
+    """The non-causal form over an encoder's K/V (lengths all F): every
+    query attends every frame, the reference's cross-attention
+    (``attend_full`` with a bidirectional mask, the blockwise path past its
+    threshold); lengths below F mask the slots past them for every query;
+    the ring form refuses it."""
+    rng = np.random.default_rng(B * F + Tq)
+    qj, qt = _pair(rng, B, Tq, H, hd)
+    kj, kt = _pair(rng, B, F, H, hd)
+    vj, vt = _pair(rng, B, F, H, hd)
+    full = torch.full((B,), F, dtype=torch.int32)
+    out = ops.decode_attention(qt, kt, vt, full, causal=False)
+    want = jl.attend_full(qj, kj, vj, jl.MaskSpec(bidirectional=True))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=ATOL)
+    lens = rng.integers(1, F + 1, size=B).astype(np.int32)
+    mask = np.broadcast_to(np.arange(F)[None, None, :] < lens[:, None, None], (B, Tq, F))
+    out = ops.decode_attention(qt, kt, vt, torch.from_numpy(lens), causal=False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jl.attend(qj, kj, vj, jnp.asarray(mask))),
+                               atol=ATOL)
+    with pytest.raises(ValueError, match="causal"):
+        ops.decode_attention(qt, kt, vt, full, pos=torch.zeros((B, F), dtype=torch.int32),
+                             causal=False)
+
+
 # ---------------------------------------------------------------------------
 # dispatch: plain path on the CPU, no fallback, no silent launches
 # ---------------------------------------------------------------------------

@@ -90,6 +90,32 @@ def test_attend_full(T, spec):
            tl.attend_full(qt, kt, vt, tl.MaskSpec(**spec)))
 
 
+def test_attend_full_rectangular_bidirectional_blockwise(monkeypatch):
+    """Tq != Tk (Whisper's cross-attention and its encoder prefill) through
+    the blockwise path, key padding included: the unmasked attend, as the
+    reference's tests/test_layers.py::test_flash_cross_attention_rect."""
+    rng = np.random.default_rng(50)
+    qj, qt = _pair(rng, 2, 50, 4, 16)
+    kj, kt = _pair(rng, 2, 23, 4, 16)
+    vj, vt = _pair(rng, 2, 23, 4, 16)
+    naive = jl.attend(qj, kj, vj, jnp.ones((50, 23), bool))
+    monkeypatch.setattr(tl, "_FLASH_THRESHOLD", 1)
+    spec = tl.MaskSpec(bidirectional=True)
+    _close(naive, tl.attend_full(qt, kt, vt, spec, q_chunk=16, k_chunk=16))
+    _close(naive, tl.attend_full(qt, kt, vt, spec))
+
+
+@pytest.mark.parametrize("num_pos,dim", [(24, 256), (64, 1280), (1, 8)])
+def test_sinusoidal_positions(num_pos, dim):
+    """Whisper's table, and its rows computed at given positions alone."""
+    want = jl.sinusoidal_positions(num_pos, dim)
+    got = tl.sinusoidal_positions(num_pos, dim)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (num_pos, dim)
+    _close(want, got)
+    pos = torch.tensor([[num_pos - 1, 0], [num_pos // 2, num_pos - 1]])
+    assert torch.equal(tl.sinusoidal_at(pos, dim), got[pos])
+
+
 @pytest.mark.parametrize("act,glu", [("silu", True), ("gelu", True), ("gelu", False)])
 def test_mlp(act, glu):
     rng = np.random.default_rng(2)

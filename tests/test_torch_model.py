@@ -2,10 +2,13 @@
 a verify step) against the JAX Model, for vicuna-7b-tiny (MHA),
 qwen3-0.6b-tiny (GQA, qk_norm, tied head), mamba2-370m-tiny (Mamba-2
 SSD blocks, tied head), recurrentgemma-9b-tiny (RG-LRU and a local ring),
-llama4-scout-17b-a16e-tiny (local rings, a global layer, MoE FFNs) and
-deepseek-v3-671b-tiny (MLA over latent caches, a dense layer then MoE), in
-float32.  Hiddens and logits within rtol 1e-5 / atol 2e-5, caches, ring
-positions (exactly) and SSM / RG-LRU candidate states likewise."""
+llama4-scout-17b-a16e-tiny (local rings, a global layer, MoE FFNs),
+deepseek-v3-671b-tiny (MLA over latent caches, a dense layer then MoE),
+whisper-large-v3-tiny (an encoder over stub frames, cross-attention) and
+paligemma-3b-tiny (stub patches in front of the tokens), in float32, the
+modality stubs drawn with numpy.  Hiddens and logits within rtol 1e-5 /
+atol 2e-5, caches, ring positions (exactly) and SSM / RG-LRU candidate
+states likewise."""
 import dataclasses
 
 import numpy as np
@@ -27,9 +30,10 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
 NAMES = ["vicuna-7b", "qwen3-0.6b", "mamba2-370m", "qwen3-1.7b", "qwen2.5-14b", "llama3-405b",
-         "recurrentgemma-9b", "llama4-scout-17b-a16e", "deepseek-v3-671b"]
+         "recurrentgemma-9b", "llama4-scout-17b-a16e", "deepseek-v3-671b", "whisper-large-v3",
+         "paligemma-3b"]
 RTOL, ATOL = 1e-5, 2e-5
-NORMS = ("ln1", "ln2", "final_norm", "qn", "kn", "norm_w", "q_ln", "kv_ln", "norm")
+NORMS = ("ln1", "ln2", "final_norm", "qn", "kn", "norm_w", "q_ln", "kv_ln", "norm", "ln_x")
 
 
 def _perturb_norms(tree, rng):
@@ -56,13 +60,31 @@ def _close(j, t, rtol=RTOL, atol=ATOL):
     np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), rtol=rtol, atol=atol)
 
 
+def _aux(cfg, B, seed=9):
+    """The modality stubs of an encoder or vision config, drawn with numpy,
+    for each package; (None, None) for a decoder alone."""
+    rng = np.random.default_rng(seed)
+    aux = {}
+    if cfg.encoder is not None:
+        aux["frame_embeds"] = rng.standard_normal(
+            (B, cfg.encoder.num_frames, cfg.encoder.d_model or cfg.d_model)).astype(np.float32)
+    if cfg.vision is not None:
+        aux["patch_embeds"] = rng.standard_normal(
+            (B, cfg.vision.num_patches, cfg.vision.d_embed)).astype(np.float32)
+    if not aux:
+        return None, None
+    return ({k: jnp.asarray(v) for k, v in aux.items()},
+            {k: torch.from_numpy(v) for k, v in aux.items()})
+
+
 @pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("tiny", [False, True])
 def test_config_copy_matches_reference(name, tiny):
     cj, ct = jax_get_config(name, tiny=tiny), get_config(name, tiny=tiny)
     for f in dataclasses.fields(ct):
         vj, vt = getattr(cj, f.name), getattr(ct, f.name)
-        if f.name == "dvi" or (f.name in ("ssm", "moe", "rglru", "mla") and vj is not None):
+        if f.name == "dvi" or (f.name in ("ssm", "moe", "rglru", "mla", "encoder", "vision")
+                               and vj is not None):
             assert dataclasses.asdict(vj) == dataclasses.asdict(vt), f.name
         else:
             assert vj == vt, f.name
@@ -73,10 +95,16 @@ def test_config_copy_matches_reference(name, tiny):
 
 
 def test_unported_architectures_raise():
+    """Only ``kv_quant`` is refused now; and, as in the reference, a paged
+    cache of a cross-attention config."""
     cfg = get_config("vicuna-7b", tiny=True)
-    for kw in (dict(kv_quant=True), dict(vision=object()), dict(encoder=object())):
-        with pytest.raises(NotImplementedError):
-            build_model(cfg.replace(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="kv_quant"):
+        build_model(cfg.replace(kv_quant=True), device="cpu")
+    for name in ("whisper-large-v3", "paligemma-3b"):
+        assert build_model(get_config(name), device="cpu").cfg.name == name
+    whisper = build_model(get_config("whisper-large-v3", tiny=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        whisper.init_paged_cache(2, 8, 16, 4)
 
 
 def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
@@ -180,10 +208,14 @@ def test_bf16_leaves_are_bit_exact():
 
 
 def _prefill(pair, B=2, T=7, C=40, seed=3):
+    """Prefill T tokens (behind a VLM's patches, whose P positions the
+    capacity C is counted past) on both sides."""
     cfg_j, model_j, params_j, cfg_t, model_t, params_t = pair
     tokens = np.random.default_rng(seed).integers(2, cfg_t.vocab_size, size=(B, T)).astype(np.int32)
-    h_j, cache_j, _ = model_j.prefill(params_j, jnp.asarray(tokens), max_len=C)
-    h_t, cache_t = model_t.prefill(params_t, torch.from_numpy(tokens), max_len=C)
+    aux_j, aux_t = _aux(cfg_t, B)
+    C += model_t.prefix_len()
+    h_j, cache_j, _ = model_j.prefill(params_j, jnp.asarray(tokens), aux_j, max_len=C)
+    h_t, cache_t = model_t.prefill(params_t, torch.from_numpy(tokens), aux_t, max_len=C)
     return tokens, h_j, cache_j, h_t, cache_t
 
 
@@ -227,9 +259,11 @@ def test_draft_step_and_verify_step(pair):
     # one draft feed: the pending token through layers [0, k)
     pend = tokens[:, -1:]
     h_j, cache_j, cands_j, _ = model_j.step(
-        params_j, model_j.embed_block(params_j, jnp.asarray(pend)), cache_j, 0, k)
+        params_j, model_j.embed_block(params_j, jnp.asarray(pend), cache_j["lengths"]),
+        cache_j, 0, k)
     h_t, cache_t, cands_t = model_t.step(
-        params_t, model_t.embed_block(params_t, torch.from_numpy(pend)), cache_t, 0, k)
+        params_t, model_t.embed_block(params_t, torch.from_numpy(pend), cache_t["lengths"]),
+        cache_t, 0, k)
     _close(h_j, h_t)
     _close_cands(cands_j, cands_t)
     _close_cache(cache_j, cache_t, shallow)

@@ -410,9 +410,11 @@ def test_dense_train_losses_match(setup, mode):
         close(mt[k], mj[k], k, atol=1e-5)
     for k in ("A", "B"):
         close(dvi_t[k].grad, gj[k], f"d{k}", atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tlosses.dense_train_losses(setup["model_t"], setup["params_t"], dvi_t,
-                                   torch.tensor(tokens), 0, 0.0, aux_inputs={})
+    # a decoder alone ignores aux inputs, as the reference does
+    la, _ = tlosses.dense_train_losses(setup["model_t"], setup["params_t"], dvi_t,
+                                       torch.tensor(tokens), 350, torch.tensor(0.2), mode,
+                                       aux_inputs={})
+    assert float(la) == float(lt)
 
 
 def test_online_loop_three_batches_match(setup, monkeypatch):
