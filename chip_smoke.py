@@ -11,8 +11,10 @@ HTTP front end and the launchers, the paper's baselines (Medusa-lite on
 vicuna-7b, two-model SpS on the qwen3 pair) with qwen2.5-14b's DVI, and the
 hybrid and MoE decoders (recurrentgemma-9b, llama4-scout-17b-a16e),
 DeepSeek-V3's multi-head latent attention with its MTP head
-(deepseek-v3-671b), and whisper-large-v3's encoder with cross-attention and
-paligemma-3b's patch prefix, through ``aux_inputs``.
+(deepseek-v3-671b), whisper-large-v3's encoder with cross-attention and
+paligemma-3b's patch prefix, through ``aux_inputs``, and the int8 KV cache
+(``kv_quant``) on vicuna-7b and recurrentgemma-9b, with the port's last two
+examples.
 
     python3 chip_smoke.py
 
@@ -71,6 +73,16 @@ Phases (any failure raises and exits non-zero):
    and qwen2.5-14b's (d 5120, V 152064) at T 8 and 40, ``lora_logits`` at
    qwen2.5-14b's draft head (T 8), and ``decode_attention`` at qwen3's G 2
    (Tq 1, 4, 5) and qwen2.5-14b's G 5 (Tq 1, 5), each checked and timed;
+   for phase 19, the int8 forms of the attention kernels (int8 K/V with
+   one float32 scale a slot and kv head, slot 0 of lane 0 all zeros): the
+   causal form at vicuna's verify pass and draft feed, the ring form at
+   recurrentgemma's local layers (wrapped lanes), the paged form at phase
+   8's pool with and without page counts, both forms at a chunk step's
+   shapes (Tq 32 and 128 at G 1, 64 at G 2; contiguous and paged) and the
+   paged form at the prefix cache's warm tails (Tq 32 from offsets on a
+   page border and inside a page), every launch counted as int8
+   (``ops.attn_kv``), each timed with its bound at hd + 4 bytes a slot and
+   kv head and SDPA over the dequantised bf16 view (not timed);
 4. the sync path: vicuna-7b at full width and depth in bf16, random weights
    drawn on the card from a seed, a sync ``ServingEngine`` (drafter frozen,
    ``learn=False``, as in phases 8 and 9) answering 8
@@ -91,7 +103,7 @@ Phases (any failure raises and exits non-zero):
    synchronises with the device (sync debug mode "error"); it reports the
    synchronising operations per tick; the profile gives the paged
    and vocab kernels' device time a launch beside phase 3's;
-9. mamba2-370m at full width and depth (48 layers) in bf16, random weights
+9. mamba2-370m at full width cut to M_LAYERS of its 48 layers in bf16, random weights
    drawn on the card from a seed: a sync ``ServingEngine`` answering 8
    requests (prompts of 64-128 tokens, left-padded to their bucket, 32 new
    tokens each), then a continuous one over the contiguous layout (8
@@ -173,7 +185,7 @@ Phases (any failure raises and exits non-zero):
    requests, graphed and eagerly; (b) phase 8's tight pool size, swung
    down until a lane is preempted, counting the victims caught
    mid-prefill; (d) the ample pool with ``learn=True`` and ``adaptive_k``
-   (graphed); (c, after phase 9) mamba2-370m at 48 layers on the
+   (graphed); (c, after phase 9) mamba2-370m at M_LAYERS on the
    contiguous engine (graphed).  Gates: graphed == eager bit for bit (a);
    every completion == ``ar_generate`` on its exact prompt or the near-tie
    rule (a; b and d through the equal completions of a and of phase 8,
@@ -256,16 +268,16 @@ Phases (any failure raises and exits non-zero):
    the float32 witness, ``llama4_witness``: the same engine, graphed, at 4
    layers in float32, every completion == float32 AR or a float32
    near-tie), launches exact (recurrentgemma 12 ring ``decode_attention``,
-   5 ``lora_logits``, 1 ``verify_argmax`` a block; llama4 at 8 layers
-   2 (K+1) + 4 ring, 2 ``paged_decode_attention``, 5, 1), each graph's
+   5 ``lora_logits``, 1 ``verify_argmax`` a block; llama4 at L4_LAYERS = 4
+   layers 2 (K+1) + 1 ring, 1 ``paged_decode_attention``, 5, 1), each graph's
    nodes == its capture's launches, 0 syncs in a dispatch and host syncs
    == dispatches; phase 3 holds the ring form at both configs' shapes
    (wrapped, stale writes) and the vocab pair at V 256000 / d 4096 and
    V 202048 / d 5120;
 17. DeepSeek-V3's MLA and MTP head, weights drawn on the card (seed 0):
    (a) deepseek-v3-671b at full width cut to DS_LAYERS of its 61 layers (3
-   dense, then 2 MoE of 256 experts, top 8, and a shared one; a third MoE
-   layer's 22.5 GB does not fit one card), bf16, through the sync engine
+   dense, then 1 MoE of 256 experts, top 8, and a shared one; at most 2 MoE
+   layers of 22.5 GB fit one card), bf16, through the sync engine
    (phase 4's requests, the graphed run profiled with its records gate)
    and the contiguous continuous engine (phase 8's requests; MLA has no
    paged cache), eagerly and graphed, and ``mtp_logits`` once on the sync
@@ -303,6 +315,41 @@ Phases (any failure raises and exits non-zero):
    host ms and peak memory; phase 3 holds decode_attention at both
    models' widths (Tq 1 and 5), its non-causal form over 1500 frames, and
    the vocab pair at d 1280 / V 51866 and d 2048 / V 257216;
+19. the int8 KV cache (``cfg.replace(kv_quant=True)``, the same weights):
+   (a, after 15c on phase 4's vicuna-7b weights) the sync engine on phase
+   4's requests, eagerly and graphed (the graphed run profiled with its
+   records gate), a graphed ``GenerateRunner`` block-step under sync debug
+   mode "error" on them padded to 128 (== ``speculative_generate`` bit for
+   bit), the continuous engine over phase 8's ample pool on its 16
+   requests (graphed, one-shot admission, profiled), and the first 2 of
+   phase 14a's waves through a warm (prefix cache, chunks of 32), a cold
+   chunked and a one-shot int8 engine; (b, inside phase 16 on its
+   recurrentgemma-9b weights) the sync engine, graphed, on phase 4's
+   requests and the R_LONG lanes past the ring, then its float32 witness
+   (R_WIT_LAYERS layers, the same engine and lanes); (c, after 18)
+   ``examples/torch_multi_arch.py`` and ``examples/torch_train_100m.py
+   --steps 60 --dvi-prompts 80`` in processes of their own.  Gates:
+   graphed == eager (a, sync); each completion == the int8 model's
+   ``ar_generate`` or the near-tie rule under its own one-token steps; the
+   warm completions == the cold chunked ones or a near-tie, hits and a
+   copy on write; each cold chunked completion == the one-shot int8 one
+   or first different at a near-tie of int8 AR, any other held by a
+   float32 witness that runs every time (vicuna at V_WIT_LAYERS layers
+   through the same cold engine, each completion == the chunked function
+   outside the engine, ``ar_at_engine_rows`` over a contiguous cache, or a
+   float32 near-tie);
+   recurrentgemma's float32 witness: each lane == float32 int8 AR or a
+   float32 near-tie; the hidden-state drift of the reference test under
+   its bound 0.05; launches exact (40 / 0 / 5 / 1, 0 / 40 / 5 / 1 and the
+   chunked formula, 12 / 0 / 5 / 1) with every attention launch int8
+   (``ops.attn_kv``); nodes == launches; 0 syncs in a block-step and a
+   dispatch, host syncs == dispatches; the caches' bytes within 1 % of
+   (hd + 4) / (2 hd) of the bf16 ones at the same shapes (vicuna's sync
+   cache and pool 0.516, recurrentgemma's rings 0.508); both examples exit
+   0 with every ``lossless=True``.  It reports wall and device ms a
+   block-step, nodes, busy share and peak beside phases 4 and 8, the
+   hidden-state drift, and the completions equal to
+   the bf16 ones and (chunked) to the one-shot int8 ones;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Phases 4, 8 and 9 run every path twice: eagerly (``graphs=False``) and
@@ -376,7 +423,7 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4   # atol x the gradient's largest entry
 # the mamba2 paths (phase 9): the sync path's 8 requests and the continuous
 # path's 16, as for vicuna; the continuous cache is contiguous; phases 9 and
 # 13c cut mamba2-370m to M_LAYERS of its 48 layers (the script's time limit)
-M_NAME, M_LAYERS = "mamba2-370m", 24
+M_NAME, M_LAYERS = "mamba2-370m", 8
 # the training path (phase 11): mamba2-370m pretraining, B 8 x T 256 at the
 # reference launcher's lr, 40 steps (each batch one task category, in turn:
 # at this depth each step overshoots toward its batch's category, so the
@@ -437,7 +484,8 @@ Q_ATTN, Q_KV = ((1, 16), (4, 16), (5, 16), (1, 40), (5, 40)), 8
 M_HEADS, M_STEPS, M_B, M_T, M_LR, M_MAT = 3, 8, 8, 256, 1e-3, 1.9
 # the hybrid and MoE decoders (phase 16): recurrentgemma-9b at full width and
 # depth, llama4-scout-17b-a16e at full width cut to L4_LAYERS of its 48
-# layers (each 4.4 GB in bf16: all 48 do not fit one card); phase 3 checks
+# layers (each 4.4 GB in bf16: all 48 do not fit one card; 8 are two
+# (local x 3, attn) periods, so two paged layers); phase 3 checks
 # their ring attention and vocab heads (tags "rg" and "l4"); the sync run of
 # long prompts: R_LONG lanes of prompts longer than recurrentgemma's ring
 # (2176 slots), padded to the engine's one bucket R_BUCKET, so the prefill
@@ -449,12 +497,12 @@ L4_WIT_LAYERS = 4
 R_LONG, R_BUCKET = 2, 2400
 R_LONG_PROMPTS = (2200, 2400)
 # DeepSeek-V3 (phase 17): deepseek-v3-671b at full width cut to DS_LAYERS of
-# its 61 layers, 3 dense and 2 MoE (26.6 B parameters and 0.69 B of MTP head,
-# 54.6 GB in bf16: one MoE layer's routed experts alone are 22.5 GB, so a
-# third does not fit one card); its float32 witness at DS_WIT_LAYERS layers,
+# its 61 layers, 3 dense and 1 MoE (one MoE layer's routed experts alone are
+# 22.5 GB in bf16, so a third would not fit one card; a second fits, but the
+# script's time limit keeps one); its float32 witness at DS_WIT_LAYERS layers,
 # 3 dense and 1 MoE without the MTP head (15.1 B parameters, 60.4 GB); phase
 # 3 checks its vocab heads (tag "ds": d 7168, V 129280)
-DS_NAME, DS_LAYERS, DS_WIT_LAYERS = "deepseek-v3-671b", 5, 4
+DS_NAME, DS_LAYERS, DS_WIT_LAYERS = "deepseek-v3-671b", 4, 4
 # Whisper and PaliGemma (phase 18): whisper-large-v3 (32 encoder and 32
 # decoder layers, 1500 stub frames of 1280) and paligemma-3b (18 layers, 256
 # stub patches of 1152) at full width and depth in bf16, weights and stubs
@@ -466,6 +514,18 @@ DS_NAME, DS_LAYERS, DS_WIT_LAYERS = "deepseek-v3-671b", 5, 4
 W_NAME, PG_NAME = "whisper-large-v3", "paligemma-3b"
 AUX_CAP = B_TP + MAX_NEW + 4 + 2 + 128
 AUX_TRAIN_B, AUX_TRAIN_T = 4, 128
+# the int8 KV cache (phase 19): the chunked prefix-cache run serves the
+# first Q_WAVES of phase 14a's waves, Q_NEW new tokens a request (the
+# script's time limit)
+Q_WAVES, Q_NEW = 2, 16
+# layers of the float32 engine that witnesses the cold chunked int8
+# completions (``int8_chunk_witness``) and of the one that witnesses
+# recurrentgemma's int8 lanes (``rg_int8_witness``: two (rglru, rglru, local)
+# periods, so two ring layers)
+V_WIT_LAYERS, R_WIT_LAYERS = 8, 6
+# the int8 cache's drift from bf16 (``int8_hidden_drift``) stays under the
+# bound of the reference's tests/test_kv_quant.py
+INT8_DRIFT = 0.05
 
 
 def phase(n: int, msg: str) -> None:
@@ -825,16 +885,18 @@ def cross_bound(args) -> tuple:
                  4 * hd * F * Tq * H * B / BF16_FLOP_PER_S)
 
 
-def attn_bound(q, lengths, cap, KV, hd) -> tuple:
+def attn_bound(q, lengths, cap, KV, hd, row_bytes=None) -> tuple:
     """The least time of one contiguous attention call: q read and the
     output written once, each lane's live K and V rows read once, the
-    lengths; QK^T and P.V over the slots each query sees, at the bf16 rate."""
+    lengths; QK^T and P.V over the slots each query sees, at the bf16 rate.
+    `row_bytes`: the bytes of one slot's K (or V) row of a kv head, 2 hd in
+    bf16 by default; the int8 cache's hd + 4 (values and the scale)."""
     B, H = q.shape[0], q.shape[-2]
     Tq = q.shape[1] if q.ndim == 4 else 1
     live = sum(min(int(n), cap) for n in lengths)
     row_live = sum(max(0, min(int(n) - (Tq - 1 - t), cap)) for n in lengths
                    for t in range(Tq)) * H
-    return bound(q.numel() * 2 * 2 + live * KV * hd * 2 * 2 + B * 4,
+    return bound(q.numel() * 2 * 2 + live * KV * (row_bytes or 2 * hd) * 2 + B * 4,
                  4 * hd * row_live / BF16_FLOP_PER_S)
 
 
@@ -898,18 +960,18 @@ def check_ring(ops, ref, gen, B, Tq, H, KV, hd, W, lengths, label, stale: int = 
     return (q_in, k, v, lens, pos, W), err
 
 
-def ring_bound(args) -> tuple:
+def ring_bound(args, row_bytes=None) -> tuple:
     """The least time of one ring call: q read and the output written once,
     each lane's live K and V rows (its first min(n, C) slots) and their
     positions read once, the lengths; QK^T and P.V over the slots each
-    query sees, at the bf16 rate."""
-    q, k, v, lens, pos, W = args
+    query sees, at the bf16 rate.  `row_bytes` as in ``attn_bound``."""
+    q, k, v, lens, pos, W = args[:6]
     B, C, KV, hd = k.shape
     H = q.shape[-2]
     Tq = q.shape[1] if q.ndim == 4 else 1
     live = sum(min(int(n), C) for n in lens.tolist())
     seen = int(ring_visible(pos, lens, Tq, W).sum()) * H
-    return bound(q.numel() * 2 * 2 + live * (KV * hd * 2 * 2 + 4) + B * 4,
+    return bound(q.numel() * 2 * 2 + live * (KV * (row_bytes or 2 * hd) * 2 + 4) + B * 4,
                  4 * hd * seen / BF16_FLOP_PER_S)
 
 
@@ -1016,18 +1078,19 @@ def check_paged_counts(ops, ref, gen, rng, B, Tq, H, KV, hd, ps, mps, lengths, l
           f"paged_decode_attention page_counts {label} failed")
 
 
-def paged_bound(q, tbl, lengths, ps, KV, hd) -> tuple:
+def paged_bound(q, tbl, lengths, ps, KV, hd, row_bytes=None) -> tuple:
     """The least time of one paged attention call: q and the output once,
     each lane's live mapped K and V rows once, the lengths and the table
     entries of its live pages; QK^T and P.V over the mapped slots each query
-    sees, at the bf16 rate."""
+    sees, at the bf16 rate.  `row_bytes` as in ``attn_bound``."""
     B, H = q.shape[0], q.shape[-2]
     Tq = q.shape[1] if q.ndim == 4 else 1
     mps = tbl.shape[1]
     seen = paged_live_slots(tbl, lengths, ps, Tq)
     n_pages = sum(min(-(-int(n) // ps), mps) for n in lengths)
-    return bound(q.numel() * 2 * 2 + sum(max(row) for row in seen) * KV * hd * 2 * 2 + B * 4
-                 + n_pages * 4, 4 * hd * H * sum(sum(row) for row in seen) / BF16_FLOP_PER_S)
+    return bound(q.numel() * 2 * 2 + sum(max(row) for row in seen) * KV * (row_bytes or 2 * hd)
+                 * 2 + B * 4 + n_pages * 4,
+                 4 * hd * H * sum(sum(row) for row in seen) / BF16_FLOP_PER_S)
 
 
 def paged_sdpa_inputs(q, kp, vp, lens, tbl_t):
@@ -1041,6 +1104,97 @@ def paged_sdpa_inputs(q, kp, vp, lens, tbl_t):
     sq, sk, sv, smask = sdpa_inputs(q4, kp.reshape(P * ps, KV, hd)[phys],
                                     vp.reshape(P * ps, KV, hd)[phys], lens)
     return sq, sk, sv, smask & (tbl_t[:, jj // ps] >= 0)[:, None, None, :]
+
+
+def int8_kv(gen, shape):
+    """bf16 K or V of `shape` (..., KV, hd) quantised as the int8 KV cache
+    holds them (``kv_quantize``), slot 0 of lane (or page) 0 all zeros, its
+    scale at the 1e-6 floor: (int8 values, float32 scales)."""
+    from repro_torch.models.layers import kv_quantize
+    x = torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
+    x[0, 0] = 0
+    return kv_quantize(x)
+
+
+def check_int8(ops, ref, fn: str, label: str, q, k, v, ks, vs, args, kw, visible):
+    """One int8 form (``fn``: decode_attention, or paged_decode_attention;
+    `args` after q, k, v, `kw` besides) against its plain version, which
+    dequantises to bf16 first: the rows that see a slot within ``TOL``, the
+    others exactly 0; the launch counted once, as int8.  Returns the max
+    abs error."""
+    ops.reset_launches()
+    out = getattr(ops, fn)(q, k, v, *args, k_scale=ks, v_scale=vs, **kw)
+    plain = getattr(ref, fn)(q, k, v, *args, k_scale=ks, v_scale=vs, **kw)
+    err, ok = close_visible(fn, out, plain, visible)
+    kv = dict(ops.attn_kv)
+    atol, rtol = TOL[fn]
+    phase(3, f"{fn} int8 {label}: int8 K/V with float32 scales, a zero slot at the 1e-6 floor: "
+             f"max abs err {err:.3e} on {int(visible.sum())} of {visible.size} queries that see "
+             f"a slot (atol {atol} rtol {rtol}), the others exactly 0; launches by storage "
+             f"{kv}: ok={ok}")
+    check(ok and kv == {"model": 0, "int8": 1} and ops.launches[fn] == 1,
+          f"{fn} int8 {label} disagrees with its plain version")
+    return err
+
+
+def int8_causal_case(ops, ref, gen, B, Tq, H, KV, hd, cap, lens, label):
+    """The causal form over an int8 contiguous cache of `cap` slots at
+    post-write `lens`, checked by ``check_int8``: a case for ``int8_timing``."""
+    q = torch.randn((B, Tq, H, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    q = q[:, 0].contiguous() if Tq == 1 else q
+    (k, ks), (v, vs) = int8_kv(gen, (B, cap, KV, hd)), int8_kv(gen, (B, cap, KV, hd))
+    lens_t = torch.as_tensor(np.asarray(lens), dtype=torch.int32, device=DEV)
+    visible = np.array([[min(int(n) - (Tq - 1 - t), cap) > 0 for t in range(Tq)] for n in lens])
+    err = check_int8(ops, ref, "decode_attention", label, q, k, v, ks, vs, (lens_t,), {},
+                     visible)
+    return ("causal", (q, k, v, lens_t), ks, vs, lens, err)
+
+
+def int8_paged_case(ops, ref, gen, rng, B, Tq, H, KV, hd, mps, lens, label, holes=()):
+    """The paged form over int8 pages of C_PAGE slots (lane 0's first page
+    the one holding the zero slot) at post-write `lens`, checked by
+    ``check_int8``: a case for ``int8_timing``."""
+    tbl, P = paged_tables(rng, lens, C_PAGE, mps, holes=holes)
+    tbl[0, 0] = 0
+    tbl_t = torch.as_tensor(tbl, device=DEV)
+    q = torch.randn((B, Tq, H, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    q = q[:, 0].contiguous() if Tq == 1 else q
+    (k, ks), (v, vs) = int8_kv(gen, (P, C_PAGE, KV, hd)), int8_kv(gen, (P, C_PAGE, KV, hd))
+    lens_t = torch.as_tensor(np.asarray(lens), dtype=torch.int32, device=DEV)
+    visible = np.array(paged_live_slots(tbl, lens, C_PAGE, Tq)) > 0
+    err = check_int8(ops, ref, "paged_decode_attention", label, q, k, v, ks, vs,
+                     (lens_t, tbl_t), {}, visible)
+    return ("paged", (q, k, v, lens_t, tbl_t, tbl), ks, vs, lens, err)
+
+
+def int8_chunk_cases(ops, ref, B, H, KV, hd, cap, mps) -> tuple:
+    """The int8 forms at chunked prefill's chunk step (phase 19a's cold and
+    warm engines), from a generator of their own: CHUNK_ATTN's (Tq, H, KV)
+    over a contiguous cache of `cap` slots and over the pool, post-write
+    lengths in [Tq, capacity]; then the prefix cache's warm tails, a chunk
+    step of Tq = P_CHUNK whose lanes start at the cached WARM_STARTS, on a
+    page border (16 n) or inside a page copied on write (16 n + c).
+    Returns (contiguous cases, paged cases) by row key."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 20)
+    rng = np.random.RandomState(SEED + 20)
+    causal, paged = {}, {}
+    for Tq, Hc, KVc in CHUNK_ATTN:
+        key = f"at_int8_chunk_tq{Tq}" + ("" if Hc == KVc else f"_g{Hc // KVc}")
+        label = f"prefill chunk Tq={Tq} G={Hc // KVc}"
+        causal[key] = int8_causal_case(ops, ref, gen, B, Tq, Hc, KVc, hd, cap,
+                                       list(rng.randint(Tq, cap + 1, size=B)), label)
+        paged[key] = int8_paged_case(ops, ref, gen, rng, B, Tq, Hc, KVc, hd, mps,
+                                     list(rng.randint(Tq, mps * C_PAGE + 1, size=B)), label)
+    paged[f"at_int8_warm_tq{P_CHUNK}"] = int8_paged_case(
+        ops, ref, gen, rng, B, P_CHUNK, H, KV, hd, mps, [w + P_CHUNK for w in WARM_STARTS],
+        f"prefix-cache warm tails Tq={P_CHUNK}")
+    return causal, paged
+
+
+def int8_dequantized(k, ks, v, vs):
+    """The int8 cache's bf16 view (not timed): SDPA's K and V."""
+    from repro_torch.models.layers import kv_dequantize
+    return kv_dequantize(k, ks, torch.bfloat16), kv_dequantize(v, vs, torch.bfloat16)
 
 
 def ssd_inputs(gen, B, T, H, hd, ds, pad_rows=0):
@@ -1374,6 +1528,50 @@ def kernels_phase(cfg, mcfg):
         cross_cases[f"at_cross_tq{Tq}"], _ = check_cross(ops, ref, agen18, B, Tq, wcfg.num_heads,
                                                          wcfg.resolved_head_dim, F,
                                                          f"whisper Tq={Tq} (phase 18)")
+    # the int8 KV cache (phase 19), from generators of their own: the causal
+    # form at vicuna's verify pass and draft feed (phase 4's shape), the ring
+    # form at recurrentgemma's local layers (MQA hd 256, G 16, C 2176, lanes
+    # short of the ring and wrapped past it, stale writes), the paged form at
+    # phase 8's pool (pages of 16) with and without page counts; slot 0 of
+    # lane (or page) 0 all zeros
+    igen = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    irng = np.random.RandomState(SEED + 19)
+    int8_cases = {}
+    for Tq, lens_q in ((K + 1, main_lens), (1, feed_lens)):
+        int8_cases[f"at_int8_tq{Tq}"] = int8_causal_case(ops, ref, igen, B, Tq, H, KV, hd, cap,
+                                                         lens_q, f"causal Tq={Tq} (vicuna)")
+    rcfg = hybrids[0][1]
+    W_r, C_r = rcfg.local_window, rcfg.local_window + 128
+    r_lens = list(irng.randint(64 + K + 1, 128 + MAX_NEW + K + 1, size=B - 3)) + list(
+        irng.randint(C_r + 1, C_r + 300, size=2)) + [C_r - 2]
+    for Tq in (K + 1, 1):
+        q_i = torch.randn((B, Tq, rcfg.num_heads, rcfg.resolved_head_dim), generator=igen,
+                          device=DEV).to(torch.bfloat16)
+        q_i = q_i[:, 0].contiguous() if Tq == 1 else q_i
+        shape = (B, C_r, rcfg.num_kv_heads, rcfg.resolved_head_dim)
+        (k_i, ks_i), (v_i, vs_i) = int8_kv(igen, shape), int8_kv(igen, shape)
+        lens_t = torch.as_tensor(np.asarray(r_lens), dtype=torch.int32, device=DEV)
+        pos_i = torch.as_tensor(np.stack([ring_pos(int(n), C_r, 3) for n in r_lens]), device=DEV)
+        visible = ring_visible(pos_i, lens_t, Tq, W_r).any(dim=2).cpu().numpy()
+        err = check_int8(ops, ref, "decode_attention", f"ring Tq={Tq} (recurrentgemma, "
+                         f"{sum(int(n) > C_r for n in r_lens)} lanes wrapped)", q_i, k_i, v_i,
+                         ks_i, vs_i, (lens_t,), dict(pos=pos_i, window=W_r), visible)
+        int8_cases[f"at_int8_ring_rg_tq{Tq}"] = ("ring", (q_i, k_i, v_i, lens_t, pos_i, W_r), ks_i,
+                                                 vs_i, r_lens, err)
+    int8_paged = {}
+    for Tq, lens_q in ((K + 1, paged_lens), (1, paged_feed_lens)):
+        case = int8_paged_case(ops, ref, igen, irng, B, Tq, H, KV, hd, mps, lens_q,
+                               f"Tq={Tq} (phase 8's pool)", holes=((1, 2),))
+        q_i, k_i, v_i, lens_t, tbl_t, _ = case[1]
+        need = [-(-int(n) // C_PAGE) for n in lens_q]
+        pc = torch.as_tensor(np.asarray([(max(1, need[b] // 2), 0, mps + 3, need[b])[b % 4]
+                                         for b in range(B)], np.int32), device=DEV)
+        check_int8(ops, ref, "paged_decode_attention", f"Tq={Tq} with page_counts", q_i, k_i, v_i,
+                   case[2], case[3], (lens_t, tbl_t), dict(page_counts=pc),
+                   np.ones((B, Tq), bool))
+        int8_paged[f"at_int8_tq{Tq}"] = case
+    # chunked prefill's and the prefix cache's chunk steps over int8 (19a)
+    int8_chunk, int8_chunk_paged = int8_chunk_cases(ops, ref, B, H, KV, hd, cap, mps)
     # the mamba2 paths: the tied vocab (not a multiple of 64 columns) and the
     # scan at the prefill shapes of both schedulers
     md, mV, mK = mcfg.d_model, mcfg.vocab_size, mcfg.dvi.k_spec
@@ -1446,6 +1644,40 @@ def kernels_phase(cfg, mcfg):
                       lambda: ref.paged_decode_attention(q, kp, vp, lens, tbl_t),
                       paged_bound(q, tbl, lengths, C_PAGE, kv, hd),
                       library=lambda: sdpa(sq, sk, sv, attn_mask=smask))
+
+    # the int8 forms: bound at hd + 4 bytes a slot and kv head for K (and V);
+    # SDPA over the dequantised bf16 view (the dequantise not timed)
+    def int8_timing(case):
+        form, args, ks, vs, lengths, err = case
+        q, k, v, lens = args[:4]
+        kd, vd = int8_dequantized(k, ks, v, vs)
+        hd_i, kv_i = k.shape[3], k.shape[2]
+        if form == "paged":
+            tbl_t, tbl = args[4], args[5]
+            sq, sk, sv, smask = paged_sdpa_inputs(q, kd, vd, lens, tbl_t)
+            return dict(timing(lambda: ops.paged_decode_attention(q, k, v, lens, tbl_t,
+                                                                  k_scale=ks, v_scale=vs),
+                               lambda: ref.paged_decode_attention(q, k, v, lens, tbl_t,
+                                                                  k_scale=ks, v_scale=vs),
+                               paged_bound(q, tbl, lengths, C_PAGE, kv_i, hd_i, hd_i + 4),
+                               library=lambda: sdpa(sq, sk, sv, attn_mask=smask)),
+                        max_abs_err=err)
+        if form == "ring":
+            pos, W = args[4], args[5]
+            sq, sk, sv, smask = ring_sdpa_inputs((q, kd, vd, lens, pos, W))
+            return dict(timing(lambda: ops.decode_attention(q, k, v, lens, pos=pos, window=W,
+                                                            k_scale=ks, v_scale=vs),
+                               lambda: ref.decode_attention(q, k, v, lens, pos=pos, window=W,
+                                                            k_scale=ks, v_scale=vs),
+                               ring_bound(args, hd_i + 4),
+                               library=lambda: sdpa(sq, sk, sv, attn_mask=smask)),
+                        max_abs_err=err)
+        sq, sk, sv, smask = sdpa_inputs(q if q.ndim == 4 else q[:, None], kd, vd, lens)
+        return dict(timing(lambda: ops.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs),
+                           lambda: ref.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs),
+                           attn_bound(q, lengths, k.shape[1], kv_i, hd_i, hd_i + 4),
+                           library=lambda: sdpa(sq, sk, sv, attn_mask=smask)),
+                    max_abs_err=err)
 
     def ssd_timing(args):
         xh, Bc, Cc, dt, A, Q, h0 = args
@@ -1562,7 +1794,14 @@ def kernels_phase(cfg, mcfg):
              # cross-attention, the non-causal form (phase 18)
              **{key: attn_timing(c[0], c[1], kv=c[3], cap=c[2], hd=c[4])
                 for key, c in aux_attn.items()},
-             **{key: cross_timing(args) for key, args in cross_cases.items()}),
+             **{key: cross_timing(args) for key, args in cross_cases.items()},
+             # the int8 KV cache (phase 19): the causal form at vicuna's
+             # widths and the ring form at recurrentgemma's
+             **{key: int8_timing(case) for key, case in int8_cases.items()},
+             # and at the chunk step over int8 (phase 19a)
+             **{key: int8_timing(case) for key, case in int8_chunk.items()},
+             library_note="SDPA with a bool mask; over the int8 cache's dequantised bf16 "
+                          "view, the dequantise not timed"),
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/csrc/paged_decode_attention.cu",
              replaces="src/repro/kernels/paged_decode_attention.py:127", max_abs_err=err_p,
@@ -1571,7 +1810,11 @@ def kernels_phase(cfg, mcfg):
              at_verify_tq2=paged_timing(adapt[2][2], adapt[2][3]),
              at_verify_tq3=paged_timing(adapt[3][2], adapt[3][3]),
              **{key: paged_timing(c[2], c[3], kv=c[4]) for key, c in chunk_cases.items()},
-             library_note="SDPA over the pre-gathered contiguous view; gather not timed"),
+             # the int8 KV cache's pool (phase 19)
+             **{key: int8_timing(case) for key, case in int8_paged.items()},
+             **{key: int8_timing(case) for key, case in int8_chunk_paged.items()},
+             library_note="SDPA over the pre-gathered contiguous view; gather not timed (for "
+                          "int8 pages: over their dequantised bf16 view, not timed either)"),
         # the scan at the sync path's prefill, with a B = 1 admission of the
         # continuous path and a first-chunk admission of the chunked one
         # beside it; no single PyTorch call scans
@@ -1961,9 +2204,11 @@ def check_against_ar(model, params, spec, reqs, comps, label, n_phase=8, alone=F
                   f"{label}: request {r.uid} stops at {len(got)}, AR at {len(stream)}")
             prefix = torch.as_tensor(np.concatenate([r.prompt, stream[:p]]).astype(np.int64),
                                      device=DEV)[None]
-            # an MoE stack's AR logits come from its dropless decode steps
+            # an MoE stack's AR logits come from its dropless decode steps,
+            # an int8 cache's from its one-token steps (they read the
+            # dequantised cache; a one-shot prefill attends in full precision)
             t1, t2 = (top2_gap(model, params, prefix, len(r.prompt), r.max_new)
-                      if model.cfg.moe is not None and alone else
+                      if (model.cfg.moe is not None and alone) or model.cfg.kv_quant else
                       top2_gap(model, params, prefix))
             phase(n_phase, f"{label}: request {r.uid} first differs from AR at generated token "
                      f"{p}, AR top-2 logits {t1:.4f} / {t2:.4f}, gap {t1 - t2:.4e}")
@@ -2021,7 +2266,8 @@ def finish_run(eng, n, label, comps, wall, g0, prefills=None) -> dict:
     check_fast_loader(ops, n, label)
     g, st = eng.graph_stats(), eng.stats
     return dict(eng=eng, comps=comps, wall=wall, launches=dict(ops.launches),
-                steps=st["steps"], blocks=st["blocks"], committed=st["committed"],
+                attn_kv=dict(ops.attn_kv), steps=st["steps"], blocks=st["blocks"],
+                committed=st["committed"],
                 drafted=st["drafted"], dispatches=st["dispatches"], host_syncs=st["host_syncs"],
                 peak=torch.cuda.max_memory_allocated(),
                 peak_reserved=torch.cuda.max_memory_reserved(),
@@ -2046,11 +2292,12 @@ def frozen(model, dvi):
 
 
 def sync_run(model, params, dvi, reqs, graphs_on: bool, n: int, label: str,
-             prefills=None, state=None, **kw) -> dict:
+             prefills=None, state=None, guard: bool = False, **kw) -> dict:
     """A sync engine with graphs on or off: its graphs captured for the
-    requests' buckets (``warmup``) and one warm-up batch, then `reqs` timed.
-    The drafter `dvi` is frozen, unless a learning trainer `state` is given
-    (with ``learn=True`` in `kw`)."""
+    requests' buckets (``warmup``) and one warm-up batch, then `reqs` timed,
+    with `guard` every replay of a block-step graph under sync debug mode
+    "error" (``guard_syncs``).  The drafter `dvi` is frozen, unless a
+    learning trainer `state` is given (with ``learn=True`` in `kw`)."""
     from repro_torch.serving.engine import ServingEngine
     kw = dict(dict(learn=False, batch_size=N_REQUESTS), **kw)
     eng = ServingEngine(model, params, state or frozen(model, dvi), max_new=MAX_NEW,
@@ -2059,6 +2306,9 @@ def sync_run(model, params, dvi, reqs, graphs_on: bool, n: int, label: str,
     eng.submit_request(reqs[0])                  # warm-up batch, not counted
     eng.run()
     eng.reset_stats()
+    if guard and graphs_on:
+        for step in eng._runner.all_steps():
+            guard_syncs(step)
     for r in reqs:
         eng.submit_request(r)
     reset_counts(prefills)
@@ -2177,7 +2427,8 @@ def report_modes(n: int, label: str, runs: dict) -> None:
         steps, g, p = max(r["steps"], 1), r["graph"], r["profile"]
         if p is None:
             dev = "device busy not profiled"
-            host = "every kernel launched from the host"
+            host = ("every kernel launched from the host" if mode == "eager" else
+                    f"{r['replays'] / steps:.3f} graph replays ({r['replays']} in the run)")
         else:
             dev = (f"device busy {100 * p['busy']:.1f}% ({p['device_ms']:.2f} ms and "
                    f"{p['launches']:.0f} device launches a block-step)")
@@ -2194,6 +2445,8 @@ def report_modes(n: int, label: str, runs: dict) -> None:
                  f"memory {r['peak'] / 2**30:.2f} GiB allocated, "
                  f"{r['peak_reserved'] / 2**30:.2f} GiB reserved")
     check_census(n, f"{label}, graphed", runs["graphed"]["graph"])
+    if "eager" not in runs:            # a path run graphed only
+        return
     eager, graphed = streams(runs["eager"]["comps"]), streams(runs["graphed"]["comps"])
     phase(n, f"{label}: graphed streams bit-identical to eager ones: {eager == graphed} "
              f"({len(graphed)} completions)")
@@ -2218,18 +2471,19 @@ def launch_gate(n: int, label: str, r: dict, want: dict) -> None:
 
 
 def sync_modes(model, params, dvi, reqs, n: int, label: str, want, prefills=None,
-               profile=None, ar_kw=None, **kw) -> dict:
+               profile=None, ar_kw=None, modes=MODES, **kw) -> dict:
     """A path on the sync engine (`kw` to ``sync_run``), eagerly and
     graphed: well-formed completions, the launches ``want(run)`` exact on
     both, graphed == eager bit for bit and the census (``report_modes``),
     then each graphed completion against AR on its bucket-padded prompt
     (the near-tie rule; `ar_kw` to ``check_against_ar``).
     ``profile(run)``, given, profiles the graphed run (the eager one is not
-    profiled: the script's time limit).  Returns the runs by mode."""
+    profiled: the script's time limit).  `modes` (default both) may name the
+    graphed one alone.  Returns the runs by mode."""
     from repro_torch.core import spec
     from repro_torch.serving.engine import Request
     runs = {}
-    for mode, on in MODES:
+    for mode, on in modes:
         r = runs[mode] = sync_run(model, params, dvi, reqs, on, n, f"{label} {mode}",
                                   prefills=prefills, **kw)
         check(r["steps"] > 0, f"{label} {mode}: no block-step ran")
@@ -2254,7 +2508,8 @@ def sync_modes(model, params, dvi, reqs, n: int, label: str, want, prefills=None
 
 
 def continuous_modes(model, params, dvi, reqs, pages: int, n: int, label: str, want,
-                     prefills=None, profile=None, engine_kw=None, **ar_kw) -> dict:
+                     prefills=None, profile=None, engine_kw=None, modes=MODES,
+                     **ar_kw) -> dict:
     """A path on the continuous engine (contiguous with `pages` 0, else
     paged; `engine_kw` to it), eagerly and graphed, under
     ``serve_checked``'s zero-sync gate: well-formed completions, lanes
@@ -2262,11 +2517,11 @@ def continuous_modes(model, params, dvi, reqs, pages: int, n: int, label: str, w
     exact on both, graphed == eager bit for bit and the census, then each
     graphed completion against AR on its exact prompt alone (B = 1, as the
     admission prefills it; `ar_kw` to ``check_against_ar``).
-    ``profile(run)``, given, profiles the graphed run.  Returns the runs by
-    mode."""
+    ``profile(run)``, given, profiles the graphed run.  `modes` as in
+    ``sync_modes``.  Returns the runs by mode."""
     from repro_torch.core import spec
     runs = {}
-    for mode, on in MODES:
+    for mode, on in modes:
         r = runs[mode] = continuous_run(model, params, dvi, reqs, on, pages, n,
                                         f"{label} {mode}", prefills=prefills,
                                         **(engine_kw or {}))
@@ -3537,14 +3792,16 @@ def engine_rows_cache(model, params, req, chunk: int = 0) -> dict:
     return cache
 
 
-def ar_at_engine_rows(model, params, req, chunk: int = 0, cache=None) -> list:
+def ar_at_engine_rows(model, params, req, chunk: int = 0, cache=None, top2_at: int = None):
     """Greedy AR of `req` decoded as the continuous engine decodes it: from
     the cache of ``engine_rows_cache`` (or `cache`, one it built, which the
     decode advances in place), one-token blocks of ``spec_block_step`` at
     K = 0 with ar_generate's zero draft adapter, the other lanes masked
     done.  Every matrix product then runs at the engine's row counts, so in
     bf16 it rounds as the engine's does; ar_generate on the prompt alone
-    runs its decode products at one row."""
+    runs its decode products at one row.  Returns the generated tokens, or
+    with `top2_at` = p the top-2 logits of its pick of token p (the greedy
+    stream's first p tokens decoded first)."""
     from repro_torch.core import spec
     cfg = model.cfg
     dvi0 = {"A": torch.zeros((cfg.d_model, 1), device=DEV),
@@ -3555,11 +3812,16 @@ def ar_at_engine_rows(model, params, req, chunk: int = 0, cache=None) -> list:
     pending[0] = int(req.prompt[-1])
     done = torch.arange(C_SLOTS, device=DEV) > 0
     out = []
-    while len(out) < req.max_new and 1 not in out:
+    while len(out) < (req.max_new if top2_at is None else top2_at) and 1 not in out:
         blk = spec.spec_block_step(model, params, dvi0, pending, cache, k_spec=0, done=done)
         pending, cache = blk.pending, blk.cache
         out.append(int(blk.commit_vec[0, 0]))
-    return out
+    if top2_at is None:
+        return out
+    h, _, _ = model.step(params, model.embed_block(params, pending[:, None], cache["lengths"]),
+                         cache)
+    top = model.logits(params, h[0:1, -1]).float().topk(2, dim=-1).values[0]
+    return float(top[0]), float(top[1])
 
 
 def float32_model(model, params):
@@ -3749,10 +4011,13 @@ def n_params(tree) -> int:
     return tree.numel()
 
 
-def n_bytes(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(n_bytes(v) for v in tree.values())
-    return tree.numel() * tree.element_size()
+def n_bytes(tree, leaves=None) -> int:
+    """Bytes of a tensor or a tree's tensors: every one, or the leaves
+    named in `leaves`."""
+    if not isinstance(tree, dict):
+        return tree.numel() * tree.element_size()
+    return sum(n_bytes(v, leaves) for k, v in tree.items()
+               if isinstance(v, dict) or leaves is None or k in leaves)
 
 
 def block_weight_bytes(cfg, params, lanes: int = N_REQUESTS) -> int:
@@ -3798,14 +4063,16 @@ def draw(cfg, n: int):
     return model, params, dvi
 
 
-def hybrid_phase(by_row) -> dict:
+def hybrid_phase(by_row) -> tuple:
     """Phase 16: (a) recurrentgemma-9b at full width and depth through the
     sync engine (phase 4's requests, the graphed run profiled; then R_LONG
     lanes of prompts longer than its rings, so the prefill takes the
     wrapped ring write and decoding wraps) and the contiguous continuous
-    engine (phase 8's requests and one prompt past the ring); (b)
-    ``llama4_phase``.  Returns each path's eager and graphed runs (their
-    launch counts)."""
+    engine (phase 8's requests and one prompt past the ring), then phase
+    19b on the same weights (``int8_hybrid_phase``) and its float32
+    witness (``rg_int8_witness``); (b) ``llama4_phase``.
+    Returns each path's eager and graphed runs (their launch counts), and
+    19b's graphed runs."""
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import Request
     out = {}
@@ -3843,10 +4110,12 @@ def hybrid_phase(by_row) -> dict:
     out.update(recurrentgemma_sync=sync, recurrentgemma_long=long_,
                recurrentgemma_continuous=cont)
     phase(16, f"16a ({R_NAME}) took {time.perf_counter() - t0:.1f} s")
+    q19b = int8_hybrid_phase(cfg, model, params, dvi, reqs, long_reqs[:R_LONG])
     del model, params, dvi
     release({})
+    rg_int8_witness(cfg, reqs, long_reqs[:R_LONG])
     out.update(llama4_phase())
-    return out
+    return out, q19b
 
 
 def llama4_phase() -> dict:
@@ -3861,9 +4130,10 @@ def llama4_phase() -> dict:
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
     cfg = get_config(L4_NAME).replace(num_layers=L4_LAYERS)
-    check(ring_launches(cfg, True) == (2 * (cfg.dvi.k_spec + 1) + 4, 2),
+    periods = L4_LAYERS // 4            # (local x 3, attn); the draft path is 2 local layers
+    check(ring_launches(cfg, True) == (2 * (cfg.dvi.k_spec + 1) + 3 * periods - 2, periods),
           f"{cfg.name} at {L4_LAYERS} layers: {ring_launches(cfg, True)} launches a block, "
-          f"expected 2(K+1) + 4 ring and 2 paged")
+          f"expected 2(K+1) + {3 * periods - 2} ring and {periods} paged")
     model, params, dvi = draw(cfg, 16)
     label = f"{L4_NAME} ({L4_LAYERS} layers) continuous"
     deferred = []
@@ -3965,7 +4235,7 @@ def mtp_check(model, params, reqs) -> None:
 
 def deepseek_phase(by_row) -> dict:
     """Phase 17a: deepseek-v3-671b at full width, DS_LAYERS layers (3 dense,
-    2 MoE), bf16, with its MTP head: the sync engine (phase 4's requests,
+    then MoE), bf16, with its MTP head: the sync engine (phase 4's requests,
     the graphed run profiled) and the contiguous continuous engine (phase
     8's requests), eagerly and graphed, then ``mtp_check``; then
     ``deepseek_witness``.  A bf16 completion that differs from AR beyond a
@@ -4642,7 +4912,8 @@ def lossless_lanes(model, params, tokens, lengths, r_ar, n_phase: int, label: st
         p = int(diff[0])
         lane_aux = (None if aux_inputs is None else
                     {key: v[b:b + 1] for key, v in aux_inputs.items()})
-        t1, t2 = top2_gap(model, params, r_ar.tokens[b:b + 1, :p], aux_inputs=lane_aux)
+        steps = dict(n_prompt=Tp, max_new=MAX_NEW) if model.cfg.kv_quant else {}
+        t1, t2 = top2_gap(model, params, r_ar.tokens[b:b + 1, :p], aux_inputs=lane_aux, **steps)
         phase(n_phase, f"{label}: lane {b} first differs from AR at position {p}, AR top-2 "
                        f"logits {t1:.4f} / {t2:.4f}, gap {t1 - t2:.4e}")
         check(t1 - t2 <= GAP_RTOL * max(abs(t1), 1.0),
@@ -4859,6 +5130,391 @@ def qwen14_phase(reqs, by_row: dict) -> dict:
     return r
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the int8 KV cache (kv_quant)
+# ---------------------------------------------------------------------------
+
+# the K/V leaves of a cache: values (model dtype or int8) and int8 scales
+KV_LEAVES = ("k", "v", "ks", "vs", "kp", "vp", "ksp", "vsp")
+
+
+def bytes_gate(label: str, got: int, base: int, hd: int, elt: int = 2) -> float:
+    """The int8 cache's bytes against the model dtype's (`elt` bytes an
+    element) at the same shapes: within 1 % of (hd + 4) / (elt hd), values
+    and one float32 scale a slot and kv head against the model dtype's
+    values (bf16: (hd + 4) / (2 hd))."""
+    want, ratio = (hd + 4) / (elt * hd), got / base
+    phase(19, f"{label}: {got / 1e9:.4f} GB int8 with scales against {base / 1e9:.4f} GB in "
+              f"the model dtype at the same shapes: ratio {ratio:.5f}, (hd + 4) / ({elt} hd) = "
+              f"{want:.5f}")
+    check(abs(ratio / want - 1) <= 0.01, f"{label}: bytes ratio {ratio:.5f}, expected {want:.5f}")
+    return ratio
+
+
+def int8_gate(label: str, r: dict) -> None:
+    """Every attention launch of the run read the int8 cache."""
+    attn = r["launches"]["decode_attention"] + r["launches"]["paged_decode_attention"]
+    phase(19, f"{label}: attention launches by K/V storage {r['attn_kv']}")
+    check(attn > 0 and r["attn_kv"] == {"model": 0, "int8": attn},
+          f"{label}: an attention launch did not read the int8 cache: {r['attn_kv']}")
+
+
+def sync_cache_bytes(eng, cfg, leaves=None) -> tuple:
+    """(int8 bytes, bf16 bytes at the same shapes) of a sync engine's static
+    caches, one a batch shape: the model dtype's from ``init_cache`` on the
+    meta device (what phase 4's and 16's bf16 engines allocate)."""
+    from repro_torch.models import transformer as tfm
+    got = base = 0
+    for st, _ in eng._runner._shapes.values():
+        cache = st["cache"]
+        B = cache["lengths"].shape[0]
+        # the capacity of full attention (a ring's is its own, fixed)
+        C = next((c["k"].shape[2] for c in cache["segs"].values()
+                  if "k" in c and "pos" not in c), 1)
+        got += n_bytes(cache, leaves)
+        base += n_bytes(tfm.init_cache(cfg, B, C, device="meta"), leaves)
+    return got, base
+
+
+def int8_hidden_drift(model, qmodel, params, prompts) -> float:
+    """The reference test's measure: prefill all but the last K + 1 tokens,
+    one block of K + 1; max |h_int8 - h_bf16| / max |h_bf16| of the
+    block's hidden states."""
+    K = model.cfg.dvi.k_spec
+    T = prompts.shape[1] - (K + 1)
+    hs = []
+    for m in (model, qmodel):
+        _, cache = m.prefill(params, prompts[:, :T], max_len=prompts.shape[1] + 16)
+        hs.append(m.step(params, m.embed_block(params, prompts[:, T:], cache["lengths"]),
+                         cache)[0].float())
+    return float((hs[1] - hs[0]).abs().max() / (hs[0].abs().max() + 1e-9))
+
+
+def int8_waves_run(model, params, dvi, waves, label: str, **kw) -> dict:
+    """`waves` (lists of requests), each drained before the next, through one
+    graphed int8 continuous engine over the ample pool (`kw` to it), each
+    wave under ``serve_checked``'s zero-sync gate: host syncs == dispatches,
+    no page left in use but cached ones, well-formed completions and, when
+    the engine prefills in chunks, the chunked launch formula, every
+    attention launch int8 and nodes == launches.  Returns the run's
+    figures, its engine released."""
+    eng = continuous_engine(model, params, dvi, C_PAGES_AMPLE, True, **kw)
+    reset_counts()
+    g0 = eng.graph_stats()
+    comps, wall, blocks, per_tick = [], 0.0, 0, []
+    for wave in waves:
+        c, w, b, t = serve_checked(eng, wave)
+        comps += c
+        wall += w
+        blocks += b
+        per_tick += t
+    r = finish_run(eng, 19, label, comps, wall, g0)
+    r.update(blocks_run=blocks, per_tick=per_tick, stats=dict(eng.stats), kv=eng.kv_stats())
+    check(r["host_syncs"] == r["dispatches"] and r["kv"]["used_pages"] == 0,
+          f"{label}: host syncs != dispatches, or pages left in use")
+    check_comps(comps, [q for wave in waves for q in wave], model.cfg.vocab_size, label)
+    if kw.get("prefill_chunk"):
+        launch_gate(19, label, r, chunked_want(model.cfg, blocks, eng.stats["prefill_chunks"]))
+        int8_gate(label, r)
+        check_census(19, label, r["graph"])
+    del eng
+    release(r)
+    return r
+
+
+def first_difference(label: str, uid, got: list, want: list) -> int:
+    """Where two streams of one request first differ (both must run past it)."""
+    p = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+    check(p < min(len(got), len(want)), f"{label}: request {uid} stops at {len(got)}, the "
+                                        f"stream it is held to at {len(want)}")
+    return p
+
+
+def int8_prefix_waves(model, params, dvi, cfg) -> dict:
+    """Phase 19a's chunked path with the prefix cache: the first 2 of phase
+    14a's 3 waves of 8 requests of 4 tenants (system prompts of H_SYS
+    tokens; wave 2 hits and copies the tenants' partial pages on write),
+    Q_NEW new tokens each, through ``int8_waves_run``: the int8 engine with
+    chunks of P_CHUNK and the prefix cache (warm), the same engine without
+    the cache (cold) and with one-shot admission.  Gates: hits and a copy
+    on write; each warm completion == the cold one or the near-tie rule
+    under int8 AR; each cold completion == the one-shot one or first
+    different at a near-tie of int8 AR (chunked prefill attends the
+    dequantised cache, one-shot prefill in full precision: in the reference
+    too they are different functions), the others held by
+    ``int8_chunk_witness``, which runs every time: the chunked path against
+    a reference outside the engine.  Returns the warm run's figures."""
+    from repro_torch.serving.engine import Request
+    recs = http_requests(cfg)
+    waves = [[Request(uid=r["idx"], prompt=np.asarray(r["prompt"], np.int32), max_new=Q_NEW)
+              for r in recs[w * H_WAVE:(w + 1) * H_WAVE]] for w in range(Q_WAVES)]
+    reqs = [r for wave in waves for r in wave]
+    out = {name: int8_waves_run(model, params, dvi, waves, f"int8 {name}", **kw)
+           for name, kw in (("chunked warm", dict(prefill_chunk=P_CHUNK, prefix_cache=True)),
+                            ("chunked cold", dict(prefill_chunk=P_CHUNK)), ("one-shot", {}))}
+    st = out["chunked warm"]["stats"]
+    phase(19, f"int8 prefix cache: lookups {st['prefix_lookups']}, hits {st['prefix_hits']}, "
+              f"hit tokens {st['prefix_hit_tokens']}, copies on write "
+              f"{st['prefix_cow_copies']}, evictions {st['prefix_evictions']}; pages used at the "
+              f"end {out['chunked warm']['kv']['used_pages']}")
+    check(st["prefix_hits"] > 0 and st["prefix_cow_copies"] >= 1,
+          "int8 prefix cache: no hit or no copy on write")
+    warm, cold, one = (streams(out[n]["comps"])
+                       for n in ("chunked warm", "chunked cold", "one-shot"))
+    by_uid = {r.uid: r for r in reqs}
+
+    def near_tie(label, uid, got: list, against: list) -> bool:
+        """`got` first differs from `against` at a near-tie of int8 AR (its
+        one-token steps over the prompt and `against` before that token)."""
+        r = by_uid[uid]
+        p = first_difference(label, uid, got, against)
+        prefix = torch.as_tensor(np.concatenate([r.prompt, against[:p]]).astype(np.int64),
+                                 device=DEV)[None]
+        t1, t2 = top2_gap(model, params, prefix, len(r.prompt), r.max_new)
+        phase(19, f"{label}: request {uid} first differs at generated token {p}, int8 AR top-2 "
+                  f"logits {t1:.4f} / {t2:.4f}, gap {t1 - t2:.4e}")
+        return t1 - t2 <= GAP_RTOL * max(abs(t1), 1.0)
+
+    tied = 0
+    for uid, got in warm.items():
+        if got != cold[uid]:
+            check(near_tie("int8 prefix, warm against cold", uid, got, cold[uid]),
+                  f"int8 prefix: request {uid} differs from the cold engine outside a near-tie")
+            tied += 1
+    same_one, tied_one, deferred = 0, 0, []
+    for uid, got in cold.items():
+        if got == one[uid]:
+            same_one += 1
+        elif near_tie("int8 chunked cold, against one-shot", uid, got, one[uid]):
+            tied_one += 1
+        else:
+            deferred.append(uid)
+            phase(19, f"int8 chunked cold: request {uid} differs from the one-shot engine beyond "
+                      f"a near-tie: held by the float32 witness below")
+    phase(19, f"int8 prefix: {len(warm) - tied} of {len(warm)} warm completions equal the cold "
+              f"chunked engine's, {tied} differ only at a near-tie (rtol {GAP_RTOL}); "
+              f"{same_one} of {len(cold)} cold chunked completions equal the one-shot int8 "
+              f"engine's, {tied_one} differ first at a near-tie, {len(deferred)} beyond one "
+              f"(chunked prefill attends the dequantised cache, one-shot prefill in full "
+              f"precision)")
+    int8_chunk_witness(cfg, waves, deferred)
+    out["chunked warm"].update(equal_cold=len(warm) - tied, equal_one_shot=same_one,
+                               tied_one_shot=tied_one, deferred=deferred)
+    return out["chunked warm"]
+
+
+def int8_chunk_witness(cfg, waves, deferred: list) -> None:
+    """The float32 witness of phase 19a's cold chunked completions, which
+    holds the `deferred` ones (those that differ from the one-shot int8
+    engine's beyond a near-tie of int8 AR) and runs whether or not there
+    are any: vicuna-7b with kv_quant at V_WIT_LAYERS layers drawn in float32 from
+    SEED, through ``int8_waves_run``'s cold chunked engine (the ample pool,
+    chunks of P_CHUNK, graphed) on the same waves, each completion equal
+    to the chunked function computed outside the engine
+    (``ar_at_engine_rows`` over ``engine_rows_cache`` in chunks of
+    P_CHUNK: a contiguous cache, the int8 causal form, one-token blocks) or
+    first different at a float32 near-tie of its logits (F32_GAP_RTOL),
+    where rounding no longer moves a greedy pick."""
+    t0 = time.perf_counter()
+    wcfg = cfg.replace(num_layers=V_WIT_LAYERS, dtype="float32")
+    model, params, dvi = draw(wcfg, 19)
+    label = f"vicuna-7b int8 ({V_WIT_LAYERS} layers, float32 witness) chunked cold"
+    phase(19, f"{label}: the bf16 requests it holds (beyond a near-tie): {deferred}")
+    r = int8_waves_run(model, params, dvi, waves, label, prefill_chunk=P_CHUNK)
+    got = streams(r["comps"])
+    equal = tied = 0
+    for q in (q for wave in waves for q in wave):
+        want = capped(ar_at_engine_rows(model, params, q, P_CHUNK), q.max_new)
+        if got[q.uid] == want:
+            equal += 1
+            continue
+        p = first_difference(label, q.uid, got[q.uid], want)
+        t1, t2 = ar_at_engine_rows(model, params, q, P_CHUNK, top2_at=p)
+        phase(19, f"{label}: request {q.uid} first differs from the chunked function at "
+                  f"generated token {p}, float32 top-2 logits {t1:.6f} / {t2:.6f}, gap "
+                  f"{t1 - t2:.4e}")
+        check(t1 - t2 <= F32_GAP_RTOL * max(abs(t1), 1.0),
+              f"{label}: request {q.uid} differs from the chunked function outside a float32 "
+              f"near-tie")
+        tied += 1
+    phase(19, f"{label}: {equal} of {len(got)} completions equal the chunked function outside "
+              f"the engine, {tied} differ first at a float32 near-tie (rtol {F32_GAP_RTOL}); "
+              f"took {time.perf_counter() - t0:.1f} s")
+    del model, params, dvi
+    release({})
+
+
+def int8_phase(cfg, params, dvi, reqs, base4: dict, base8: dict) -> dict:
+    """Phase 19a: vicuna-7b with ``kv_quant`` on phase 4's weights (the flag
+    changes no parameter): the sync engine on phase 4's requests eagerly
+    and graphed (every replay under sync debug mode "error", the graphed
+    run profiled with the records gate), the continuous engine over phase
+    8's ample pool (graphed, one-shot admission) on its 16 requests, then
+    ``int8_prefix_waves``; the caches' bytes against the bf16 ones, and
+    the hidden-state drift of the reference test.  `base4` / `base8` are
+    phases 4's and 8's graphed bf16 runs.  Returns the runs (launches)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    qcfg = cfg.replace(kv_quant=True)
+    model = build_model(qcfg, device=DEV)
+    K = cfg.dvi.k_spec
+    hd = cfg.resolved_head_dim
+    sizes = {}
+
+    def sync_profile(r):
+        sizes["sync"] = sync_cache_bytes(r["eng"], cfg)
+        return profile_batch(r["eng"], reqs, r["wall"] * 1e3, n=19)
+
+    sync = sync_modes(model, params, dvi, reqs, 19, "vicuna-7b int8 sync",
+                      want=lambda r: hybrid_want(cfg, r["steps"], paged=False),
+                      profile=sync_profile, guard=True)
+    for mode, r in sync.items():
+        int8_gate(f"vicuna-7b int8 sync {mode}", r)
+    phase(19, "vicuna-7b int8 sync graphed: every block-step replay ran under sync debug mode "
+              "'error': 0 synchronising operations")
+    prompts = padded_prompts(reqs)
+    drift = int8_hidden_drift(build_model(cfg, device=DEV), model, params, prompts)
+    phase(19, f"int8 against bf16 after a prefill of {B_TP - K - 1} tokens and one block of "
+              f"{K + 1}: max |h_int8 - h_bf16| / max |h_bf16| = {drift:.4e} (bound "
+              f"{INT8_DRIFT}, the reference test's)")
+    check(np.isfinite(drift) and 0 < drift < INT8_DRIFT,
+          f"int8 hidden drift {drift}, bound {INT8_DRIFT}")
+    release({})
+
+    def cont_profile(r):
+        cache = r["eng"]._cache
+        P, ps = cache["segs"]["s0"]["kp"].shape[1:3]
+        sizes["pool"] = (n_bytes(cache), n_bytes(tfm.init_paged_cache(
+            cfg, cache["lengths"].shape[0], P - 1, ps, cache["tbl"].shape[1], device="meta")))
+        return profile_batch(r["eng"], creqs, r["wall"] * 1e3, n=19)
+
+    creqs = continuous_requests(cfg)
+    cont = continuous_modes(model, params, dvi, creqs, C_PAGES_AMPLE, 19,
+                            "vicuna-7b int8 continuous",
+                            want=lambda r: hybrid_want(cfg, r["blocks_run"], paged=True),
+                            profile=cont_profile, modes=(("graphed", True),))
+    int8_gate("vicuna-7b int8 continuous graphed", cont["graphed"])
+    prefix = int8_prefix_waves(model, params, dvi, qcfg)
+    elt = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    for name, (got, base) in sizes.items():
+        bytes_gate(f"vicuna-7b int8 {name} cache", got, base, hd, elt)
+    rows = [("sync", sync["graphed"], base4), ("continuous", cont["graphed"], base8)]
+    for name, r, b in rows:
+        steps, p, g = max(r["steps"], 1), r["profile"] or {}, r["graph"]
+        bp = b.get("profile") or {}
+        phase(19, f"int8 {name} graphed beside bf16 (phase {4 if name == 'sync' else 8}): wall "
+                  f"{1e3 * r['wall'] / steps:.2f} / {1e3 * b['wall'] / max(b['steps'], 1):.2f} ms "
+                  f"a block-step, device {p.get('device_ms', float('nan')):.2f} / "
+                  f"{bp.get('device_ms', float('nan')):.2f} ms, busy "
+                  f"{100 * p.get('busy', float('nan')):.1f} / "
+                  f"{100 * bp.get('busy', float('nan')):.1f} %, graph nodes {g['nodes']} / "
+                  f"{b['graph']['nodes']}, peak {r['peak'] / 2**30:.2f} / "
+                  f"{b['peak'] / 2**30:.2f} GiB; completions equal to bf16's "
+                  f"{sum(v == streams(b['comps']).get(u) for u, v in streams(r['comps']).items())}"
+                  f" of {len(r['comps'])}")
+    phase(19, f"19a took {time.perf_counter() - t0:.1f} s")
+    del model
+    release({})
+    return {"int8_sync": sync, "int8_continuous": cont, "int8_prefix": prefix}
+
+
+def int8_hybrid_phase(cfg, model, params, dvi, reqs, long_reqs) -> dict:
+    """Phase 19b: recurrentgemma-9b with ``kv_quant`` on phase 16's weights,
+    graphed, through the sync engine on phase 4's requests and on the
+    R_LONG lanes past the ring: lossless against int8 AR or the near-tie
+    rule, launches 12 / 0 / 5 / 1 / 0 a block with every ring launch int8,
+    nodes == launches (the census), and the rings' bytes ratio."""
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    qmodel = build_model(cfg.replace(kv_quant=True), device=DEV)
+    sizes = {}
+
+    def ring_bytes(r):
+        sizes["ring"] = sync_cache_bytes(r["eng"], cfg, KV_LEAVES)
+        return None
+
+    want = lambda r: hybrid_want(cfg, r["steps"], paged=False)  # noqa: E731
+    graphed = (("graphed", True),)
+    sync = sync_modes(qmodel, params, dvi, reqs, 19, f"{R_NAME} int8 sync", want=want,
+                      profile=ring_bytes, modes=graphed)
+    long_ = sync_modes(qmodel, params, dvi, long_reqs, 19, f"{R_NAME} int8 sync long", want=want,
+                       buckets=(R_BUCKET,), batch_size=R_LONG, modes=graphed)
+    for label, r in ((f"{R_NAME} int8 sync", sync), (f"{R_NAME} int8 sync long", long_)):
+        int8_gate(label, r["graphed"])
+    bytes_gate(f"{R_NAME} int8 rings (K/V values and scales)", *sizes["ring"],
+               cfg.resolved_head_dim, torch.empty((), dtype=cfg.torch_dtype).element_size())
+    phase(19, f"19b took {time.perf_counter() - t0:.1f} s")
+    del qmodel
+    return {"int8_rg_sync": sync, "int8_rg_long": long_}
+
+
+def rg_int8_witness(cfg, reqs, long_reqs) -> None:
+    """The float32 witness of phase 19b: recurrentgemma-9b with kv_quant at
+    R_WIT_LAYERS layers drawn in float32 from SEED, through 19b's graphed
+    sync engine on the same requests and long lanes past the ring: the
+    launch formula, every ring launch int8, the census, and every lane
+    equal to float32 int8 AR or first different at a float32 near-tie
+    (F32_GAP_RTOL), where rounding no longer moves a greedy pick.  19b's
+    bf16 lanes are held to int8 AR only up to their first difference."""
+    t0 = time.perf_counter()
+    wcfg = cfg.replace(num_layers=R_WIT_LAYERS, dtype="float32", kv_quant=True)
+    model, params, dvi = draw(wcfg, 19)
+    label = f"{R_NAME} int8 ({R_WIT_LAYERS} layers, float32 witness) sync"
+    want = lambda r: hybrid_want(wcfg, r["steps"], paged=False)  # noqa: E731
+    kw = dict(want=want, modes=(("graphed", True),), ar_kw=dict(rtol=F32_GAP_RTOL))
+    runs = {label: sync_modes(model, params, dvi, reqs, 19, label, **kw),
+            f"{label} long": sync_modes(model, params, dvi, long_reqs, 19, f"{label} long",
+                                        buckets=(R_BUCKET,), batch_size=R_LONG, **kw)}
+    for name, r in runs.items():
+        int8_gate(name, r["graphed"])
+    phase(19, f"{label}: took {time.perf_counter() - t0:.1f} s")
+    del model, params, dvi
+    release({})
+
+
+def examples_phase() -> dict:
+    """Phase 19c: ``examples/torch_multi_arch.py`` and
+    ``examples/torch_train_100m.py --steps 60 --dvi-prompts 80``, each in a
+    process of its own, both at once (their tiny models share the card;
+    PYTHONHASHSEED pinned), on the card unless the rehearsal names another
+    device: exit 0 and every ``lossless=True``.  Returns the seconds from
+    the start to each one's end."""
+    # half the host's cores each, so the two do not contend for them
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), PYTHONHASHSEED="0",
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 2)))
+    dev = [] if DEV == "cuda" else ["--device", DEV]
+    out, procs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, args, lines in (("torch_multi_arch", [], 3),
+                                  ("torch_train_100m", ["--steps", "60", "--dvi-prompts", "80"],
+                                   1)):
+            procs[name] = (lines, subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "examples", f"{name}.py"), *args, *dev],
+                env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name, (lines, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=LAUNCH_TIMEOUT)
+            out[name] = time.perf_counter() - t0
+            for line in stdout.splitlines():
+                if any(key in line for key in ("lossless=", "pretrain:", "DVI online",
+                                               "backbone:")):
+                    phase(19, f"{name}: {line}")
+            verdicts = re.findall(r"lossless=(\w+)", stdout)
+            check(proc.returncode == 0 and len(verdicts) == lines
+                  and all(v == "True" for v in verdicts),
+                  f"examples/{name}.py exited {proc.returncode}, lossless {verdicts}: "
+                  f"{stderr[-2000:]}")
+            phase(19, f"examples/{name}.py: exit 0, {len(verdicts)} lossless=True, done "
+                      f"{out[name]:.1f} s after both started")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -5013,6 +5669,11 @@ def main() -> int:
     b_medusa = medusa_phase(model, params, reqs)
     marks["15c"] = time.perf_counter() - t_start
 
+    # ---- phase 19a: the int8 KV cache, on the same vicuna weights ----
+    release({})
+    q19 = int8_phase(cfg, params, dvi, reqs, runs["graphed"], c_frozen)
+    marks["19a"] = time.perf_counter() - t_start
+
     # ---- phase 15a, 15b: two-model SpS on the qwen3 pair; 15d: qwen2.5-14b ----
     del model, params, dvi
     release({})                        # engines in reference cycles hold the weights
@@ -5034,10 +5695,11 @@ def main() -> int:
     t_qs = quickstart_phase()
     marks["11a,c"] = time.perf_counter() - t_start
 
-    # ---- phase 16: the hybrid and MoE decoders ----
+    # ---- phase 16: the hybrid and MoE decoders; 19b: recurrentgemma's int8 rings ----
     release({})
-    h16 = hybrid_phase(by_row)
-    marks["16"] = time.perf_counter() - t_start
+    h16, q19b = hybrid_phase(by_row)
+    q19.update(q19b)
+    marks["16,19b"] = time.perf_counter() - t_start
 
     # ---- phase 17: DeepSeek-V3's MLA and MTP head ----
     release({})
@@ -5048,6 +5710,11 @@ def main() -> int:
     release({})
     a18 = aux_phase(by_row)
     marks["18"] = time.perf_counter() - t_start
+
+    # ---- phase 19c: the port's last two examples, in processes of their own ----
+    release({})
+    examples_phase()
+    marks["19c"] = time.perf_counter() - t_start
 
     # ---- phase 7: result lines ----
     for row in rows:
@@ -5081,7 +5748,10 @@ def main() -> int:
                    # and their training steps (eager)
                    **{path: r["graphed"]["launches"].get(name, 0) for path, r in a18.items()},
                    **{f"{path}_train": r["train"]["launches"].get(name, 0)
-                      for path, r in a18.items()}}
+                      for path, r in a18.items()},
+                   # phase 19: the int8 KV cache (graphed)
+                   **{path: (r["graphed"] if "graphed" in r else r)["launches"].get(name, 0)
+                      for path, r in q19.items()}}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["launches_eager_by_path"] = {
@@ -5094,7 +5764,8 @@ def main() -> int:
             "sps_self": b_sps["sps_self"]["eager"]["launches"].get(name, 0),
             "medusa": b_medusa["eager"]["launches"].get(name, 0),
             **{path: r["eager"]["launches"].get(name, 0) for path, r in h16.items()},
-            **{path: r["eager"]["launches"].get(name, 0) for path, r in a18.items()}}
+            **{path: r["eager"]["launches"].get(name, 0) for path, r in a18.items()},
+            "int8_sync": q19["int8_sync"]["eager"]["launches"].get(name, 0)}
     ends = list(marks.values())
     phase(7, f"all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by phase: "
              + ", ".join(f"{name} {end - start:.1f}" for name, start, end

@@ -32,6 +32,16 @@
 // masked.  Rows are padded by 16 bytes, so ldmatrix and the float32 reads
 // are free of bank conflicts.
 //
+// The int8 KV cache (KT = int8_t, the storage type apart from the query's
+// T): the ring stages int8 rows (hd bytes, hd / 16 copies a row) and, beside
+// each staged slot's position, its K and V scale for this CTA's kv head
+// (4-byte cp.async copies, zero filled with the rows).  Once a stage has
+// landed, the CTA dequantises it into one K and one V tile of T in shared
+// memory, each value (float)q * scale rounded once to T (the plain
+// kv_dequantize), and the products below read that tile unchanged.  One
+// tile pair, not one a stage: the ring's next copies still fly while the
+// tile is folded.
+//
 // Products.  bf16: QK^T and P.V on tensor cores, mma.sync m16n8k16 with f32
 // accumulation, fed by ldmatrix (.trans for V); the probabilities enter P.V
 // rounded to bf16, as the plain version rounds them.  float32: CUDA-core
@@ -83,23 +93,30 @@ __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(
 __host__ __device__ inline int tile_rows(int R) { return R < MAX_ROWS ? R : MAX_ROWS; }
 __host__ __device__ inline int row_tiles(int R) { return (R + MAX_ROWS - 1) / MAX_ROWS; }
 
-// The dynamic shared memory of one CTA, in byte offsets.  The warps'
-// partials reuse the ring once the last tile is folded.
+// The dynamic shared memory of one CTA, in byte offsets: the ring of K/V
+// rows in their storage type (`ksize` bytes an element), the dequantised
+// tile pair when that is not the query's (`tsize`), the query rows, the
+// staged slots' positions and (int8) scales, the merge's rows.  The warps'
+// partials reuse the ring and the tile once the last tile is folded.
 struct Layout {
-  size_t ring, q, ok, cm, cl, wts, extra, total;
+  size_t ring, tile, q, ok, sc, cm, cl, wts, extra, total;
 };
 
-__host__ __device__ inline Layout layout(int R, int hd, int tsize, int bs, int stages,
-                                         int splits, size_t extra_bytes) {
+__host__ __device__ inline Layout layout(int R, int hd, int tsize, int ksize, int bs,
+                                         int stages, int splits, size_t extra_bytes) {
   const int mt = (R + 15) / 16, groups = NW / mt, rp = mt * 16;
-  const int ld = hd + 16 / tsize;
-  const size_t ring = (size_t)stages * 2 * bs * ld * tsize;
+  const int ld = hd + 16 / tsize, ldk = hd + 16 / ksize;
+  const bool deq = ksize != tsize;
+  const size_t ring = (size_t)stages * 2 * bs * ldk * ksize;
+  const size_t tile = deq ? (size_t)2 * bs * ld * tsize : 0;
   const size_t part = (size_t)groups * rp * (hd + 10) * sizeof(float);   // m, l, acc (+8 pad)
   Layout L;
   L.ring = 0;
-  L.q = align16(ring > part ? ring : part);
+  L.tile = align16(ring);
+  L.q = align16(L.tile + tile > part ? L.tile + tile : part);
   L.ok = L.q + align16((size_t)rp * ld * tsize);
-  L.cm = L.ok + align16((size_t)stages * bs * sizeof(int));
+  L.sc = L.ok + align16((size_t)stages * bs * sizeof(int));
+  L.cm = L.sc + align16(deq ? (size_t)stages * 2 * bs * sizeof(float) : 0);
   L.cl = L.cm + align16(rp * sizeof(float));
   L.wts = L.cl + align16(rp * sizeof(float));
   L.extra = L.wts + align16((size_t)(NW > splits ? NW : splits) * rp * sizeof(float));
@@ -210,6 +227,34 @@ __device__ __forceinline__ void pv(float (&o)[HD / 8][4], const float (&p)[2][4]
   }
 }
 
+// ---- the int8 KV cache -----------------------------------------------------------
+
+// 4 bytes from device to shared memory (cp.async.ca: the 16-byte copies'
+// .cg takes no smaller size); with `fill` false nothing is read and the 4
+// bytes are zeroed.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool fill = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(fill ? 4 : 0));
+}
+
+// 16 int8 values times their scale, each product rounded once to the
+// query's type, as kv_dequantize rounds it: 16-byte stores.
+__device__ __forceinline__ void dequant16(float* dst, int4 raw, float s) {
+  const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 16; i += 4)
+    *reinterpret_cast<float4*>(dst + i) =
+        make_float4((float)q[i] * s, (float)q[i + 1] * s, (float)q[i + 2] * s, (float)q[i + 3] * s);
+}
+__device__ __forceinline__ void dequant16(__nv_bfloat16* dst, int4 raw, float s) {
+  const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[i] = pack_bf16((float)q[2 * i] * s, (float)q[2 * i + 1] * s);
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
 // ---- the body ----------------------------------------------------------------
 
 // Four outputs of a row, in the output dtype.
@@ -228,25 +273,34 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 // the lane's capacity), map.prepare(lo, hi) stages what map.row needs for
 // the share [lo, hi) in shared memory, map.row(j) is slot j's K/V row of k/v
 // viewed as (rows, KV, hd) or -1 when unmapped, and map.pos(j) the position
-// a mapped slot holds (-1: empty).  Every CTA of the cluster must call it.
-template <typename T, int HD, typename Map>
-__device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* __restrict__ k,
-                                             const T* __restrict__ v,
+// a mapped slot holds (-1: empty).  K/V are stored as KT: T, or int8_t with
+// the float32 scales ksc / vsc viewed as (rows, KV) (null otherwise).
+// Every CTA of the cluster must call it.
+template <typename T, typename KT, int HD, typename Map>
+__device__ __forceinline__ void flash_decode(const T* __restrict__ q, const KT* __restrict__ k,
+                                             const KT* __restrict__ v,
+                                             const float* __restrict__ ksc,
+                                             const float* __restrict__ vsc,
                                              const int* __restrict__ lengths,
                                              T* __restrict__ out, const Args& a, Map map,
                                              int b, int kvh, int r0, unsigned char* smem) {
+  constexpr bool DEQ = sizeof(KT) != sizeof(T);    // int8 storage, dequantised per tile
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   // RT rows a tile, nr of them real in this one (the last tile may hold fewer)
   const int G = a.H / a.KV, R = a.Tq * G, RT = tile_rows(R), nr = min(RT, R - r0);
   const int MT = (RT + 15) / 16, groups = NW / MT, rp = MT * 16;
   const int hd = a.hd, ld = hd + 16 / (int)sizeof(T), bs = a.bs, nsub = bs / SUB;
+  const int ldk = hd + 16 / (int)sizeof(KT);
   const int mt = warp % MT, grp = warp / MT;
   const bool active = grp < groups;          // MT = 3 leaves one warp idle
   const int per_chunk = 16 / sizeof(T), cpr = hd / per_chunk;
-  const Layout L = layout(RT, hd, sizeof(T), bs, a.stages, a.splits, 0);
-  T* ring = reinterpret_cast<T*>(smem + L.ring);
+  const int cprk = hd / (16 / (int)sizeof(KT));   // 16-byte copies of a K/V row
+  const Layout L = layout(RT, hd, sizeof(T), sizeof(KT), bs, a.stages, a.splits, 0);
+  KT* ring = reinterpret_cast<KT*>(smem + L.ring);
+  T* tile = reinterpret_cast<T*>(smem + L.tile);   // DEQ: K rows then V rows
   T* qs = reinterpret_cast<T*>(smem + L.q);
   int* slot_pos = reinterpret_cast<int*>(smem + L.ok);
+  float* scales = reinterpret_cast<float*>(smem + L.sc);   // DEQ: a stage's K then V scales
   float* cm = reinterpret_cast<float*>(smem + L.cm);
   float* cl = reinterpret_cast<float*>(smem + L.cl);
   float* wts = reinterpret_cast<float*>(smem + L.wts);
@@ -269,19 +323,28 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
   map.prepare(lo, hi);
   __syncthreads();
 
-  // stage `st` <- tile `it` of the share: K rows then V rows, 16 bytes a copy
+  // stage `st` <- tile `it` of the share: K rows then V rows, 16 bytes a
+  // copy (and each slot's two scales, 4 bytes a copy, when they are int8)
   const int n_tiles = hi > lo ? (hi - lo + bs - 1) / bs : 0;
+  const int kper = 16 / (int)sizeof(KT);
   auto issue = [&](int it) {
     const int st = it % a.stages, j0 = lo + it * bs;
-    T* ks = ring + (size_t)st * 2 * bs * ld;
-    T* vs = ks + (size_t)bs * ld;
-    for (int i = tid; i < bs * cpr; i += THREADS) {
-      const int r = i / cpr, c = (i % cpr) * per_chunk, j = j0 + r;
+    KT* ks = ring + (size_t)st * 2 * bs * ldk;
+    KT* vs = ks + (size_t)bs * ldk;
+    for (int i = tid; i < bs * cprk; i += THREADS) {
+      const int r = i / cprk, c = (i % cprk) * kper, j = j0 + r;
       const long long row = j < hi ? map.row(j) : -1;
       const size_t off = row >= 0 ? ((size_t)row * a.KV + kvh) * hd + c : 0;
-      cp_async16(ks + r * ld + c, k + off, row >= 0);
-      cp_async16(vs + r * ld + c, v + off, row >= 0);
-      if (c == 0) slot_pos[st * bs + r] = row >= 0 ? map.pos(j) : -1;
+      cp_async16(ks + r * ldk + c, k + off, row >= 0);
+      cp_async16(vs + r * ldk + c, v + off, row >= 0);
+      if (c == 0) {
+        slot_pos[st * bs + r] = row >= 0 ? map.pos(j) : -1;
+        if constexpr (DEQ) {
+          const size_t so = row >= 0 ? (size_t)row * a.KV + kvh : 0;
+          cp_async4(scales + (st * 2) * bs + r, ksc + so, row >= 0);
+          cp_async4(scales + (st * 2 + 1) * bs + r, vsc + so, row >= 0);
+        }
+      }
     }
     cp_async_commit();
   };
@@ -315,7 +378,22 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
       cp_async_wait<0>();
     __syncthreads();
     const int st = it % a.stages;
-    const T* ks = ring + (size_t)st * 2 * bs * ld;
+    const T* ks;
+    if constexpr (DEQ) {
+      // the landed int8 stage -> the T tile pair, 16 values a thread a step
+      const KT* kr = ring + (size_t)st * 2 * bs * ldk;
+      for (int i = tid; i < 2 * bs * cprk; i += THREADS) {
+        const int half = i / (bs * cprk), rem = i % (bs * cprk);
+        const int r = half * bs + rem / cprk, c = (rem % cprk) * 16;
+        dequant16(tile + (size_t)r * ld + c,
+                  *reinterpret_cast<const int4*>(kr + (size_t)r * ldk + c),
+                  scales[st * 2 * bs + r]);
+      }
+      __syncthreads();
+      ks = tile;
+    } else {
+      ks = reinterpret_cast<const T*>(ring + (size_t)st * 2 * bs * ldk);
+    }
     const T* vs = ks + (size_t)bs * ld;
     for (int sub = grp; active && sub < nsub; sub += groups) {
       float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -358,7 +436,7 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
       }
       pv<HD>(o, sc, vs + sub * SUB * ld, ld, hd, lane);
     }
-    __syncthreads();   // the stage is free for the next copy
+    __syncthreads();   // the stage (and the tile) is free for the next copy
   }
   cp_async_commit();   // an empty share still issued the query copies
   cp_async_wait<0>();
@@ -479,9 +557,10 @@ __device__ __forceinline__ void flash_decode(const T* __restrict__ q, const T* _
 // tiles of up to 64 slots (32 in float32), as many stages as a share has
 // tiles up to three, tiles halved until the CTA's shared memory fits.  A
 // paged call (page size `ps` > 0) also holds the table entries of its share,
-// a ring call (`ring`) the positions of its share's slots.
+// a ring call (`ring`) the positions of its share's slots.  K/V stored in
+// `ksize` bytes an element (1: int8) add the dequantised tile pair.
 // Returns the bytes of shared memory, or 0 when nothing fits.
-inline size_t plan(Args& a, int cap, int tsize, int ps, bool ring = false) {
+inline size_t plan(Args& a, int cap, int tsize, int ksize, int ps, bool ring = false) {
   const int R = tile_rows(a.Tq * (a.H / a.KV));
   const int share = share_slots(cap, a.splits);
   const size_t table = ring ? (size_t)share * sizeof(int)
@@ -490,7 +569,7 @@ inline size_t plan(Args& a, int cap, int tsize, int ps, bool ring = false) {
     a.bs = bs < share ? bs : share;
     const int tiles = (share + a.bs - 1) / a.bs;
     a.stages = tiles < 3 ? tiles : 3;
-    const size_t total = layout(R, a.hd, tsize, a.bs, a.stages, a.splits, table).total;
+    const size_t total = layout(R, a.hd, tsize, ksize, a.bs, a.stages, a.splits, table).total;
     if (total <= MAX_SMEM) return total;
   }
   return 0;
@@ -519,10 +598,11 @@ cudaError_t launch(const Args& a, int B, size_t smem, cudaStream_t s, A&&... arg
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// The checks both entry points make before planning a call.
-inline bool valid(const Args& a, int B, int is_bf16) {
+// The checks both entry points make before planning a call: int8 K/V rows
+// take whole 16-byte copies (hd % 16).
+inline bool valid(const Args& a, int B, int is_bf16, int kv_int8) {
   if (B <= 0 || a.Tq <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.hd <= 0 || a.hd > 256) return false;
-  if (a.hd % (is_bf16 ? 16 : 4) != 0 || a.Tq > MAX_TQ) return false;
+  if (a.hd % (is_bf16 || kv_int8 ? 16 : 4) != 0 || a.Tq > MAX_TQ) return false;
   if ((long long)a.KV * row_tiles(a.Tq * (a.H / a.KV)) > 65535) return false;   // grid y
   return a.splits == 1 || a.splits == 2 || a.splits == 4 || a.splits == MAX_SPLITS;
 }

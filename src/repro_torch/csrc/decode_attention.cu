@@ -41,6 +41,15 @@
 // (all copies in flight at once, as the paged map stages its table), and
 // the tiles' slot positions are read from there.
 //
+// The int8 KV cache (kv_int8: k and v int8, k_scale and v_scale (B, S, KV)
+// float32, one scale a slot and kv head), in the contiguous and the ring
+// form: the reference stores K/V so (transformer.kv_quantize) and
+// dequantises them in jnp before it attends; here the body stages the int8
+// rows and their scales and dequantises each landed tile in shared memory
+// (attn_tile.cuh), so a call reads hd + 4 bytes a slot and kv head for K
+// (and again for V) instead of 2 hd.  The non-causal form rejects int8:
+// cross K/V stay in the model dtype.
+//
 // Bound on H100: the live K and V bytes of the call (16 MB at the verify
 // pass of the sync path, B = 8, about 120 live slots a lane, 32 heads of 128
 // in bf16: 0.0049 ms at 3.35 TB/s; 0.0045 ms at a draft feed).  The design
@@ -66,12 +75,6 @@ struct ContigMap {
   __device__ int pos(int j) const { return j; }
 };
 
-// 4 bytes from device to shared memory (cp.async.ca: the 16-byte copies'
-// .cg takes no smaller size)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
 // a ring: slot j of lane b is cache row b * S + j and holds position
 // pos_row[j]; prepare() copies the share's positions into shared memory
 // (spos[j - lo]) and waits for them (and for the query rows issued before)
@@ -84,7 +87,8 @@ struct RingMap {
   __device__ int live(int len) const { return min(len, cap); }
   __device__ void prepare(int lo_, int hi) {
     lo = lo_;
-    for (int i = threadIdx.x; i < hi - lo; i += attn::THREADS) cp_async4(spos + i, pos_row + lo + i);
+    for (int i = threadIdx.x; i < hi - lo; i += attn::THREADS)
+      attn::cp_async4(spos + i, pos_row + lo + i);
     cp_async_commit();
     cp_async_wait<0>();
   }
@@ -92,9 +96,10 @@ struct RingMap {
   __device__ int pos(int j) const { return spos[j - lo]; }
 };
 
-template <typename T, int HD, bool RING>
+template <typename T, typename KT, int HD, bool RING>
 __global__ void __launch_bounds__(attn::THREADS)
-decode_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+decode_attn(const T* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
+            const float* __restrict__ ksc, const float* __restrict__ vsc,
             const int* __restrict__ lengths, const int* __restrict__ pos, T* __restrict__ out,
             attn::Args a, int S) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -103,39 +108,51 @@ decode_attn(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int kvh = blockIdx.y / tiles, r0 = (blockIdx.y % tiles) * attn::MAX_ROWS;
   if constexpr (RING) {
     const attn::Layout L = attn::layout(attn::tile_rows(a.Tq * (a.H / a.KV)), a.hd, sizeof(T),
-                                        a.bs, a.stages, a.splits, 0);
-    attn::flash_decode<T, HD>(q, k, v, lengths, out, a,
-                              RingMap{(long long)b * S, S, pos + (size_t)b * S,
-                                      reinterpret_cast<int*>(smem + L.extra), 0},
-                              b, kvh, r0, smem);
+                                        sizeof(KT), a.bs, a.stages, a.splits, 0);
+    attn::flash_decode<T, KT, HD>(q, k, v, ksc, vsc, lengths, out, a,
+                                  RingMap{(long long)b * S, S, pos + (size_t)b * S,
+                                          reinterpret_cast<int*>(smem + L.extra), 0},
+                                  b, kvh, r0, smem);
   } else {
-    attn::flash_decode<T, HD>(q, k, v, lengths, out, a, ContigMap{(long long)b * S, S}, b,
-                              kvh, r0, smem);
+    attn::flash_decode<T, KT, HD>(q, k, v, ksc, vsc, lengths, out, a,
+                                  ContigMap{(long long)b * S, S}, b, kvh, r0, smem);
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_hd(const T* q, const T* k, const T* v, const int* lengths, const int* pos,
-                      T* out, int B, const attn::Args& a, int S, size_t smem, cudaStream_t s) {
+template <typename T, typename KT, int HD>
+cudaError_t launch_hd(const T* q, const KT* k, const KT* v, const float* ksc, const float* vsc,
+                      const int* lengths, const int* pos, T* out, int B, const attn::Args& a,
+                      int S, size_t smem, cudaStream_t s) {
   if (pos != nullptr)
-    return attn::launch<decode_attn<T, HD, true>>(a, B, smem, s, q, k, v, lengths, pos, out, a,
-                                                  S);
-  return attn::launch<decode_attn<T, HD, false>>(a, B, smem, s, q, k, v, lengths, pos, out, a,
-                                                 S);
+    return attn::launch<decode_attn<T, KT, HD, true>>(a, B, smem, s, q, k, v, ksc, vsc, lengths,
+                                                      pos, out, a, S);
+  return attn::launch<decode_attn<T, KT, HD, false>>(a, B, smem, s, q, k, v, ksc, vsc, lengths,
+                                                     pos, out, a, S);
+}
+
+template <typename T, typename KT>
+cudaError_t run(const void* q, const void* k, const void* v, const float* ksc, const float* vsc,
+                const int* lengths, const int* pos, void* out, int B, attn::Args a, int S,
+                cudaStream_t s) {
+  const size_t smem = attn::plan(a, S, sizeof(T), sizeof(KT), 0, pos != nullptr);
+  if (smem == 0) return cudaErrorInvalidValue;
+  const T* qp = static_cast<const T*>(q);
+  const KT* kp = static_cast<const KT*>(k);
+  const KT* vp = static_cast<const KT*>(v);
+  T* op = static_cast<T*>(out);
+  if (a.hd <= 64)
+    return launch_hd<T, KT, 64>(qp, kp, vp, ksc, vsc, lengths, pos, op, B, a, S, smem, s);
+  if (a.hd <= 128)
+    return launch_hd<T, KT, 128>(qp, kp, vp, ksc, vsc, lengths, pos, op, B, a, S, smem, s);
+  return launch_hd<T, KT, 256>(qp, kp, vp, ksc, vsc, lengths, pos, op, B, a, S, smem, s);
 }
 
 template <typename T>
-cudaError_t run(const void* q, const void* k, const void* v, const int* lengths,
-                const int* pos, void* out, int B, attn::Args a, int S, cudaStream_t s) {
-  const size_t smem = attn::plan(a, S, sizeof(T), 0, pos != nullptr);
-  if (smem == 0) return cudaErrorInvalidValue;
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(out);
-  if (a.hd <= 64) return launch_hd<T, 64>(qp, kp, vp, lengths, pos, op, B, a, S, smem, s);
-  if (a.hd <= 128) return launch_hd<T, 128>(qp, kp, vp, lengths, pos, op, B, a, S, smem, s);
-  return launch_hd<T, 256>(qp, kp, vp, lengths, pos, op, B, a, S, smem, s);
+cudaError_t run_kv(const void* q, const void* k, const void* v, const float* ksc,
+                   const float* vsc, int kv_int8, const int* lengths, const int* pos, void* out,
+                   int B, const attn::Args& a, int S, cudaStream_t s) {
+  return kv_int8 ? run<T, int8_t>(q, k, v, ksc, vsc, lengths, pos, out, B, a, S, s)
+                 : run<T, T>(q, k, v, nullptr, nullptr, lengths, pos, out, B, a, S, s);
 }
 
 }  // namespace
@@ -143,19 +160,25 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* lengths,
 // pos: null for a full cache, else the ring's (B, S) int32 positions;
 // window: 0, or the sliding window of the ring form; causal: 0 for the
 // non-causal form (every query sees j < lengths[b]), which the ring form
-// rejects.
+// rejects; kv_int8: k and v int8 with k_scale and v_scale (B, S, KV)
+// float32 (the causal and the ring form), else in the query's dtype and
+// the scales null.
 DVI_EXPORT int dvi_decode_attention(const void* q, const void* k, const void* v,
                                     const void* lengths, void* out, int B, int Tq, int H,
                                     int KV, int hd, int S, float scale, int splits,
                                     int is_bf16, const void* pos, int window, int causal,
+                                    const void* k_scale, const void* v_scale, int kv_int8,
                                     void* stream) {
   const attn::Args a{Tq, H, KV, hd, 0, 0, splits, scale, window, causal != 0};
-  if (!attn::valid(a, B, is_bf16) || S <= 0 || window < 0 || (window > 0 && pos == nullptr) ||
-      (causal == 0 && pos != nullptr))
+  if (!attn::valid(a, B, is_bf16, kv_int8) || S <= 0 || window < 0 ||
+      (window > 0 && pos == nullptr) || (causal == 0 && pos != nullptr) ||
+      (kv_int8 && (causal == 0 || k_scale == nullptr || v_scale == nullptr)))
     return cudaErrorInvalidValue;
   const int* lp = static_cast<const int*>(lengths);
   const int* pp = static_cast<const int*>(pos);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? run<__nv_bfloat16>(q, k, v, lp, pp, out, B, a, S, s)
-                 : run<float>(q, k, v, lp, pp, out, B, a, S, s);
+  return is_bf16 ? run_kv<__nv_bfloat16>(q, k, v, ks, vs, kv_int8, lp, pp, out, B, a, S, s)
+                 : run_kv<float>(q, k, v, ks, vs, kv_int8, lp, pp, out, B, a, S, s);
 }

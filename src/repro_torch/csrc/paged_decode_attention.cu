@@ -26,6 +26,11 @@
 // pos <= qpos).  A query with no live slot, as on an idle lane of length 0
 // with an all -1 row, gets 0.  The body is attn_tile.cuh.
 //
+// The int8 KV cache (kv_int8: int8 pages with k_scale and v_scale (P, ps,
+// KV) float32, the reference's paged layout under kv_quant): the body
+// stages each slot's int8 row and its scales and dequantises the landed
+// tile in shared memory (attn_tile.cuh), as decode_attention.cu does.
+//
 // Bound on H100: the live mapped K and V bytes of the call (at the verify
 // pass of the continuous path, B = 8, 32 kv heads of 128 in bf16 and about
 // 135 live slots a lane, some 18 MB: 0.0054 ms at 3.35 TB/s; 0.0051 ms at a
@@ -66,9 +71,10 @@ struct PagedMap {
   __device__ int pos(int j) const { return j; }   // logical slot j holds position j
 };
 
-template <typename T, int HD>
+template <typename T, typename KT, int HD>
 __global__ void __launch_bounds__(attn::THREADS)
-paged_decode_attn(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
+paged_decode_attn(const T* __restrict__ q, const KT* __restrict__ kp, const KT* __restrict__ vp,
+                  const float* __restrict__ ksc, const float* __restrict__ vsc,
                   const int* __restrict__ lengths, const int* __restrict__ tables,
                   const int* __restrict__ page_counts, T* __restrict__ out, attn::Args a,
                   int ps, int mps) {
@@ -76,49 +82,70 @@ paged_decode_attn(const T* __restrict__ q, const T* __restrict__ kp, const T* __
   // blockIdx.y is (kv head, row tile), the tile minor
   const int R = a.Tq * (a.H / a.KV), tiles = attn::row_tiles(R);
   const int b = blockIdx.z;
-  const attn::Layout L =
-      attn::layout(attn::tile_rows(R), a.hd, sizeof(T), a.bs, a.stages, a.splits, 0);
+  const attn::Layout L = attn::layout(attn::tile_rows(R), a.hd, sizeof(T), sizeof(KT), a.bs,
+                                      a.stages, a.splits, 0);
   const int pc = page_counts ? min(max(page_counts[b], 1), mps) : 0;
   const PagedMap map{tables + (size_t)b * mps, reinterpret_cast<int*>(smem + L.extra), 0, ps,
                      mps, pc};
-  attn::flash_decode<T, HD>(q, kp, vp, lengths, out, a, map, b, blockIdx.y / tiles,
-                            (blockIdx.y % tiles) * attn::MAX_ROWS, smem);
+  attn::flash_decode<T, KT, HD>(q, kp, vp, ksc, vsc, lengths, out, a, map, b,
+                                blockIdx.y / tiles, (blockIdx.y % tiles) * attn::MAX_ROWS,
+                                smem);
+}
+
+template <typename T, typename KT>
+cudaError_t run(const void* q, const void* kp, const void* vp, const float* ksc,
+                const float* vsc, const int* lengths, const int* tables, const int* pcs,
+                void* out, int B, attn::Args a, int ps, int mps, cudaStream_t s) {
+  const size_t smem = attn::plan(a, mps * ps, sizeof(T), sizeof(KT), ps);
+  if (smem == 0) return cudaErrorInvalidValue;
+  const T* qp = static_cast<const T*>(q);
+  const KT* k = static_cast<const KT*>(kp);
+  const KT* v = static_cast<const KT*>(vp);
+  T* op = static_cast<T*>(out);
+  if (a.hd <= 64)
+    return attn::launch<paged_decode_attn<T, KT, 64>>(a, B, smem, s, qp, k, v, ksc, vsc,
+                                                      lengths, tables, pcs, op, a, ps, mps);
+  if (a.hd <= 128)
+    return attn::launch<paged_decode_attn<T, KT, 128>>(a, B, smem, s, qp, k, v, ksc, vsc,
+                                                       lengths, tables, pcs, op, a, ps, mps);
+  return attn::launch<paged_decode_attn<T, KT, 256>>(a, B, smem, s, qp, k, v, ksc, vsc,
+                                                     lengths, tables, pcs, op, a, ps, mps);
 }
 
 template <typename T>
-cudaError_t run(const void* q, const void* kp, const void* vp, const int* lengths,
-                const int* tables, const int* pcs, void* out, int B, attn::Args a, int ps,
-                int mps, cudaStream_t s) {
-  const size_t smem = attn::plan(a, mps * ps, sizeof(T), ps);
-  if (smem == 0) return cudaErrorInvalidValue;
-  const T* qp = static_cast<const T*>(q);
-  const T* k = static_cast<const T*>(kp);
-  const T* v = static_cast<const T*>(vp);
-  T* op = static_cast<T*>(out);
-  if (a.hd <= 64)
-    return attn::launch<paged_decode_attn<T, 64>>(a, B, smem, s, qp, k, v, lengths, tables,
-                                                  pcs, op, a, ps, mps);
-  if (a.hd <= 128)
-    return attn::launch<paged_decode_attn<T, 128>>(a, B, smem, s, qp, k, v, lengths, tables,
-                                                   pcs, op, a, ps, mps);
-  return attn::launch<paged_decode_attn<T, 256>>(a, B, smem, s, qp, k, v, lengths, tables,
-                                                 pcs, op, a, ps, mps);
+cudaError_t run_kv(const void* q, const void* kp, const void* vp, const float* ksc,
+                   const float* vsc, int kv_int8, const int* lengths, const int* tables,
+                   const int* pcs, void* out, int B, const attn::Args& a, int ps, int mps,
+                   cudaStream_t s) {
+  return kv_int8
+             ? run<T, int8_t>(q, kp, vp, ksc, vsc, lengths, tables, pcs, out, B, a, ps, mps, s)
+             : run<T, T>(q, kp, vp, nullptr, nullptr, lengths, tables, pcs, out, B, a, ps, mps,
+                         s);
 }
 
 }  // namespace
 
+// kv_int8: int8 pages with k_scale and v_scale (P, ps, KV) float32, else
+// pages in the query's dtype and the scales null.
 DVI_EXPORT int dvi_paged_decode_attention(const void* q, const void* k_pages,
                                           const void* v_pages, const void* lengths,
                                           const void* block_tables, void* out, int B, int Tq,
                                           int H, int KV, int hd, int ps, int mps, float scale,
                                           int splits, int is_bf16, const void* page_counts,
-                                          void* stream) {
+                                          const void* k_scale, const void* v_scale,
+                                          int kv_int8, void* stream) {
   const attn::Args a{Tq, H, KV, hd, 0, 0, splits, scale};
-  if (!attn::valid(a, B, is_bf16) || ps <= 0 || mps <= 0) return cudaErrorInvalidValue;
+  if (!attn::valid(a, B, is_bf16, kv_int8) || ps <= 0 || mps <= 0 ||
+      (kv_int8 && (k_scale == nullptr || v_scale == nullptr)))
+    return cudaErrorInvalidValue;
   const int* lp = static_cast<const int*>(lengths);
   const int* tp = static_cast<const int*>(block_tables);
   const int* pp = static_cast<const int*>(page_counts);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? run<__nv_bfloat16>(q, k_pages, v_pages, lp, tp, pp, out, B, a, ps, mps, s)
-                 : run<float>(q, k_pages, v_pages, lp, tp, pp, out, B, a, ps, mps, s);
+  return is_bf16 ? run_kv<__nv_bfloat16>(q, k_pages, v_pages, ks, vs, kv_int8, lp, tp, pp, out,
+                                         B, a, ps, mps, s)
+                 : run_kv<float>(q, k_pages, v_pages, ks, vs, kv_int8, lp, tp, pp, out, B, a,
+                                 ps, mps, s);
 }

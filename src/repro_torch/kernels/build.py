@@ -22,8 +22,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("verify_argmax", "lora_logits", "decode_attention", "paged_decode_attention",
            "ssd_scan")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
+# --split-compile=0 optimises a source's kernels in parallel on the host's
+# cores: the attention sources hold 12-24 template instantiations each
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

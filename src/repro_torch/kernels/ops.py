@@ -33,14 +33,16 @@ _ARGTYPES = {
     "lora_logits": [_VOID, _VOID, _VOID, _VOID, _FLOAT, _INT, _INT, _INT, _INT,
                     _INT, _INT, _VOID, _VOID, _VOID],
     # q, k, v, lengths, out, B, Tq, H, KV, hd, S, scale, splits, is_bf16,
-    # pos (or null), window, causal, stream
+    # pos (or null), window, causal, k_scale, v_scale (or null), kv_int8, stream
     "decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
-                         _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID, _INT, _INT, _VOID],
+                         _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID, _INT, _INT, _VOID,
+                         _VOID, _INT, _VOID],
     # q, k_pages, v_pages, lengths, block_tables, out, B, Tq, H, KV, hd, ps,
-    # MPS, scale, splits, is_bf16, page_counts (or null), stream
+    # MPS, scale, splits, is_bf16, page_counts (or null), k_scale, v_scale
+    # (or null), kv_int8, stream
     "paged_decode_attention": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
                                _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID,
-                               _VOID],
+                               _VOID, _VOID, _INT, _VOID],
     # xh, Bc, Cc, dt, A, h0, sxb, sxt, sbb, sbt, scb, sct, B, T, H, hd, ds, Q,
     # is_bf16, splits, y, hout, stream
     "ssd_scan": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _I64, _I64, _I64, _I64, _I64,
@@ -76,6 +78,10 @@ vocab_paths: Dict[str, Dict[str, int]] = {name: {"fast": 0, "element": 0}
 # "causal" (a block over a contiguous cache), "ring" (the ring form) or
 # "cross" (the non-causal form over an encoder's K/V).
 attn_forms: Dict[str, int] = {"causal": 0, "ring": 0, "cross": 0}
+# Launches of both attention kernels by the storage of the K/V they read
+# since the last reset_launches(): "model" (the query's dtype) or "int8"
+# (the int8 KV cache, with its scales).
+attn_kv: Dict[str, int] = {"model": 0, "int8": 0}
 
 
 def reset_launches() -> None:
@@ -84,13 +90,14 @@ def reset_launches() -> None:
     for paths in vocab_paths.values():
         paths.update(fast=0, element=0)
     attn_forms.update(causal=0, ring=0, cross=0)
+    attn_kv.update(model=0, int8=0)
 
 
 def counts() -> dict:
-    """A copy of ``launches``, ``vocab_paths`` and ``attn_forms``."""
+    """A copy of ``launches``, ``vocab_paths``, ``attn_forms`` and ``attn_kv``."""
     return {"launches": dict(launches),
             "vocab_paths": {name: dict(v) for name, v in vocab_paths.items()},
-            "attn_forms": dict(attn_forms)}
+            "attn_forms": dict(attn_forms), "attn_kv": dict(attn_kv)}
 
 
 def add_counts(delta: dict) -> None:
@@ -103,6 +110,8 @@ def add_counts(delta: dict) -> None:
             vocab_paths[name][path] += n
     for form, n in delta.get("attn_forms", {}).items():
         attn_forms[form] += n
+    for kind, n in delta.get("attn_kv", {}).items():
+        attn_kv[kind] += n
 
 
 _fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -149,15 +158,34 @@ def _contig(**ts: torch.Tensor) -> None:
         _need(t.is_contiguous(), f"{n} must be contiguous")
 
 
-def _check_attn_shape(name: str, Tq: int, hd: int, dtype: torch.dtype) -> None:
+def _check_attn_shape(name: str, Tq: int, hd: int, dtype: torch.dtype,
+                      kv_int8: bool = False) -> None:
     """What the attention kernels take: at most ATTN_MAX_TQ queries a lane
     (their Tq * G rows a kv head cut into row tiles of ATTN_MAX_ROWS), and
     hd up to ATTN_MAX_HD in whole mma k-steps (16) for bf16 or 16-byte
-    float32 copies (4)."""
-    step = 16 if dtype == torch.bfloat16 else 4
+    float32 copies (4); int8 K/V rows in whole 16-byte copies (16)."""
+    step = 16 if dtype == torch.bfloat16 or kv_int8 else 4
     _need(Tq <= ATTN_MAX_TQ, f"{name}: needs Tq <= {ATTN_MAX_TQ}, got Tq={Tq}")
     _need(hd <= ATTN_MAX_HD and hd % step == 0,
-          f"{name}: needs hd <= {ATTN_MAX_HD} and hd % {step} == 0 for {dtype}, got hd={hd}")
+          f"{name}: needs hd <= {ATTN_MAX_HD} and hd % {step} == 0 for {dtype}"
+          f"{' with int8 K/V' if kv_int8 else ''}, got hd={hd}")
+
+
+def _check_kv(name: str, q, k, v, k_scale, v_scale, scale_shape: tuple) -> bool:
+    """K/V without scales (the kernel needs them in q's dtype), or int8 with
+    float32 scales of `scale_shape` (one a slot and kv head).  Returns
+    whether they are int8."""
+    if k.dtype != torch.int8 and v.dtype != torch.int8:
+        _need(k_scale is None and v_scale is None,
+              f"{name}: k_scale / v_scale go with int8 K/V only")
+        return False
+    _need(k.dtype == v.dtype == torch.int8, f"{name}: int8 K needs int8 V")
+    _need(k_scale is not None and v_scale is not None, f"{name}: int8 K/V need their scales")
+    for n, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _need(t.dtype == torch.float32 and tuple(t.shape) == scale_shape,
+              f"{name}: {n} must be {scale_shape} float32, got {tuple(t.shape)} {t.dtype}")
+        _need(t.device == q.device, f"{name}: {n} on {t.device}, q on {q.device}")
+    return True
 
 
 def attn_row_tiles(rows: int) -> int:
@@ -334,7 +362,7 @@ class LoraLogits(torch.autograd.Function):
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, pos=None, window: int = 0,
-                     causal: bool = True) -> torch.Tensor:
+                     causal: bool = True, k_scale=None, v_scale=None) -> torch.Tensor:
     """Flash-decode GQA over a contiguous cache, visiting only live slots.
 
     q (B, H, hd) attends slots j < lengths[b]; q (B, Tq, H, hd) is a block
@@ -353,19 +381,33 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The non-causal form, ``causal=False`` (cross-attention over an
     encoder's K/V, lengths all F): every query of the block attends the
-    slots j < lengths[b].  The ring form is causal."""
+    slots j < lengths[b].  The ring form is causal.
+
+    The int8 KV cache: k/v int8 with `k_scale` / `v_scale` (B, S, KV)
+    float32, one scale a slot and kv head.  Slot j's K row is read as
+    ``(k[b, j].float() * k_scale[b, j, :, None]).to(q.dtype)``, rounded
+    once to the query's dtype as ``kv_dequantize`` rounds it, and V the
+    same; the kernel does this itself, per staged tile, for the contiguous
+    and the ring form (hd a multiple of 16).  The non-causal form takes no
+    int8 K/V: cross K/V stay in the model dtype."""
+    _need(q.ndim in (3, 4) and k.ndim == 4 and k.shape == v.shape,
+          f"decode_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    kv_int8 = _check_kv("decode_attention", q, k, v, k_scale, v_scale, tuple(k.shape[:3]))
+    _need(causal or not kv_int8,
+          "decode_attention: the non-causal form takes no int8 K/V (cross K/V stay in "
+          "the model dtype)")
     tensors = (q, k, v, lengths) + ((pos,) if pos is not None else ())
     if _device(*tensors).type == "cpu":
-        return ref.decode_attention(q, k, v, lengths, pos=pos, window=window, causal=causal)
+        return ref.decode_attention(q, k, v, lengths, pos=pos, window=window, causal=causal,
+                                    k_scale=k_scale, v_scale=v_scale)
     single = q.ndim == 3
     q4 = q[:, None] if single else q
-    _need(q4.ndim == 4 and k.ndim == 4 and k.shape == v.shape,
-          f"decode_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     B, Tq, H, hd = q4.shape
     S, KV = k.shape[1], k.shape[2]
     _need(k.shape[0] == B and k.shape[3] == hd and H % KV == 0,
           "decode_attention: k/v must be (B, S, KV, hd) with H a multiple of KV")
-    _need(q.dtype == k.dtype == v.dtype, "decode_attention: q, k, v must share a dtype")
+    _need(kv_int8 or q.dtype == k.dtype == v.dtype,
+          "decode_attention: q, k, v must share a dtype, or k, v be int8 with scales")
     _need(lengths.dtype == torch.int32 and lengths.shape == (B,),
           "decode_attention: lengths must be (B,) int32")
     _need(window >= 0 and (pos is not None or window == 0),
@@ -376,23 +418,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               "decode_attention: pos must be (B, S) int32")
         _contig(pos=pos)
     is_bf16 = _check_dtype(q.dtype)
-    _check_attn_shape("decode_attention", Tq, hd, q.dtype)
+    _check_attn_shape("decode_attention", Tq, hd, q.dtype, kv_int8)
     q4 = q4.contiguous() if single else q4
     _contig(q=q4, k=k, v=v, lengths=lengths)
     _aligned("decode_attention", q=q4, k=k, v=v)
+    if kv_int8:
+        _contig(k_scale=k_scale, v_scale=v_scale)
     out = torch.empty_like(q4)
     _launch("decode_attention", q4.data_ptr(), k.data_ptr(), v.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd, S, 1.0 / math.sqrt(hd),
             attn_splits(S, B * KV * attn_row_tiles(Tq * (H // KV))), is_bf16,
             pos.data_ptr() if pos is not None else None, int(window), int(causal),
-            _stream(q.device))
+            k_scale.data_ptr() if kv_int8 else None, v_scale.data_ptr() if kv_int8 else None,
+            int(kv_int8), _stream(q.device))
     attn_forms["ring" if pos is not None else "causal" if causal else "cross"] += 1
+    attn_kv["int8" if kv_int8 else "model"] += 1
     return out[:, 0] if single else out
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                            lengths: torch.Tensor, block_tables: torch.Tensor,
-                           page_counts=None) -> torch.Tensor:
+                           page_counts=None, k_scale=None, v_scale=None) -> torch.Tensor:
     """Flash-decode GQA over pooled pages read through per-lane block tables,
     visiting only each lane's live mapped slots.
 
@@ -404,23 +450,31 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     (None: ceil(lengths[b] / ps), which the length mask implies).  Returns
     q's shape and dtype.  A query with no live slot (an idle lane) is not
     defined: the kernel gives 0, the plain version the reference's uniform
-    average."""
+    average.
+
+    The int8 KV cache: int8 pages with `k_scale` / `v_scale` (P, ps, KV)
+    float32, read and rounded to the query's dtype as in
+    ``decode_attention``, by the kernel itself (hd a multiple of 16)."""
+    _need(q.ndim in (3, 4) and k_pages.ndim == 4 and k_pages.shape == v_pages.shape,
+          f"paged_decode_attention: q {tuple(q.shape)}, k_pages {tuple(k_pages.shape)}, "
+          f"v_pages {tuple(v_pages.shape)}")
+    kv_int8 = _check_kv("paged_decode_attention", q, k_pages, v_pages, k_scale, v_scale,
+                        tuple(k_pages.shape[:3]))
     tensors = (q, k_pages, v_pages, lengths, block_tables) + (
         (page_counts,) if page_counts is not None else ())
     if _device(*tensors).type == "cpu":
         return ref.paged_decode_attention(q, k_pages, v_pages, lengths, block_tables,
-                                          page_counts=page_counts)
+                                          page_counts=page_counts, k_scale=k_scale,
+                                          v_scale=v_scale)
     single = q.ndim == 3
     q4 = q[:, None] if single else q
-    _need(q4.ndim == 4 and k_pages.ndim == 4 and k_pages.shape == v_pages.shape,
-          f"paged_decode_attention: q {tuple(q.shape)}, k_pages {tuple(k_pages.shape)}, "
-          f"v_pages {tuple(v_pages.shape)}")
     B, Tq, H, hd = q4.shape
     _, ps, KV, _ = k_pages.shape
     _need(k_pages.shape[3] == hd and H % KV == 0,
           "paged_decode_attention: pages must be (P, ps, KV, hd) with H a multiple of KV")
-    _need(q.dtype == k_pages.dtype == v_pages.dtype,
-          "paged_decode_attention: q and the pages must share a dtype")
+    _need(kv_int8 or q.dtype == k_pages.dtype == v_pages.dtype,
+          "paged_decode_attention: q and the pages must share a dtype, or the pages be int8 "
+          "with scales")
     _need(lengths.dtype == torch.int32 and lengths.shape == (B,),
           "paged_decode_attention: lengths must be (B,) int32")
     _need(block_tables.dtype == torch.int32 and block_tables.ndim == 2
@@ -432,18 +486,23 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
               "paged_decode_attention: page_counts must be (B,) int32")
         _contig(page_counts=page_counts)
     is_bf16 = _check_dtype(q.dtype)
-    _check_attn_shape("paged_decode_attention", Tq, hd, q.dtype)
+    _check_attn_shape("paged_decode_attention", Tq, hd, q.dtype, kv_int8)
     q4 = q4.contiguous() if single else q4
     _contig(q=q4, k_pages=k_pages, v_pages=v_pages, lengths=lengths,
             block_tables=block_tables)
     _aligned("paged_decode_attention", q=q4, k_pages=k_pages, v_pages=v_pages)
+    if kv_int8:
+        _contig(k_scale=k_scale, v_scale=v_scale)
     mps = block_tables.shape[1]
     out = torch.empty_like(q4)
     _launch("paged_decode_attention", q4.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, Tq, H, KV, hd,
             ps, mps, 1.0 / math.sqrt(hd),
             attn_splits(mps * ps, B * KV * attn_row_tiles(Tq * (H // KV))), is_bf16,
-            page_counts.data_ptr() if page_counts is not None else None, _stream(q.device))
+            page_counts.data_ptr() if page_counts is not None else None,
+            k_scale.data_ptr() if kv_int8 else None, v_scale.data_ptr() if kv_int8 else None,
+            int(kv_int8), _stream(q.device))
+    attn_kv["int8" if kv_int8 else "model"] += 1
     return out[:, 0] if single else out
 
 

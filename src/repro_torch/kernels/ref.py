@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import attend
+from repro_torch.models.layers import attend, kv_dequantize
 from repro_torch.serving.kv_pool import logical_to_physical
 
 
@@ -31,7 +31,7 @@ def lora_logits(h: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tens
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, pos=None, window: int = 0,
-                     causal: bool = True) -> torch.Tensor:
+                     causal: bool = True, k_scale=None, v_scale=None) -> torch.Tensor:
     """Decode attention over a contiguous cache.
 
     q (B, H, hd): one query per lane attending slots j < lengths[b].
@@ -45,9 +45,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window (the reference's ring step mask).
 
     ``causal=False`` (cross-attention over an encoder's K/V): every query of
-    the block attends the slots j < lengths[b]; the ring form is causal."""
+    the block attends the slots j < lengths[b]; the ring form is causal.
+
+    int8 k/v with `k_scale` / `v_scale` (B, S, KV) float32 (the int8 KV
+    cache): dequantised to q's dtype first (``kv_dequantize``), as the
+    reference dequantises before it attends."""
     if not causal and pos is not None:
         raise ValueError("decode_attention: the ring form is causal")
+    k, v = _dequantized(q, k, v, k_scale, v_scale)
     single = q.ndim == 3
     q4 = q[:, None] if single else q
     Tq, S = q4.shape[1], k.shape[1]
@@ -64,6 +69,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, 0] if single else out
 
 
+def _dequantized(q, k, v, k_scale, v_scale):
+    """k and v as attend reads them: themselves, or int8 values with their
+    scales dequantised to q's dtype."""
+    if k_scale is None:
+        return k, v
+    return kv_dequantize(k, k_scale, q.dtype), kv_dequantize(v, v_scale, q.dtype)
+
+
 def _block_limits(lengths: torch.Tensor, Tq: int) -> torch.Tensor:
     """(B, Tq, 1): query t of a block sees slots j < lengths - (Tq-1-t)."""
     t = torch.arange(Tq, device=lengths.device)
@@ -72,7 +85,7 @@ def _block_limits(lengths: torch.Tensor, Tq: int) -> torch.Tensor:
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                            lengths: torch.Tensor, block_tables: torch.Tensor,
-                           page_counts=None) -> torch.Tensor:
+                           page_counts=None, k_scale=None, v_scale=None) -> torch.Tensor:
     """Decode attention over pooled pages read through per-lane block tables.
 
     k_pages/v_pages (P, ps, KV, hd), physical page 0 the null page;
@@ -85,7 +98,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     ``ref_paged_decode_attention`` does; None leaves ceil(lengths / ps),
     which the length mask already implies.  A query with no live slot gets
     the reference's uniform average over the masked view (the kernel gives
-    0); only idle lanes have one."""
+    0); only idle lanes have one.  int8 pages with `k_scale` / `v_scale`
+    (P, ps, KV) float32: dequantised to q's dtype first."""
+    k_pages, v_pages = _dequantized(q, k_pages, v_pages, k_scale, v_scale)
     single = q.ndim == 3
     q4 = q[:, None] if single else q
     B, Tq = q4.shape[:2]

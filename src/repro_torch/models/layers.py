@@ -1,6 +1,6 @@
 """Shared layer primitives: RMSNorm, RoPE, Whisper's sinusoidal positions,
 GQA attention, GLU MLPs, the causal depthwise convolution of the Mamba-2
-block.
+block, and the int8 KV cache's quantiser.
 
 Port of ``repro.models.layers`` with the same conventions:
 
@@ -74,6 +74,27 @@ def sinusoidal_at(positions: torch.Tensor, dim: int) -> torch.Tensor:
 def sinusoidal_positions(num_pos: int, dim: int, device=None) -> torch.Tensor:
     """Whisper-style sinusoidal embeddings (num_pos, dim), float32."""
     return sinusoidal_at(torch.arange(num_pos, device=device), dim)
+
+
+# ---------------------------------------------------------------------------
+# The int8 KV cache (``cfg.kv_quant``)
+# ---------------------------------------------------------------------------
+
+def kv_quantize(x: torch.Tensor):
+    """(..., KV, hd) -> (int8 values, float32 scales (..., KV)): one scale a
+    (slot, kv head), max(amax over hd, 1e-6) / 127, values rounded half to
+    even and clipped to +-127, all in float32, as the reference's
+    ``kv_quantize``."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int8 values (..., KV, hd) times their float32 scales (..., KV), the
+    product rounded once to `dtype`."""
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -320,5 +320,4 @@ class Model:
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """The model on `device`: the card unless the caller asks for the CPU."""
     cfg.validate()
-    tfm.check_supported(cfg)
     return Model(cfg, resolve_device(device))

@@ -49,6 +49,15 @@ Two execution modes:
 cache holds ``xlen`` (B,) int32, all F, the length the non-causal form of
 ``decode_attention`` reads them with.
 
+The int8 KV cache (``cfg.kv_quant``, the reference's): every attention K/V
+leaf (contiguous, ring, paged) holds int8 values with one float32 scale a
+(slot, kv head) beside it, ``ks`` / ``vs`` (n, B, C, KV) or ``ksp`` /
+``vsp`` (n, P+1, ps, KV) (``layers.kv_quantize``).  A block's K/V and a
+prefill's are quantised once, as they are written; the attention kernels
+read the int8 values and the scales themselves.  The prefill's own
+attention stays in full precision, as in the reference.  Cross K/V, MLA
+latents and SSM / RG-LRU states are never quantised.
+
 Two cache layouts (``forward_step`` reads which from the cache):
 
 * contiguous (``init_cache``): per-lane K/V (n, B, C, KV, hd); SSM
@@ -68,11 +77,9 @@ Continuous batching edits one lane of a live cache in place:
 ``insert_slot`` splices a prefilled lane in (or, with ``src=None``, the
 prefix cache's shared pages through the table alone), ``reset_slot``
 empties one, ``map_slot_pages``/``set_block_tables`` edit the block table
-and ``copy_page`` copies one page on write.  All of it runs on PyTorch's
-current stream, so it is ordered after any step still running on the
-device.
-
-Not ported yet (it raises ``NotImplementedError``): ``kv_quant``.
+and ``copy_page`` copies one page on write, scales with their values.  All
+of it runs on PyTorch's current stream, so it is ordered after any step
+still running on the device.
 """
 from __future__ import annotations
 
@@ -90,7 +97,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (MaskSpec, apply_rope, attend_full, dense_init,
-                                       head_rms_norm, mlp, rms_norm)
+                                       head_rms_norm, kv_quantize, mlp, rms_norm)
 from repro_torch.serving.kv_pool import logical_to_physical
 
 # Extra ring slots past the window, so eager writes (rejected speculative
@@ -113,12 +120,6 @@ class Segment:
     @property
     def name(self) -> str:
         return f"s{self.idx}"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: the int8 KV cache."""
-    if cfg.kv_quant:
-        raise NotImplementedError(f"{cfg.name}: not ported yet: kv_quant")
 
 
 def layer_kinds(cfg: ModelConfig):
@@ -321,14 +322,17 @@ def spread_write(cache: torch.Tensor, blk: torch.Tensor, lengths: torch.Tensor,
 
 
 def attn_layer_step(p, x, kcache, vcache, lengths, cfg: ModelConfig,
-                    seg: Optional[Segment] = None, pos=None, cross=None):
+                    seg: Optional[Segment] = None, pos=None, cross=None, kscale=None,
+                    vscale=None):
     """Block-decode attention layer against the cache.
 
     kcache/vcache: (B, C, KV, hd), updated in place with this block's K/V at
     slots ``lengths + i`` (mod C on a ring) before the attention kernel
-    reads them.  `pos` (B, C): a ring's slot positions, already holding the
-    block's (``run_segment_step``); the kernel then masks by position and
-    the segment's window.  `cross` (xk, xv, xlen): a cross layer's cached
+    reads them; with `kscale` / `vscale` (B, C, KV) float32 (``kv_quant``)
+    they are int8 and the block is quantised first, values and scales
+    written at the same slots.  `pos` (B, C): a ring's slot positions,
+    already holding the block's (``run_segment_step``); the kernel then
+    masks by position and the segment's window.  `cross` (xk, xv, xlen): a cross layer's cached
     encoder K/V (B, F, H, hd) and their length (B,), attended after the
     self-attention through the kernel's non-causal form.  An "audio"
     config has no RoPE (its positions are added at the embedding)."""
@@ -340,10 +344,14 @@ def attn_layer_step(p, x, kcache, vcache, lengths, cfg: ModelConfig,
         q = apply_rope(q, qpos, cfg.rope_theta)
         k = apply_rope(k, qpos, cfg.rope_theta)
     ring = pos is not None
-    spread_write(kcache, k, lengths, wrap=ring)
-    spread_write(vcache, v, lengths, wrap=ring)
+    for cache, scales, blk in ((kcache, kscale, k), (vcache, vscale, v)):
+        if scales is not None:
+            blk, blk_scales = kv_quantize(blk)
+            spread_write(scales, blk_scales, lengths, wrap=ring)
+        spread_write(cache, blk, lengths, wrap=ring)
     out = ops.decode_attention(q.contiguous(), kcache, vcache, (lengths + T).to(torch.int32),
-                               pos=pos, window=cfg.local_window if ring else 0)
+                               pos=pos, window=cfg.local_window if ring else 0,
+                               k_scale=kscale, v_scale=vscale)
     x = x + out.reshape(B, T, -1) @ p["wo"]
     if cross is not None:
         x = _cross_attn(p, x, *cross[:2], cfg, xlen=cross[2])
@@ -363,7 +371,7 @@ def mla_layer_step(p, x, ckv_cache, krope_cache, lengths, cfg: ModelConfig,
 
 
 def paged_write(pages: torch.Tensor, blk: torch.Tensor, phys: torch.Tensor) -> None:
-    """Write blk (B, T, KV, hd) into pages (P, ps, KV, hd) at flat physical
+    """Write blk (B, T, ...) into pages (P, ps, ...) at flat physical
     slots phys (B, T), IN PLACE.  Lanes own disjoint pages, so indices
     collide only on the null page (unmapped or past-the-table positions),
     whose contents are never read."""
@@ -373,12 +381,14 @@ def paged_write(pages: torch.Tensor, blk: torch.Tensor, phys: torch.Tensor) -> N
 
 
 def attn_layer_step_paged(p, x, kpages, vpages, tbl, lengths, cfg: ModelConfig,
-                          seg: Optional[Segment] = None):
+                          seg: Optional[Segment] = None, kscale=None, vscale=None):
     """Block-decode attention layer against the pooled paged cache.
 
     kpages/vpages: (P, ps, KV, hd) physical pages shared by every lane
-    (page 0 = null page).  tbl: (B, MPS) int32 block table; logical
-    position t of lane b lives at physical slot
+    (page 0 = null page); int8 under ``kv_quant``, with their scales
+    `kscale` / `vscale` (P, ps, KV) float32 written at the same slots.
+    tbl: (B, MPS) int32 block table; logical position t of lane b lives at
+    physical slot
     ``tbl[b, t // ps] * ps + t % ps``, and -1 entries clamp onto the null
     page, so eager writes from idle lanes are harmless.  The block's K/V
     are written in place at positions ``lengths + i`` before the
@@ -393,10 +403,14 @@ def attn_layer_step_paged(p, x, kpages, vpages, tbl, lengths, cfg: ModelConfig,
     q = apply_rope(q, qpos, cfg.rope_theta)
     k = apply_rope(k, qpos, cfg.rope_theta)
     _, wphys = logical_to_physical(tbl, qpos, ps)
-    paged_write(kpages, k, wphys)
-    paged_write(vpages, v, wphys)
+    for pages, scales, blk in ((kpages, kscale, k), (vpages, vscale, v)):
+        if scales is not None:
+            blk, blk_scales = kv_quantize(blk)
+            paged_write(scales, blk_scales, wphys)
+        paged_write(pages, blk, wphys)
     out = ops.paged_decode_attention(q.contiguous(), kpages, vpages,
-                                     (lengths + T).to(torch.int32), tbl)
+                                     (lengths + T).to(torch.int32), tbl,
+                                     k_scale=kscale, v_scale=vscale)
     x = x + out.reshape(B, T, -1) @ p["wo"]
     return _ffn(p, x, cfg, seg, dropless=True)[0]
 
@@ -500,7 +514,8 @@ def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
     """Returns (x, cands).  Attention segments write their K/V cache (MLA
     segments their latents) in place and have no candidates ({}); `tbl` is
     the block table (B, MPS) when the cache is paged (seg_cache then holds
-    pooled "kp"/"vp" pages instead of per-lane "k"/"v"); a local segment's
+    pooled "kp"/"vp" pages instead of per-lane "k"/"v", and under
+    ``kv_quant`` their scales "ksp"/"vsp", else "ks"/"vs"); a local segment's
     ring first takes the block's positions in its ``pos``.  SSM and RG-LRU
     segments leave their state untouched and return the candidates
     {"conv", "state"} stacked (n, B, T, ...); with `take` (B,), a prefill
@@ -523,17 +538,23 @@ def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
                                lengths, cfg, seg)
         return x, {}
     if "kp" in seg_cache:
+        ksp, vsp = seg_cache.get("ksp"), seg_cache.get("vsp")
         for i in range(seg.n):
             x = attn_layer_step_paged(_layer(sp, i), x, seg_cache["kp"][i],
-                                      seg_cache["vp"][i], tbl, lengths, cfg, seg)
+                                      seg_cache["vp"][i], tbl, lengths, cfg, seg,
+                                      kscale=None if ksp is None else ksp[i],
+                                      vscale=None if vsp is None else vsp[i])
         return x, {}
     pos = seg_cache.get("pos")
     if pos is not None:
         ring_positions(pos, lengths, x.shape[1])
+    ks, vs = seg_cache.get("ks"), seg_cache.get("vs")
     for i in range(seg.n):
         cross = (seg_cache["xk"][i], seg_cache["xv"][i], xlen) if seg.cross else None
         x = attn_layer_step(_layer(sp, i), x, seg_cache["k"][i], seg_cache["v"][i],
-                            lengths, cfg, seg, pos=pos, cross=cross)
+                            lengths, cfg, seg, pos=pos, cross=cross,
+                            kscale=None if ks is None else ks[i],
+                            vscale=None if vs is None else vs[i])
     return x, {}
 
 
@@ -541,11 +562,24 @@ def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
 # Cache construction / commit
 # ---------------------------------------------------------------------------
 
+def _kv_leaves(cfg: ModelConfig, shape: tuple, device, names=("k", "v", "ks", "vs")) -> dict:
+    """Zeroed K and V of `shape` (..., KV, hd) in the model dtype, or under
+    ``kv_quant`` int8 with their float32 scales (..., KV) beside them
+    (named by `names`: values, then scales)."""
+    if not cfg.kv_quant:
+        return {name: torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+                for name in names[:2]}
+    out = {name: torch.zeros(shape, dtype=torch.int8, device=device) for name in names[:2]}
+    out.update({name: torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                for name in names[2:]})
+    return out
+
+
 def _lane_cache(cfg: ModelConfig, seg: Segment, B: int, device) -> Optional[dict]:
     """The per-lane constant-size cache of a segment whatever the layout: an
     SSM or RG-LRU segment's window and state, a local segment's ring (K, V
-    of (n, B, W + RING_SLACK, KV, hd) and ``pos`` (B, W + RING_SLACK), all
-    -1); None for full attention."""
+    of (n, B, W + RING_SLACK, KV, hd), int8 with scales under ``kv_quant``,
+    and ``pos`` (B, W + RING_SLACK), all -1); None for full attention."""
     dtype = cfg.torch_dtype
     if seg.kind == "ssm":
         return ssm_mod.init_ssm_cache(seg.n, B, cfg.d_model, cfg.ssm, dtype, device)
@@ -553,23 +587,22 @@ def _lane_cache(cfg: ModelConfig, seg: Segment, B: int, device) -> Optional[dict
         return rglru_mod.init_rglru_cache(seg.n, B, cfg.d_model, cfg.rglru, dtype, device)
     if seg.kind == "local":
         C = cfg.local_window + RING_SLACK
-        shape = (seg.n, B, C, cfg.num_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device),
-                "pos": torch.full((B, C), -1, dtype=torch.int32, device=device)}
+        c = _kv_leaves(cfg, (seg.n, B, C, cfg.num_kv_heads, cfg.resolved_head_dim), device)
+        c["pos"] = torch.full((B, C), -1, dtype=torch.int32, device=device)
+        return c
     return None
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
     """Contiguous cache for the full stack: per attention segment K and V of
-    shape (n, B, max_len, KV, hd) in the model dtype (MLA: the latents
+    shape (n, B, max_len, KV, hd) in the model dtype, or int8 with ``ks`` /
+    ``vs`` (n, B, max_len, KV) float32 under ``kv_quant`` (MLA: the latents
     ``ckv`` (n, B, max_len, r_kv) and ``krope`` (n, B, max_len, dr), and
     ``pos`` (B, max_len) int32, -1 empty), per SSM or RG-LRU segment the
     conv window and state, per local segment its ring (``_lane_cache``),
     per cross segment its ``xk`` / ``xv`` (n, B, F, H, hd), plus per-lane
     committed ``lengths`` (B,) and, with cross segments, ``xlen`` (B,)
     int32 all F (the encoder's frames)."""
-    check_supported(cfg)
     device = resolve_device(device)
     dtype = cfg.torch_dtype
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -584,8 +617,7 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
                                       device=device),
                  "pos": torch.full((B, max_len), -1, dtype=torch.int32, device=device)}
         elif c is None:
-            c = {"k": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype, device=device),
-                 "v": torch.zeros((seg.n, B, max_len, KV, hd), dtype=dtype, device=device)}
+            c = _kv_leaves(cfg, (seg.n, B, max_len, KV, hd), device)
         if seg.cross:
             shape = (seg.n, B, cfg.encoder.num_frames, cfg.num_heads, hd)
             c.update(xk=torch.zeros(shape, dtype=dtype, device=device),
@@ -602,27 +634,24 @@ def init_paged_cache(cfg: ModelConfig, B: int, num_pages: int, page_size: int,
                      max_pages_per_slot: int, device=None) -> dict:
     """Paged cache: per full-attention segment K and V pooled into
     ``num_pages`` shared pages plus the physical null page 0, (n, num_pages
-    + 1, page_size, KV, hd) in the model dtype; SSM and RG-LRU segments keep
+    + 1, page_size, KV, hd) in the model dtype (under ``kv_quant`` int8,
+    with ``ksp`` / ``vsp`` (n, num_pages + 1, page_size, KV) float32); SSM and RG-LRU segments keep
     their per-lane constant-size state and local segments their per-lane
     rings, as in ``init_cache`` (they gain nothing from paging); per-lane
     ``lengths`` (B,) and the block table ``tbl`` (B, max_pages_per_slot)
     int32, all -1 (unmapped).  MLA latent caches and cross-attention caches
     have no paged layout (``NotImplementedError``, as in the reference)."""
-    check_supported(cfg)
     if cfg.mla is not None:
         raise NotImplementedError("paged KV: MLA latent caches not supported")
     if cfg.encoder is not None:
         raise NotImplementedError("paged KV: cross-attention caches not supported")
     device = resolve_device(device)
-    dtype = cfg.torch_dtype
-    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    shape = (num_pages + 1, page_size, KV, hd)
+    shape = (num_pages + 1, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
     segs = {}
     for seg in model_segments(cfg):
         c = _lane_cache(cfg, seg, B, device)
         if c is None:
-            c = {"kp": torch.zeros((seg.n, *shape), dtype=dtype, device=device),
-                 "vp": torch.zeros((seg.n, *shape), dtype=dtype, device=device)}
+            c = _kv_leaves(cfg, (seg.n, *shape), device, names=("kp", "vp", "ksp", "vsp"))
         segs[seg.name] = c
     return {"lengths": torch.zeros((B,), dtype=torch.int32, device=device),
             "tbl": torch.full((B, max_pages_per_slot), -1, dtype=torch.int32, device=device),
@@ -645,31 +674,36 @@ def set_block_tables(cache: dict, tbl: torch.Tensor) -> dict:
 def _insert_paged_seg(seg_c: dict, src_c: dict, tbl: torch.Tensor, slot: int,
                       src_slot: int = 0) -> None:
     """Splice a contiguous prefill lane into the slot's mapped pages, in
-    place: a block-table-indexed scatter of the source K/V into the pool.
-    Source positions past the mapped region land on the null page."""
+    place: a block-table-indexed scatter of the source K/V (and under
+    ``kv_quant`` their scales) into the pool.  Source positions past the
+    mapped region land on the null page."""
     n, Pp, ps = seg_c["kp"].shape[:3]
     C_src = src_c["k"].shape[2]
     pos = torch.arange(C_src, device=tbl.device)[None, :]
     _, phys = logical_to_physical(tbl[slot:slot + 1], pos, ps)
-    for pooled, src in ((seg_c["kp"], src_c["k"]), (seg_c["vp"], src_c["v"])):
+    for dst, src_key in (("kp", "k"), ("vp", "v"), ("ksp", "ks"), ("vsp", "vs")):
+        if dst not in seg_c:
+            continue
+        pooled, src = seg_c[dst], src_c[src_key]
         flat = pooled.view(n, Pp * ps, *pooled.shape[3:])
         flat[:, phys[0]] = src[:, src_slot].to(pooled.dtype)
 
 
 def copy_page(cache: dict, src_page: int, dst_page: int) -> dict:
-    """Copy on write, in place: physical page `src_page`'s K/V onto page
-    `dst_page` in every layer of every paged segment, one indexed copy a
-    leaf.  Prefix-cache admission uses it when a cached prefix ends
-    mid-page: the partly matching page is copied into the lane's first
-    own page, and the lane then appends through its own table without
-    touching the shared original.  Slots past the matched prefix carry the
+    """Copy on write, in place: physical page `src_page`'s K/V (and under
+    ``kv_quant`` their scales) onto page `dst_page` in every layer of every
+    paged segment, one indexed copy a leaf.  Prefix-cache admission uses
+    it when a cached prefix ends mid-page: the partly matching page is
+    copied into the lane's first own page, and the lane then appends
+    through its own table without touching the shared original.  Slots past the matched prefix carry the
     donor's K/V, overwritten by the lane's tail before any read."""
     for seg_c in cache["segs"].values():
         if "kp" not in seg_c:
             continue
-        for key in ("kp", "vp"):
-            leaf = seg_c[key]
-            leaf[:, dst_page].copy_(leaf[:, src_page])
+        for key in ("kp", "vp", "ksp", "vsp"):
+            leaf = seg_c.get(key)
+            if leaf is not None:
+                leaf[:, dst_page].copy_(leaf[:, src_page])
     return cache
 
 
@@ -678,9 +712,10 @@ def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
     """Continuous-batching cache surgery, in place: copy lane `src_slot` of
     `src` (a freshly prefilled B = 1 contiguous cache, which may be sized to
     the prompt alone) into lane `slot` of the live cache, and set its
-    length.  Contiguous segments take the source K/V (MLA: its latents and
-    its ``pos`` row, a (B, C) leaf with the lane on axis 0) in the lane's
-    prefix, so the source may be partly built (a chunk-sized scratch);
+    length.  Contiguous segments take the source K/V and their int8 scales
+    (MLA: its latents and its ``pos`` row, a (B, C) leaf with the lane on
+    axis 0) in the lane's prefix, so the source may be partly built (a
+    chunk-sized or prompt-sized scratch);
     paged segments scatter it through the slot's block-table row (map the
     pages with ``map_slot_pages`` first); SSM and RG-LRU segments copy the
     lane's constant-size conv window and state whole, and local segments
@@ -717,7 +752,7 @@ def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
                 leaf[slot, :row.shape[0]] = row
                 continue
             piece = src_c[key][:, src_slot]
-            if key in ("k", "v", "ckv", "krope"):
+            if key in ("k", "v", "ks", "vs", "ckv", "krope"):
                 leaf[:, slot, :piece.shape[1]] = piece.to(leaf.dtype)
             else:
                 leaf[:, slot] = piece.to(leaf.dtype)
@@ -727,8 +762,8 @@ def insert_slot(cfg: ModelConfig, cache: dict, src: Optional[dict], slot: int,
 
 def reset_slot(cfg: ModelConfig, cache: dict, slot: int) -> dict:
     """Evict lane `slot`, in place: length 0 and, for contiguous, ring, MLA,
-    SSM and RG-LRU segments, its K/V, latents, or conv window and state
-    zeroed and a ring's or an MLA segment's slot positions emptied (-1).
+    SSM and RG-LRU segments, its K/V and their int8 scales, latents, or
+    conv window and state zeroed and a ring's or an MLA segment's slot positions emptied (-1).
     Paged segments need no KV work: the lane's block-table row is unmapped
     (-1) and its pages go back to the host-side pool.  Other lanes are
     untouched."""
@@ -755,9 +790,11 @@ def fill_cache_from_full(cfg: ModelConfig, cache: dict, contribs: dict, T: int) 
     there (the rest of ``pos`` kept, as the reference keeps it).  A ring
     takes positions [0, T) at slots [0, T), or, when T exceeds its C slots,
     the last C positions p at slots p mod C; its ``pos`` is set to match
-    and -1 elsewhere.  A cross segment's ``xk`` / ``xv`` take the prefill's
-    whole, in place (the block-step graphs hold their addresses).  All
-    sequences are fully packed (length T)."""
+    and -1 elsewhere.  Under ``kv_quant`` the prefill's K/V are quantised
+    once, and values and scales go to the same slots.  A cross segment's
+    ``xk`` / ``xv`` take the prefill's whole, in place (the block-step
+    graphs hold their addresses).  All sequences are fully packed (length
+    T)."""
     for seg in model_segments(cfg):
         con = contribs.get(seg.name)
         if not con:
@@ -775,6 +812,11 @@ def fill_cache_from_full(cfg: ModelConfig, cache: dict, contribs: dict, T: int) 
             c["krope"][:, :, :T] = con["krope"].to(c["krope"].dtype)
             c["pos"][:, :T] = torch.arange(T, dtype=torch.int32, device=c["pos"].device)
             continue
+        new = {"k": con["k"], "v": con["v"]}
+        if "ks" in c:        # a layer at a time: the float32 temporaries hold one layer
+            for key in ("k", "v"):
+                vals, scales = zip(*(kv_quantize(layer) for layer in con[key]))
+                new[key], new[key[0] + "s"] = torch.stack(vals), torch.stack(scales)
         if "pos" in c:
             Cap = c["k"].shape[2]
             keep = min(T, Cap)
@@ -782,11 +824,11 @@ def fill_cache_from_full(cfg: ModelConfig, cache: dict, contribs: dict, T: int) 
             sl = p % Cap
             c["pos"].fill_(-1)
             c["pos"][:, sl] = p.to(torch.int32)[None, :]
-            c["k"][:, :, sl] = con["k"][:, :, T - keep:].to(c["k"].dtype)
-            c["v"][:, :, sl] = con["v"][:, :, T - keep:].to(c["v"].dtype)
+            for key, val in new.items():
+                c[key][:, :, sl] = val[:, :, T - keep:].to(c[key].dtype)
             continue
-        c["k"][:, :, :T] = con["k"].to(c["k"].dtype)
-        c["v"][:, :, :T] = con["v"].to(c["v"].dtype)
+        for key, val in new.items():
+            c[key][:, :, :T] = val.to(c[key].dtype)
     B = cache["lengths"].shape[0]
     return dict(cache, lengths=torch.full((B,), T, dtype=torch.int32,
                                           device=cache["lengths"].device))

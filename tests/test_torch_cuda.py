@@ -1245,3 +1245,124 @@ def test_baseline_runners_graphed_match_eager(ops):
         for recorded, kernel_nodes in stats["per_graph"]:
             for k, fn in once.items():
                 assert recorded[k] == sum(c for n, c in kernel_nodes.items() if fn in n) > 0
+
+
+def _int8_kv(gen, shape, zero_slot=True):
+    """K/V of `shape` (..., KV, hd) quantised as the int8 KV cache holds
+    them (``kv_quantize``), with the first slot of the first lane all zeros
+    (its scale at the 1e-6 floor): (int8 values, float32 scales)."""
+    from repro_torch.models.layers import kv_quantize
+    x = _randn(gen, *shape)
+    if zero_slot:
+        x[0, 0] = 0
+    return kv_quantize(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq", [1, 5])
+@pytest.mark.parametrize("form", ["contiguous", "ring", "paged", "paged_counts"])
+def test_attention_reads_the_int8_cache(ops, dtype, Tq, form):
+    """The int8 forms of the three attention kernels (the int8 KV cache,
+    ``kv_quant``) against the plain versions, which dequantise to the
+    query's dtype first: a contiguous cache (GQA G 4, hd 128, a lane past
+    its capacity), a ring at recurrentgemma's width (MQA hd 256, G 16,
+    wrapped lanes and stale writes) and pooled pages (ps 16, -1 entries,
+    with and without page counts); each cache's first slot of lane 0 is
+    all zeros.  Every launch counts as an int8 one."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(Tq + len(form))
+    ops.reset_launches()
+    if form == "contiguous":
+        B, H, KV, hd, S = 4, 8, 2, 128, 300
+        q = _randn(gen, B, Tq, H, hd, dtype=dtype)
+        (k, ks), (v, vs) = _int8_kv(gen, (B, S, KV, hd)), _int8_kv(gen, (B, S, KV, hd))
+        lens = torch.tensor([Tq, 150, S, S + 3], dtype=torch.int32, device="cuda")
+        args, kw = (k, v, lens), {}
+    elif form == "ring":
+        B, H, KV, hd, W = 3, 16, 1, 256, 256
+        C = W + 128
+        q = _randn(gen, B, Tq, H, hd, dtype=dtype)
+        (k, ks), (v, vs) = _int8_kv(gen, (B, C, KV, hd)), _int8_kv(gen, (B, C, KV, hd))
+        n = [Tq + 20, C + 1, 2 * C + 7]
+        pos = torch.as_tensor(np.stack([_ring_pos(m, C, 3) for m in n]), device="cuda")
+        lens = torch.as_tensor(n, dtype=torch.int32, device="cuda")
+        args, kw = (k, v, lens), dict(pos=pos, window=W)
+    else:
+        B, H, KV, hd, ps, mps = 4, 16, 4, 128, 16, 6
+        rng = np.random.default_rng(Tq)
+        P = B * mps + 3
+        tbl = rng.permutation(np.arange(1, P))[:B * mps].reshape(B, mps).astype(np.int32)
+        tbl[1, 2] = -1
+        q = _randn(gen, B, Tq, H, hd, dtype=dtype)
+        (k, ks), (v, vs) = _int8_kv(gen, (P, ps, KV, hd)), _int8_kv(gen, (P, ps, KV, hd))
+        tbl[0, 0] = 0                       # the all-zero slot sits on lane 0's first page
+        lens = torch.tensor([mps * ps + 3, 3 * ps + 2, 40, 2 * ps], dtype=torch.int32,
+                            device="cuda")
+        args = (k, v, lens, torch.as_tensor(tbl, device="cuda"))
+        kw = ({"page_counts": torch.tensor([2, 5, 0, 9], dtype=torch.int32, device="cuda")}
+              if form == "paged_counts" else {})
+    q_in = q[:, 0].contiguous() if Tq == 1 else q
+    fn = "paged_decode_attention" if form.startswith("paged") else "decode_attention"
+    got = getattr(ops, fn)(q_in, *args, k_scale=ks, v_scale=vs, **kw)
+    want = getattr(ref, fn)(q_in, *args, k_scale=ks, v_scale=vs, **kw)
+    torch.testing.assert_close(got, want, **TOL[dtype])
+    assert ops.launches[fn] == 1 and ops.attn_kv == {"model": 0, "int8": 1}
+
+
+def test_int8_attention_rejects_what_it_does_not_take(ops):
+    """int8 K/V need their float32 scales, hd a multiple of 16, and the
+    causal or ring form: cross K/V stay in the model dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lens = torch.tensor([3, 4], device="cuda", dtype=torch.int32)
+    q = _randn(gen, 2, 4, 40)
+    k, ks = _int8_kv(gen, (2, 10, 4, 40), zero_slot=False)
+    with pytest.raises(ValueError, match="hd % 16"):
+        ops.decode_attention(q, k, k, lens, k_scale=ks, v_scale=ks)
+    q = _randn(gen, 2, 4, 32)
+    k, ks = _int8_kv(gen, (2, 10, 4, 32), zero_slot=False)
+    with pytest.raises(ValueError, match="scales"):
+        ops.decode_attention(q, k, k, lens)
+    with pytest.raises(ValueError, match="float32"):
+        ops.decode_attention(q, k, k, lens, k_scale=ks.bfloat16(), v_scale=ks.bfloat16())
+    with pytest.raises(ValueError, match="non-causal"):
+        ops.decode_attention(q, k, k, lens, causal=False, k_scale=ks, v_scale=ks)
+
+
+@pytest.mark.parametrize("cell", ["vicuna_sync", "vicuna_paged"])
+def test_int8_cache_paths_on_the_card(ops, cell):
+    """Tiny vicuna in float32 with ``kv_quant`` on the card, graphed and
+    eagerly: bit-identical streams, every attention launch int8, and each
+    completion equal to the int8 model's own ``ar_generate``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import lora, online, spec
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = get_config("vicuna-7b", tiny=True).replace(dtype="float32", kv_quant=True)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    dvi = lora.init_draft_params(gen, cfg)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(2, cfg.vocab_size, size=int(rng.choice([6, 9, 12])))
+                    .astype(np.int32), max_new=int(rng.choice([6, 10, 16]))) for i in range(7)]
+    outs = {}
+    for graphs_on in (False, True):
+        eng = ServingEngine(model, params, online.init_trainer(model, dvi_params=dvi),
+                            graphs=graphs_on, learn=False, **GRAPH_CELLS[cell][1])
+        eng.warmup()
+        for r in reqs:
+            eng.submit_request(r)
+        ops.reset_launches()
+        outs[graphs_on] = {c.uid: c.gen_tokens.tolist() for c in eng.run(max_steps=1000)}
+        attn = ops.launches["decode_attention"] + ops.launches["paged_decode_attention"]
+        assert attn > 0 and ops.attn_kv == {"model": 0, "int8": attn}
+    assert outs[True] == outs[False] and len(outs[True]) == 7
+    if cell == "vicuna_sync":
+        return                             # the sync engine pads prompts to its buckets
+    for r in reqs:
+        res = spec.ar_generate(model, params, torch.as_tensor(r.prompt, device="cuda")[None],
+                               r.max_new)
+        ar = res.tokens[0, len(r.prompt):int(res.lengths[0])].tolist()[:r.max_new]
+        if 1 in ar:
+            ar = ar[:ar.index(1) + 1]
+        assert outs[True][r.uid] == ar, r.uid

@@ -1,10 +1,11 @@
 """The port's import rule, checked on the source: nothing under
 src/repro_torch/ (its data, training, checkpoint and launch packages
-included), not chip_smoke.py, not examples/torch_quickstart.py and not
-the port's scripts (scripts/torch_*.py) imports
-JAX, the JAX package or ``ml_dtypes``, and chip_smoke.py and the quickstart
-need nothing beyond the standard library, torch, numpy and the port (the
-machine with the card has no JAX and no ``ml_dtypes``)."""
+included), not chip_smoke.py, not the port's examples
+(examples/torch_*.py: the quickstart, multi_arch, train_100m) and not the
+port's scripts (scripts/torch_*.py) imports JAX, the JAX package or
+``ml_dtypes``, and chip_smoke.py and the examples need nothing beyond the
+standard library, torch, numpy and the port (the machine with the card has
+no JAX and no ``ml_dtypes``)."""
 import ast
 import pathlib
 import sys
@@ -15,6 +16,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 SMOKE = ROOT / "chip_smoke.py"
 QUICKSTART = ROOT / "examples" / "torch_quickstart.py"
+# the port's examples, which run on the card too
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 # the port's scripts (scripts/torch_*.py), which run on the card too
 SCRIPTS = sorted((ROOT / "scripts").glob("torch_*.py"))
 
@@ -32,13 +35,15 @@ def _imported(path: pathlib.Path):
 
 def test_port_has_modules():
     assert len(PORT_FILES) >= 15 and SMOKE.exists() and QUICKSTART.exists()
+    assert {p.name for p in EXAMPLES} >= {"torch_quickstart.py", "torch_multi_arch.py",
+                                          "torch_train_100m.py"}
     names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
     assert {"data/synthetic.py", "data/sharegpt.py", "training/pretrain.py",
             "checkpoint/ckpt.py", "launch/train.py", "serving/config.py", "serving/http.py",
             "launch/serve.py", "launch/api_server.py", "launch/load_gen.py"} <= names
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [SMOKE, QUICKSTART] + SCRIPTS,
+@pytest.mark.parametrize("path", PORT_FILES + [SMOKE] + EXAMPLES + SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_no_reference_package(path):
     bad = _imported(path) & {"jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes"}
@@ -58,6 +63,12 @@ def test_smoke_imports_only_torch_numpy_and_the_port():
 def test_quickstart_imports_only_torch_numpy_and_the_port():
     extra = _beyond_torch_numpy_and_the_port(QUICKSTART)
     assert not extra, f"torch_quickstart.py imports {extra}"
+
+
+@pytest.mark.parametrize("path", [p for p in EXAMPLES if p != QUICKSTART], ids=lambda p: p.name)
+def test_examples_import_only_torch_numpy_and_the_port(path):
+    extra = _beyond_torch_numpy_and_the_port(path)
+    assert not extra, f"{path.name} imports {extra}"
 
 
 def test_triton_and_kernels_load_lazily():

@@ -139,8 +139,8 @@ def test_config_builds_with_mla_and_refuses_the_rest():
     assert set(params["mtp"]) == {"proj", "norm", "layer"}
     assert set(params["mtp"]["layer"]) >= {"w_dq", "q_ln", "w_uq", "w_dkv", "kv_ln", "w_kr",
                                            "w_uk", "w_uv", "w_o", "wi", "wg", "wo_ff"}
-    with pytest.raises(NotImplementedError):
-        build_model(cfg.replace(kv_quant=True), device="cpu")
+    quant = build_model(cfg.replace(kv_quant=True), device="cpu")   # latents stay unquantised
+    assert set(quant.init_cache(2, 8)["segs"]["s0"]) == {"ckv", "krope", "pos"}
 
 
 @pytest.mark.parametrize("B,T", [(2, 9), (1, 1030)])

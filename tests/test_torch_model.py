@@ -95,11 +95,11 @@ def test_config_copy_matches_reference(name, tiny):
 
 
 def test_unported_architectures_raise():
-    """Only ``kv_quant`` is refused now; and, as in the reference, a paged
-    cache of a cross-attention config."""
+    """Nothing is refused any more (``kv_quant`` builds, its K/V int8);
+    only, as in the reference, a paged cache of a cross-attention config."""
     cfg = get_config("vicuna-7b", tiny=True)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        build_model(cfg.replace(kv_quant=True), device="cpu")
+    quant = build_model(cfg.replace(kv_quant=True), device="cpu")
+    assert quant.init_cache(2, 8)["segs"]["s0"]["k"].dtype == torch.int8
     for name in ("whisper-large-v3", "paligemma-3b"):
         assert build_model(get_config(name), device="cpu").cfg.name == name
     whisper = build_model(get_config("whisper-large-v3", tiny=True), device="cpu")
