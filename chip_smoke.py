@@ -241,7 +241,7 @@ Phases (any failure raises and exits non-zero):
    (32 new tokens) through its runner (``graphs.TwoModelRunner``,
    ``graphs.MedusaRunner``), eagerly and graphed, with gates: graphed ==
    eager bit for bit, every lane equal to the target's ``ar_generate`` or
-   a bf16 near-tie, launches exact (SpS 28 K + 28 ``decode_attention`` and
+   a bf16 near-tie, launches exact (SpS L_d K + L_t ``decode_attention`` and
    K + 1 ``verify_argmax`` a block; Medusa 2 x 32 and 2), each graph's
    kernel nodes == its capture's launches, 0 synchronising operations in a
    block-step (sync debug mode "error"), Medusa's MAT >= 1.9; (d)
@@ -252,8 +252,8 @@ Phases (any failure raises and exits non-zero):
    wall and device ms a block-step, tokens/s, MAT, acceptance, graph
    nodes, ``replay()`` host ms and peak memory;
 16. the hybrid and MoE decoders, weights drawn on the card (bf16, seed 0),
-   eagerly and graphed: (a) recurrentgemma-9b at full width and depth (38
-   layers of (rglru, rglru, local), rings of 2048 + 128 slots) through the
+   eagerly and graphed: (a) recurrentgemma-9b at full width cut to R_LAYERS
+   of its 38 layers of (rglru, rglru, local), rings of 2048 + 128 slots, through the
    sync engine (phase 4's requests, the graphed run profiled with its
    records gate; then R_LONG lanes of prompts longer than the ring, whose
    prefill keeps the ring's last 2176 positions and whose decode wraps) and
@@ -350,7 +350,34 @@ Phases (any failure raises and exits non-zero):
    block-step, nodes, busy share and peak beside phases 4 and 8, the
    hidden-state drift, and the completions equal to
    the bf16 ones and (chunked) to the one-shot int8 ones;
+20. the multi-device layer, on phase 4's vicuna-7b weights and requests:
+   (a, after 19a) ``launch.distributed.init_runtime(require_cuda=True)`` at
+   world size 1 from torchrun's variables (set here, a free port, NCCL), a
+   1 x 1 mesh on the card, an ``all_reduce`` that returns its tensor
+   unchanged, ``production_mesh_or_dryrun()`` raising; (b) phase 4's
+   graphed sync path again under ``hint_mesh`` of that mesh: streams bit
+   for bit phase 4's, the same graph nodes and capture launches, launches
+   40 / 0 / 5 / 1 / 0 a block; the group destroyed; one eager block-step's
+   peak memory on the card (phase 4's B 8, cache 294, K 4); (c, in a
+   process of its own on the host, started with 19c, after every timed
+   window of phases 4-19, and read after it) ``launch.dryrun.run_case`` on fake tensors at a 1 x 1 mesh:
+   vicuna-7b at that shape, its argument bytes == the bytes of the params,
+   drafter, cache and pending tokens the card holds, exactly, and its peak
+   within 10 % of the card's; deepseek-v3-671b at DS_LAYERS and phase
+   17's sync shape, its peak within 10 % of phase 17's eager sync peak;
+   from DS_LAYERS + 1 layers the layers of deepseek that fit one card, and
+   the smallest ("data", "model") mesh with "model" 8 whose decode_32k
+   case fits all 61; (d, beside c) ``python -m repro_torch.launch.dryrun
+   --arch llama3-405b --shape decode_32k`` at 32 x 8 in a process of its
+   own: status, peak, fit, FLOPs, collectives, the roofline's terms,
+   seconds; (e, beside 19c's examples) ``examples/torch_serve_drift.py``
+   exits 0 with its curves and the post-shift acceptance, frozen against
+   online;
 7. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
+
+The float32 witnesses of 16b, 17, 19a and 19b run at the end, beside
+19c's examples and 20c-e's processes (``run_witnesses``), after every timed
+window.
 
 Phases 4, 8 and 9 run every path twice: eagerly (``graphs=False``) and
 replaying one CUDA graph a block-step (the engine's default, the main
@@ -370,6 +397,7 @@ exits non-zero without one.
 """
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import os
@@ -478,12 +506,15 @@ LAUNCH_TIMEOUT = 300.0
 # steps of M_B x M_T synthetic tokens (seeded with PYTHONHASHSEED 0 in a
 # process of their own) at M_LR, and its least MAT
 B_TP, SPS_K = 128, 4
+# the SpS pair cut to Q_LAYERS of their 28 layers since PR 28 (the script's
+# time limit)
+Q_LAYERS = 14
 Q_HEADS = (("qwen3_0_6b", 1024, 151936), ("qwen3_1_7b", 2048, 151936),
            ("qwen25_14b", 5120, 152064))
 Q_ATTN, Q_KV = ((1, 16), (4, 16), (5, 16), (1, 40), (5, 40)), 8
 M_HEADS, M_STEPS, M_B, M_T, M_LR, M_MAT = 3, 8, 8, 256, 1e-3, 1.9
-# the hybrid and MoE decoders (phase 16): recurrentgemma-9b at full width and
-# depth, llama4-scout-17b-a16e at full width cut to L4_LAYERS of its 48
+# the hybrid and MoE decoders (phase 16): recurrentgemma-9b at full width cut
+# to R_LAYERS, llama4-scout-17b-a16e at full width cut to L4_LAYERS of its 48
 # layers (each 4.4 GB in bf16: all 48 do not fit one card; 8 are two
 # (local x 3, attn) periods, so two paged layers); phase 3 checks
 # their ring attention and vocab heads (tags "rg" and "l4"); the sync run of
@@ -491,6 +522,10 @@ M_HEADS, M_STEPS, M_B, M_T, M_LR, M_MAT = 3, 8, 8, 256, 1e-3, 1.9
 # (2176 slots), padded to the engine's one bucket R_BUCKET, so the prefill
 # takes the ring's wrapped write and decoding wraps
 R_NAME, L4_NAME, L4_LAYERS = "recurrentgemma-9b", "llama4-scout-17b-a16e", 8
+# recurrentgemma-9b cut to R_LAYERS of its 38 layers since PR 28 (the
+# script's time limit): 4 periods of (rglru, rglru, local) and 2 RG-LRU
+# layers, so 4 ring layers, all in the verify pass
+R_LAYERS = 14
 # layers of the float32 engine that witnesses llama4's (``llama4_witness``:
 # at 8 layers its float32 weights take 73.4 GiB, beside 3 GiB of rings)
 L4_WIT_LAYERS = 4
@@ -503,6 +538,13 @@ R_LONG_PROMPTS = (2200, 2400)
 # 3 dense and 1 MoE without the MTP head (15.1 B parameters, 60.4 GB); phase
 # 3 checks its vocab heads (tag "ds": d 7168, V 129280)
 DS_NAME, DS_LAYERS, DS_WIT_LAYERS = "deepseek-v3-671b", 4, 4
+# the multi-device layer (phase 20): phase 4's decode shape for the dry run
+# held against the card (8 lanes at 128 committed tokens, a cache of 294),
+# the tolerance of its peak, and the production case run beside it
+D20_B, D20_S, D20_CAP = N_REQUESTS, 128, 294
+D20_PEAK_RTOL = 0.10
+D20_CASE = ("llama3-405b", "decode_32k")
+D20_TIMEOUT = 600.0
 # Whisper and PaliGemma (phase 18): whisper-large-v3 (32 encoder and 32
 # decoder layers, 1500 stub frames of 1280) and paligemma-3b (18 layers, 256
 # stub patches of 1152) at full width and depth in bf16, weights and stubs
@@ -4064,7 +4106,7 @@ def draw(cfg, n: int):
 
 
 def hybrid_phase(by_row) -> tuple:
-    """Phase 16: (a) recurrentgemma-9b at full width and depth through the
+    """Phase 16: (a) recurrentgemma-9b at full width, R_LAYERS layers, through the
     sync engine (phase 4's requests, the graphed run profiled; then R_LONG
     lanes of prompts longer than its rings, so the prefill takes the
     wrapped ring write and decoding wraps) and the contiguous continuous
@@ -4077,10 +4119,10 @@ def hybrid_phase(by_row) -> tuple:
     from repro_torch.serving.engine import Request
     out = {}
     t0 = time.perf_counter()
-    cfg = get_config(R_NAME)
-    check(ring_launches(cfg, False) == (12, 0),
-          f"{R_NAME}: {ring_launches(cfg, False)} attention launches a block, expected 12 "
-          f"ring launches (the draft layers [0, 2) are RG-LRU)")
+    cfg = get_config(R_NAME).replace(num_layers=R_LAYERS)
+    check(ring_launches(cfg, False) == (R_LAYERS // 3, 0),
+          f"{R_NAME} at {R_LAYERS} layers: {ring_launches(cfg, False)} attention launches a "
+          f"block, expected {R_LAYERS // 3} ring launches (the draft layers [0, 2) are RG-LRU)")
     model, params, dvi = draw(cfg, 16)
     reqs = make_requests(cfg)
     # all 12 ring launches a block are the verify pass's (Tq = K + 1)
@@ -4113,7 +4155,7 @@ def hybrid_phase(by_row) -> tuple:
     q19b = int8_hybrid_phase(cfg, model, params, dvi, reqs, long_reqs[:R_LONG])
     del model, params, dvi
     release({})
-    rg_int8_witness(cfg, reqs, long_reqs[:R_LONG])
+    WITNESSES.append(("19b", lambda: rg_int8_witness(cfg, reqs, long_reqs[:R_LONG])))
     out.update(llama4_phase())
     return out, q19b
 
@@ -4149,9 +4191,9 @@ def llama4_phase() -> dict:
                             witness=defer)
     del model, params, dvi
     release({})
-    llama4_witness(creqs, deferred)
-    phase(16, f"16b ({L4_NAME}, {L4_LAYERS} of 48 layers, and its witness) took "
-              f"{time.perf_counter() - t0:.1f} s")
+    WITNESSES.append(("16b", lambda: llama4_witness(creqs, deferred)))
+    phase(16, f"16b ({L4_NAME}, {L4_LAYERS} of 48 layers) took {time.perf_counter() - t0:.1f} s "
+              f"(its witness runs with 19c)")
     return {"llama4_continuous": runs}
 
 
@@ -4281,9 +4323,9 @@ def deepseek_phase(by_row) -> dict:
     mtp_check(model, params, reqs)
     del model, params, dvi
     release({})
-    phase(17, f"17a ({DS_NAME}, {DS_LAYERS} of 61 layers) took {time.perf_counter() - t0:.1f} s")
-    deepseek_witness(reqs, creqs, deferred)
-    phase(17, f"17 ({DS_NAME} and its witness) took {time.perf_counter() - t0:.1f} s")
+    phase(17, f"17a ({DS_NAME}, {DS_LAYERS} of 61 layers) took {time.perf_counter() - t0:.1f} s "
+              f"(its witness runs with 19c)")
+    WITNESSES.append(("17", lambda: deepseek_witness(reqs, creqs, deferred)))
     return {"deepseek_sync": sync, "deepseek_continuous": cont}
 
 
@@ -5040,8 +5082,8 @@ def medusa_phase(model, params, reqs) -> dict:
 
 
 def sps_phase(reqs) -> dict:
-    """Phases 15a and 15b: qwen3-0.6b (28 layers, d 1024) drafting for
-    qwen3-1.7b (28 layers, d 2048), bf16, random weights from SEED, K =
+    """Phases 15a and 15b: qwen3-0.6b (d 1024) drafting for qwen3-1.7b (d
+    2048), both cut to Q_LAYERS of their 28 layers, bf16, random weights from SEED, K =
     SPS_K, then qwen3-0.6b drafting for itself (the same weights, two
     caches: every draft agrees until the drafter's missing d_K shifts it),
     each on phase 12a's 8 prompts padded to B_TP through
@@ -5053,12 +5095,12 @@ def sps_phase(reqs) -> dict:
     from repro_torch.models.model import build_model
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     t0 = time.perf_counter()
-    draft = build_model(get_config("qwen3-0.6b"), device=DEV)
+    draft = build_model(get_config("qwen3-0.6b").replace(num_layers=Q_LAYERS), device=DEV)
     d_params = draft.init(gen)
-    target = build_model(get_config("qwen3-1.7b"), device=DEV)
+    target = build_model(get_config("qwen3-1.7b").replace(num_layers=Q_LAYERS), device=DEV)
     t_params = target.init(gen)
     torch.cuda.synchronize()
-    phase(15, f"qwen3-0.6b and qwen3-1.7b bf16 params drawn on the card in "
+    phase(15, f"qwen3-0.6b and qwen3-1.7b at {Q_LAYERS} layers, bf16 params drawn on the card in "
               f"{time.perf_counter() - t0:.1f} s")
     prompts = padded_prompts(reqs)
     Ld, Lt = draft.cfg.num_layers, target.cfg.num_layers
@@ -5297,7 +5339,7 @@ def int8_prefix_waves(model, params, dvi, cfg) -> dict:
               f"engine's, {tied_one} differ first at a near-tie, {len(deferred)} beyond one "
               f"(chunked prefill attends the dequantised cache, one-shot prefill in full "
               f"precision)")
-    int8_chunk_witness(cfg, waves, deferred)
+    WITNESSES.append(("19a", lambda: int8_chunk_witness(cfg, waves, deferred)))
     out["chunked warm"].update(equal_cold=len(warm) - tied, equal_one_shot=same_one,
                                tied_one_shot=tied_one, deferred=deferred)
     return out["chunked warm"]
@@ -5473,13 +5515,32 @@ def rg_int8_witness(cfg, reqs, long_reqs) -> None:
     release({})
 
 
+# The float32 witnesses of phases 16b, 17, 19a and 19b (closures over
+# their phases' requests and deferred completions), run by
+# ``run_witnesses`` at the end, beside 19c's examples and 20's processes,
+# where no timed window is left.
+WITNESSES: list = []
+
+
+def run_witnesses() -> None:
+    for name, witness in WITNESSES:
+        t0 = time.perf_counter()
+        release({})
+        witness()
+        phase(int(name[:2]), f"{name}'s float32 witness took {time.perf_counter() - t0:.1f} s "
+                             f"(beside 19c's and 20's processes)")
+    WITNESSES.clear()
+    release({})
+
+
 def examples_phase() -> dict:
     """Phase 19c: ``examples/torch_multi_arch.py`` and
     ``examples/torch_train_100m.py --steps 60 --dvi-prompts 80``, each in a
     process of its own, both at once (their tiny models share the card;
     PYTHONHASHSEED pinned), on the card unless the rehearsal names another
-    device: exit 0 and every ``lossless=True``.  Returns the seconds from
-    the start to each one's end."""
+    device: exit 0 and every ``lossless=True``.  The deferred float32
+    witnesses (``run_witnesses``) run here while they do.  Returns the
+    seconds from the start to each one's end."""
     # half the host's cores each, so the two do not contend for them
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), PYTHONHASHSEED="0",
                OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 2)))
@@ -5493,6 +5554,7 @@ def examples_phase() -> dict:
             procs[name] = (lines, subprocess.Popen(
                 [sys.executable, os.path.join(ROOT, "examples", f"{name}.py"), *args, *dev],
                 env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        run_witnesses()
         for name, (lines, proc) in procs.items():
             stdout, stderr = proc.communicate(timeout=LAUNCH_TIMEOUT)
             out[name] = time.perf_counter() - t0
@@ -5515,7 +5577,296 @@ def examples_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the multi-device layer
+# ---------------------------------------------------------------------------
+
+def runtime_phase():
+    """Phase 20a: the NCCL runtime at world size 1 from torchrun's
+    variables, a 1 x 1 mesh on the card, an all-reduce, the production
+    mesh refused.  Returns the mesh (the group stays up for 20b)."""
+    import torch.distributed as dist
+    from repro_torch.launch import distributed, mesh as mesh_mod
+    t0 = time.perf_counter()
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_port()))
+    devices = distributed.init_runtime(require_cuda=True)
+    check(dist.is_initialized() and dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and devices == [torch.device("cuda", 0)],
+          f"init_runtime: backend {dist.get_backend() if dist.is_initialized() else None}, "
+          f"devices {devices}")
+    mesh = mesh_mod.make_debug_mesh(1, 1)
+    x = torch.arange(4096, dtype=torch.float32, device=DEV) / 7
+    y = x.clone()
+    dist.all_reduce(y)
+    torch.cuda.synchronize()
+    check(torch.equal(x, y), "all_reduce at world size 1 changed its tensor")
+    try:
+        distributed.production_mesh_or_dryrun()
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    check("repro_torch.launch.dryrun" in refused,
+          f"production_mesh_or_dryrun at 1 card did not name the dry run: {refused!r}")
+    phase(20, f"init_runtime(require_cuda=True): NCCL at world size 1 on {devices}, mesh "
+              f"{mesh.mesh_dim_names} {tuple(mesh.shape)} on {mesh.device_type}; all_reduce "
+              f"returned its tensor unchanged; production_mesh_or_dryrun refused "
+              f"({refused[:60]}...) in {time.perf_counter() - t0:.1f} s")
+    return mesh
+
+
+def hinted_phase(model, params, dvi, reqs, mesh, base: dict) -> dict:
+    """Phase 20b: phase 4's graphed sync path under ``hint_mesh(mesh)``:
+    streams, graph nodes and capture launches equal to phase 4's graphed
+    run (`base`), the per-block launch formula; then the group destroyed."""
+    import torch.distributed as dist
+    from repro_torch.launch import hints
+    cfg = model.cfg
+    K, k, L = cfg.dvi.k_spec, cfg.dvi.split_layer, cfg.num_layers
+    with hints.hint_mesh(mesh):
+        r = sync_run(model, params, dvi, reqs, True, 20, "sync graphed under hint_mesh")
+    n = r["steps"]
+    want = {"decode_attention": ((K + 1) * k + (L - k)) * n, "lora_logits": (K + 1) * n,
+            "verify_argmax": n, "paged_decode_attention": 0, "ssd_scan": 0}
+    same = streams(r["comps"]) == streams(base["comps"])
+    g, g0 = r["graph"], base["graph"]
+    phase(20, f"phase 4's graphed sync path under hint_mesh of the 1 x 1 mesh: {len(r['comps'])} "
+              f"requests in {n} block-steps, wall {1e3 * r['wall'] / max(n, 1):.2f} ms a "
+              f"block-step (phase 4: {1e3 * base['wall'] / max(base['steps'], 1):.2f}); streams "
+              f"bit for bit phase 4's: {same}; graph nodes {g['nodes']} (phase 4: {g0['nodes']}); "
+              f"capture launches {[c for c, _ in g['per_graph']]}; launches {r['launches']}")
+    check(same and r["steps"] == base["steps"], "hinted streams differ from phase 4's")
+    check(g["nodes"] == g0["nodes"] and g["per_graph"] == g0["per_graph"],
+          "the hinted graph differs from phase 4's")
+    check(r["launches"] == want, f"hinted launches {r['launches']}, expected {want}")
+    release(r)
+    # the same run without the hint mesh, the group still up: which of the
+    # two (the hints, the NCCL group's threads) the hinted wall pays for
+    u = sync_run(model, params, dvi, reqs, True, 20, "sync graphed, group up, no hint mesh")
+    phase(20, f"phase 4's graphed sync path with the group up and no hint mesh: wall "
+              f"{1e3 * u['wall'] / max(u['steps'], 1):.2f} ms a block-step (hinted "
+              f"{1e3 * r['wall'] / max(n, 1):.2f}, phase 4 "
+              f"{1e3 * base['wall'] / max(base['steps'], 1):.2f})")
+    release(u)
+    dist.destroy_process_group()
+    from repro_torch.launch.distributed import ENV
+    for key in ENV:
+        os.environ.pop(key, None)
+    check(not dist.is_initialized(), "the process group outlived phase 20b")
+    return r
+
+
+def card_step_peak(model, params, dvi) -> dict:
+    """Phase 20c's card side: one eager block-step (``serve_step``) of
+    phase 4's shape on a fresh cache; the bytes of its arguments (params,
+    drafter, cache, pending tokens) and the peak allocated over the step,
+    less what else the process holds."""
+    from repro_torch.core import spec
+    release({})
+    torch.cuda.synchronize()
+    held = n_bytes(params) + n_bytes(dvi)
+    other = torch.cuda.memory_allocated() - held
+    cache = model.init_cache(D20_B, D20_CAP)
+    cache["lengths"].fill_(D20_S)
+    pending = torch.zeros((D20_B,), dtype=torch.int32, device=DEV)
+    args = held + n_bytes(cache) + n_bytes(pending)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spec.serve_step(model, params, dvi, pending, cache)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - other
+    del cache, pending
+    release({})
+    phase(20, f"one eager block-step on the card (B {D20_B}, cache {D20_CAP}, K "
+              f"{model.cfg.dvi.k_spec}): arguments {args} bytes, peak {peak} bytes "
+              f"({peak / 2**30:.3f} GiB) above the {other / 2**30:.3f} GiB the process holds "
+              f"besides")
+    return {"args": args, "peak": peak}
+
+
+def dry_case(name: str, cfg, mesh: dict, shape, cache_len=None) -> dict:
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    rec = dryrun.run_case(name, None, mesh_shape=MeshShape(mesh), shape=shape, cfg=cfg,
+                          cache_len=cache_len)
+    check(rec["status"] == "ok", f"dry run of {name}: {rec}")
+    return rec
+
+
+def dry_cases(out: str, hbm: int) -> None:
+    """Phase 20c's dry runs, on the host's CPU (``--dry-cases OUT HBM``: a
+    process of its own, started with phase 19c, after the timed windows of
+    the card's phases): vicuna-7b at a 1 x 1 mesh and phase 4's decode shape,
+    deepseek-v3 at DS_LAYERS and DS_LAYERS + 1 layers at phase 17's sync
+    shape, and all 61 layers' decode_32k case on ("data", 8) meshes from
+    the weights' bound up until one fits `hbm` bytes.  Writes their
+    records to OUT/phase20c.json."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.configs.base import InputShape
+    shape = InputShape("phase4_decode", D20_S, D20_B, "decode")
+    one = {"data": 1, "model": 1}
+    recs = {"vicuna": dry_case("vicuna-7b", get_config("vicuna-7b"), one, shape, D20_CAP),
+            "ds": dry_case(DS_NAME, get_config(DS_NAME).replace(num_layers=DS_LAYERS), one,
+                           shape, D20_CAP),
+            "ds1": dry_case(DS_NAME, get_config(DS_NAME).replace(num_layers=DS_LAYERS + 1), one,
+                            shape, D20_CAP),
+            "mesh": []}
+    full = get_config(DS_NAME)
+    data = 1
+    while data * 8 * hbm < full.param_count() * 2 and data < 32:
+        data *= 2
+    while True:
+        rec = dry_case(DS_NAME, full, {"data": data, "model": 8}, INPUT_SHAPES["decode_32k"])
+        recs["mesh"].append(rec)
+        if rec["memory"]["peak_bytes"] < hbm or data >= 32:
+            break
+        data *= 2
+    with open(os.path.join(out, "phase20c.json"), "w") as f:
+        json.dump(recs, f)
+
+
+def start_dry_runs() -> dict:
+    """Phases 20c's dry runs (``dry_cases``) and 20d (``python -m
+    repro_torch.launch.dryrun --arch llama3-405b --shape decode_32k`` at
+    32 x 8), each in a process of its own on the host's CPU, one thread
+    each, started with phase 19c (no timed window runs beside them) and
+    read by ``dryrun_phase``."""
+    out = os.path.join(ROOT, "build", "dryrun")
+    os.makedirs(out, exist_ok=True)
+    for name in os.listdir(out):
+        os.remove(os.path.join(out, name))
+    hbm = torch.cuda.get_device_properties(0).total_memory if DEV == "cuda" else 85017493504
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    arch, shape = D20_CASE
+    cmds = {"20c": [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--dry-cases", out,
+                    str(hbm)],
+            "20d": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                    "--shape", shape, "--out", out]}
+    procs = {k: subprocess.Popen(c, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True) for k, c in cmds.items()}
+    atexit.register(stop, list(procs.values()))      # a failed phase leaves none running
+    return {"out": out, "hbm": hbm, "t0": time.perf_counter(), "procs": procs}
+
+
+def launch_drift():
+    """Phase 20e: ``examples/torch_serve_drift.py`` at its defaults, in a
+    process of its own (PYTHONHASHSEED pinned) beside phase 19c's examples,
+    on the card unless the rehearsal names another device."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), PYTHONHASHSEED="0")
+    dev = [] if DEV == "cuda" else ["--device", DEV, "--pretrain-steps", "20",
+                                    "--warm-batches", "8", "--batches", "12", "--shift-at", "4"]
+    proc = subprocess.Popen([sys.executable, os.path.join(ROOT, "examples",
+                                                          "torch_serve_drift.py"), *dev],
+                            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    atexit.register(stop, [proc])
+    return proc, time.perf_counter()
+
+
+def stop(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def drift_phase(drift) -> None:
+    """Phase 20e's gates: the drift example exited 0 with its curves."""
+    proc, t0 = drift
+    try:
+        stdout, stderr = proc.communicate(timeout=LAUNCH_TIMEOUT)
+    finally:
+        stop([proc])
+    for line in stdout.splitlines():
+        if line.strip() and any(key in line for key in (
+                "batch", "acc:", "K:", "post-shift", "dvi_train", "last update")):
+            phase(20, f"torch_serve_drift: {line.strip()}")
+    post = re.search(r"post-shift acceptance: frozen=([\d.]+) online=([\d.]+)", stdout)
+    check(proc.returncode == 0 and post is not None,
+          f"examples/torch_serve_drift.py exited {proc.returncode}: {stderr[-2000:]}")
+    phase(20, f"examples/torch_serve_drift.py: exit 0, done {time.perf_counter() - t0:.1f} s "
+              f"after it started (beside phase 19c's examples); post-shift acceptance frozen "
+              f"{post.group(1)} against online {post.group(2)}")
+
+
+def dryrun_phase(card: dict, ds_peak: int, dry: dict) -> None:
+    """Phase 20c-d, after 19c: the records of ``start_dry_runs``' processes
+    held against the card: vicuna-7b's argument bytes exactly and its peak
+    within D20_PEAK_RTOL of ``card``'s, deepseek-v3's at DS_LAYERS within
+    D20_PEAK_RTOL of phase 17's eager sync peak `ds_peak`; the layers of
+    deepseek that fit one card, the smallest production-layout mesh for all
+    61; 20d's record with its roofline."""
+    from repro_torch import roofline
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    t_wait = time.perf_counter()
+    out, hbm, procs = dry["out"], dry["hbm"], dry["procs"]
+    try:
+        done = {k: p.communicate(timeout=D20_TIMEOUT) for k, p in procs.items()}
+    finally:
+        stop(procs.values())
+    waited = time.perf_counter() - t_wait
+    for k, p in procs.items():
+        check(p.returncode == 0, f"phase {k}'s process exited {p.returncode}: "
+              f"{done[k][1][-2000:]}")
+    with open(os.path.join(out, "phase20c.json")) as f:
+        recs = json.load(f)
+    vic = recs["vicuna"]
+    m = vic["memory"]
+    err = abs(m["peak_bytes"] - card["peak"]) / card["peak"]
+    phase(20, f"dry run vicuna-7b at 1 x 1, B {D20_B} cache {D20_CAP} ({vic['seconds']} s): "
+              f"argument bytes {m['argument_bytes']} (the card's {card['args']}: equal "
+              f"{m['argument_bytes'] == card['args']}), peak {m['peak_bytes']} bytes "
+              f"({m['peak_bytes'] / 2**30:.3f} GiB) against the card's {card['peak']} "
+              f"({card['peak'] / 2**30:.3f} GiB): {100 * err:.2f} % apart; temp "
+              f"{m['temp_bytes'] / 2**30:.3f} GiB, {vic['cost']['dot_flops_per_device']:.4g} "
+              f"FLOPs, fallbacks {vic['fallbacks']}")
+    check(m["argument_bytes"] == card["args"], "the dry run's argument bytes differ from the "
+          "bytes the card holds")
+    check(err <= D20_PEAK_RTOL, f"the dry run's peak is {100 * err:.1f} % from the card's")
+    p0, p1 = recs["ds"]["memory"]["peak_bytes"], recs["ds1"]["memory"]["peak_bytes"]
+    err = abs(p0 - ds_peak) / ds_peak
+    fit = DS_LAYERS + int((hbm - p0) // max(p1 - p0, 1))
+    phase(20, f"dry run {DS_NAME} at {DS_LAYERS} layers, 1 x 1, phase 17's sync shape "
+              f"({recs['ds']['seconds']} s): peak {p0 / 2**30:.3f} GiB against phase 17's eager "
+              f"sync peak {ds_peak / 2**30:.3f} GiB: {100 * err:.2f} % apart; at {DS_LAYERS + 1} "
+              f"layers {p1 / 2**30:.3f} GiB ({(p1 - p0) / 2**30:.3f} GiB a MoE layer): "
+              f"{min(fit, 61)} of 61 layers fit one card of {hbm / 2**30:.2f} GiB "
+              f"(total_memory {hbm} bytes)")
+    check(err <= D20_PEAK_RTOL, f"{DS_NAME}'s dry-run peak is {100 * err:.1f} % from phase 17's")
+    last = recs["mesh"][-1]
+    tried = [f"{r['mesh']}: {r['memory']['peak_bytes'] / 2**30:.2f} GiB ({r['seconds']} s)"
+             for r in recs["mesh"]]
+    fits = last["memory"]["peak_bytes"] < hbm
+    phase(20, f"{DS_NAME}, all 61 layers, decode_32k: peak a card by mesh {tried}; the smallest "
+              f"production-layout mesh that holds it: "
+              f"{last['mesh'] + ' (' + str(last['n_devices']) + ' cards)' if fits else 'none'}")
+
+    arch, sname = D20_CASE
+    with open(os.path.join(out, f"{arch}_{sname}_32x8.json")) as f:
+        rec = json.load(f)
+    rl = roofline.roofline_from_record(rec, get_config(arch), INPUT_SHAPES[sname])
+    coll = {k: f"{v['count']:.0f}x {v['wire_bytes'] / 2**30:.2f} GiB"
+            for k, v in rec["collectives"]["per_kind"].items()}
+    axes = {k: f"{v['wire_bytes'] / 2**30:.2f} GiB" for k, v in
+            rec["collectives"].get("per_axis", {}).items()}
+    phase(20, f"python -m repro_torch.launch.dryrun --arch {arch} --shape {sname}: "
+              f"{rec['status']} at {rec['mesh']} in {rec['seconds']} s of case; peak "
+              f"{rl['peak_mem_gib']:.2f} GiB a card, fits {hbm / 2**30:.2f} GiB: {rl['fits_hbm']}; "
+              f"{rec['cost']['dot_flops_per_device']:.4g} FLOPs a card; collectives {coll}, "
+              f"wire by axis {axes}; roofline compute {1e3 * rl['compute_s']:.3f} ms, memory "
+              f"{1e3 * rl['memory_s']:.3f} ms, collective {1e3 * rl['collective_s']:.3f} ms "
+              f"({rl['dominant']}); useful FLOPs {rl['useful_flops_ratio']:.3f}; fallbacks "
+              f"{rec.get('fallbacks')}")
+    check(rec["status"] == "ok", f"dryrun {arch} {sname}: {rec.get('status')}")
+    since = time.perf_counter() - dry["t0"]
+    phase(20, f"20c and 20d ran beside 19c and 20e on the host ({since:.1f} s after they "
+              f"started; {waited:.1f} s waited for them here)")
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dry-cases"]:      # phase 20c's process (``start_dry_runs``)
+        dry_cases(sys.argv[2], int(sys.argv[3]))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -5674,6 +6025,14 @@ def main() -> int:
     q19 = int8_phase(cfg, params, dvi, reqs, runs["graphed"], c_frozen)
     marks["19a"] = time.perf_counter() - t_start
 
+    # ---- phase 20ab: the NCCL runtime, phase 4's path under a hint mesh ----
+    release({})
+    mesh = runtime_phase()
+    hinted_phase(model, params, dvi, reqs, mesh, runs["graphed"])
+    del mesh
+    card20 = card_step_peak(model, params, dvi)
+    marks["20ab"] = time.perf_counter() - t_start
+
     # ---- phase 15a, 15b: two-model SpS on the qwen3 pair; 15d: qwen2.5-14b ----
     del model, params, dvi
     release({})                        # engines in reference cycles hold the weights
@@ -5711,10 +6070,19 @@ def main() -> int:
     a18 = aux_phase(by_row)
     marks["18"] = time.perf_counter() - t_start
 
-    # ---- phase 19c: the port's last two examples, in processes of their own ----
+    # ---- phase 19c: the port's last two examples; 20c-e and the float32 witnesses of
+    # 16b, 17, 19a and 19b beside them (no timed window is left) ----
     release({})
+    dry = start_dry_runs()          # phases 20c and 20d, on the host beside 19c and 20e
+    drift = launch_drift()
     examples_phase()
-    marks["19c"] = time.perf_counter() - t_start
+    marks["19c, witnesses"] = time.perf_counter() - t_start
+    drift_phase(drift)
+    marks["20e"] = time.perf_counter() - t_start
+
+    # ---- phase 20c, 20d: the dry runs against the card, a production case ----
+    dryrun_phase(card20, h16["deepseek_sync"]["eager"]["peak"], dry)
+    marks["20cd"] = time.perf_counter() - t_start
 
     # ---- phase 7: result lines ----
     for row in rows:

@@ -17,15 +17,18 @@ prediction head (cut in depth on the card too); whisper-large-v3 is an
 encoder-decoder whose decoder cross-attends the encoder's output over stub
 frame embeddings, and paligemma-3b puts stub patch embeddings, projected,
 in front of the text tokens under a bidirectional prefix mask (both take
-``aux_inputs``).  These are all 11 of the reference's configs.
+``aux_inputs``).  These are all 11 of the reference's configs;
+``ASSIGNED_ARCHS`` are the ten assigned to the paper (all but vicuna-7b),
+in the reference's order, which the dry-run sweep walks.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_v3_671b, llama3_405b, llama4_scout_17b_a16e,
                                  mamba2_370m, paligemma_3b, qwen3_0_6b, qwen3_1_7b, qwen25_14b,
                                  recurrentgemma_9b, vicuna_7b, whisper_large_v3)
-from repro_torch.configs.base import (DVIConfig, EncoderConfig, MLAConfig, ModelConfig, MoEConfig,
-                                      RGLRUConfig, SSMConfig, VisionStubConfig)
+from repro_torch.configs.base import (INPUT_SHAPES, DVIConfig, EncoderConfig, InputShape,
+                                      MLAConfig, ModelConfig, MoEConfig, RGLRUConfig, SSMConfig,
+                                      VisionStubConfig)
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0_6b,
@@ -42,6 +45,10 @@ _MODULES = {
 }
 
 ALL_ARCHS = list(_MODULES)
+# the reference's registry order, without the paper's own vicuna-7b
+ASSIGNED_ARCHS = ["llama3-405b", "recurrentgemma-9b", "qwen2.5-14b", "llama4-scout-17b-a16e",
+                  "paligemma-3b", "whisper-large-v3", "qwen3-0.6b", "mamba2-370m",
+                  "deepseek-v3-671b", "qwen3-1.7b"]
 
 
 def get_config(name: str, *, tiny: bool = False) -> ModelConfig:
@@ -53,5 +60,6 @@ def get_config(name: str, *, tiny: bool = False) -> ModelConfig:
     return cfg
 
 
-__all__ = ["ALL_ARCHS", "DVIConfig", "EncoderConfig", "MLAConfig", "ModelConfig", "MoEConfig",
-           "RGLRUConfig", "SSMConfig", "VisionStubConfig", "get_config"]
+__all__ = ["ALL_ARCHS", "ASSIGNED_ARCHS", "DVIConfig", "EncoderConfig", "INPUT_SHAPES",
+           "InputShape", "MLAConfig", "ModelConfig", "MoEConfig", "RGLRUConfig", "SSMConfig",
+           "VisionStubConfig", "get_config"]

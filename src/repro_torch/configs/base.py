@@ -7,7 +7,9 @@ the reference exactly (``tests/test_torch_model.py`` compares them).
 ``SSMConfig`` (Mamba-2), ``RGLRUConfig`` (RecurrentGemma), ``MoEConfig``,
 ``MLAConfig`` (DeepSeek-V3's multi-head latent attention), ``EncoderConfig``
 (Whisper's encoder over stub frame embeddings) and ``VisionStubConfig``
-(PaliGemma's stub patch embeddings) are copied too.
+(PaliGemma's stub patch embeddings) are copied too, and so are the input
+shapes assigned to the paper (``InputShape``, ``INPUT_SHAPES``), which the
+dry run (``launch.dryrun``) and the roofline (``roofline``) read.
 """
 from __future__ import annotations
 
@@ -222,6 +224,18 @@ class ModelConfig:
             n += L * 4 * d * ed
         return n
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        mo = self.moe
+        d, L = self.d_model, self.num_layers
+        glu_mult = 3 if self.glu else 2
+        moe_layers = L - mo.first_dense_layers
+        dense_total = self.param_count() - moe_layers * (
+            mo.num_experts * glu_mult * d * mo.d_ff_expert)
+        return dense_total + moe_layers * mo.top_k * glu_mult * d * mo.d_ff_expert
+
     @property
     def local_window(self) -> int:
         """The window of the "local" layers: the RG-LRU config's, else
@@ -230,3 +244,23 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes assigned to this paper (the reference's, copied).
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}

@@ -134,7 +134,7 @@ def composite_loss(dvi_params: dict, model: Model, params: dict, batch: dict,
 
 
 def dense_train_losses(model: Model, params: dict, dvi_params: dict, tokens: torch.Tensor,
-                       t, baseline, mode: str = "full", aux_inputs=None,
+                       t, baseline, mode: str = "full", aux_inputs=None, remat: bool = False,
                        max_positions: int = 8192):
     """Teacher-forced batch variant of the objective: one forward computes
     h_k and h_L at every position, position-wise accept = (draft greedy ==
@@ -144,7 +144,9 @@ def dense_train_losses(model: Model, params: dict, dvi_params: dict, tokens: tor
     autograd; gradients reach only the LoRA factors.  `aux_inputs` are the
     modality stubs (``Model.embed`` / ``Model.encode``): a VLM's patch
     positions lead the sequence and count as positions, as in the
-    reference."""
+    reference.  `remat` stands where the reference's does, so a positional
+    call binds the same arguments; it changes no value and no memory here,
+    since the backbone keeps no activations for a backward."""
     cfg = model.cfg
     k = cfg.dvi.split_layer
     with torch.no_grad():

@@ -20,6 +20,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.hints import hint
+from repro_torch.models import loops
+
 NEG_INF = -1e30
 # dense_init draws a tensor above this many elements (16 GiB in float32) a
 # leading slice at a time
@@ -177,17 +180,23 @@ def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, spec: MaskSpe
     kp = F.pad(k, (0, 0, 0, 0, 0, pad_k))
     vp = F.pad(v, (0, 0, 0, 0, 0, pad_k))
     nq, nk = qp.shape[1] // qc, kp.shape[1] // kc
-    qb = qp.reshape(B, nq, qc, KV, G, hd)
-    kb = kp.reshape(B, nk, kc, KV, hd)
-    vb = vp.reshape(B, nk, kc, KV, hdv)
-    outs = []
-    for qi in range(nq):
+    # batch on both axes when it divides (the training layout: heads stay
+    # whole), else batch on "data" and heads on "model": the KV dim when it
+    # divides, else the query-head groups; ``hint`` drops a reused axis
+    qb = hint(qp.reshape(B, nq, qc, KV, G, hd), ("data", "model"), None, None, "model",
+              "model", None)
+    kb = hint(kp.reshape(B, nk, kc, KV, hd), ("data", "model"), None, None, "model", None)
+    vb = hint(vp.reshape(B, nk, kc, KV, hdv), ("data", "model"), None, None, "model", None)
+
+    def q_step(_, qi):
         qblk = qb[:, qi]                                          # (B,qc,KV,G,hd)
         qpos = qi * qc + torch.arange(qc, device=q.device)
         m_run = torch.full((B, KV, G, qc), NEG_INF, dtype=torch.float32, device=q.device)
         l_run = torch.zeros((B, KV, G, qc), dtype=torch.float32, device=q.device)
         acc = torch.zeros((B, KV, G, qc, hdv), dtype=torch.float32, device=q.device)
-        for kj in range(nk):
+
+        def k_step(run, kj):
+            m_run, l_run, acc = run
             kblk, vblk = kb[:, kj], vb[:, kj]
             kpos = kj * kc + torch.arange(kc, device=q.device)
             s = torch.einsum("bqkgh,bskh->bkgqs", qblk, kblk).float() * scale
@@ -199,9 +208,11 @@ def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, spec: MaskSpe
             l_run = l_run * alpha + p.sum(-1)
             acc = acc * alpha[..., None] + torch.einsum(
                 "bkgqs,bskh->bkgqh", p.to(vblk.dtype), vblk).float()
-            m_run = m_new
+            return (m_new, l_run, acc), None
+        (m_run, l_run, acc), _ = loops.scan(k_step, (m_run, l_run, acc), nk)
         o = acc / torch.clamp(l_run, min=1e-30)[..., None]
-        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, qc, KV * G, hdv).to(q.dtype))
+        return None, o.permute(0, 3, 1, 2, 4).reshape(B, qc, KV * G, hdv).to(q.dtype)
+    _, outs = loops.scan(q_step, None, nq)
     return torch.cat(outs, dim=1)[:, :Tq]
 
 

@@ -22,6 +22,7 @@ import math
 import torch
 
 from repro_torch.configs.base import MLAConfig
+from repro_torch.launch.hints import hint
 from repro_torch.models.layers import (NEG_INF, MaskSpec, apply_rope, attend_full, dense_init,
                                        rms_norm)
 
@@ -76,8 +77,10 @@ def mla_full(p: dict, xn: torch.Tensor, H: int, m: MLAConfig, positions, spec: M
     ckv, krope = _latents(p, xn, positions, rope_theta)
     k_nope = (ckv @ p["w_uk"]).reshape(B, T, H, dn)
     v = (ckv @ p["w_uv"]).reshape(B, T, H, dv)
-    q_cat = torch.cat([q_nope, q_rope], dim=-1)
-    k_cat = torch.cat([k_nope, krope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
+    q_cat = hint(torch.cat([q_nope, q_rope], dim=-1), "data", None, "model", None)
+    k_cat = hint(torch.cat([k_nope, krope[:, :, None, :].expand(B, T, H, dr)], dim=-1),
+                 "data", None, "model", None)
+    v = hint(v, "data", None, "model", None)
     out = attend_full(q_cat, k_cat, v, spec).reshape(B, T, H * dv)
     return out @ p["w_o"], {"ckv": ckv, "krope": krope}
 

@@ -92,6 +92,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.hints import gathered, hint
+from repro_torch.models import loops
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -238,8 +240,13 @@ def _ffn(p, x, cfg, seg: Optional[Segment] = None, dropless: bool = False):
     """The layer's FFN with its residual: the dense MLP (also without a
     `seg`), or the experts (``dropless`` on the block-decode path).  Returns
     (x, aux) with aux the MoE load-balance loss (a float32 zero for a dense
-    FFN)."""
+    FFN).  On the block-decode path the normed input's d_model dim is
+    hinted onto "data": the products against (d / data, f / model) weights
+    then run weight-stationary, partial sums and small activation
+    reductions instead of gathering the weights every layer."""
     xn = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if dropless:
+        xn = hint(xn, None, None, "data")
     if seg is not None and seg.ffn == "moe":
         y, aux = moe_mod.moe_ffn(p["moe"], xn, cfg.moe, cfg.act, cfg.glu, dropless)
         return x + y, aux
@@ -272,9 +279,12 @@ def attn_layer_full(p, x, cfg: ModelConfig, seg: Segment, positions, spec: MaskS
     self-attention and adds its cross K/V {"xk", "xv"} (B, F, H, hd)."""
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
-        out, contrib = mla_mod.mla_full(p, xn, cfg.num_heads, cfg.mla, positions, spec,
-                                        cfg.rope_theta)
+        out, lat = mla_mod.mla_full(p, xn, cfg.num_heads, cfg.mla, positions, spec,
+                                    cfg.rope_theta)
         x = x + out
+        # the prefill's contributions become the decode cache: sequence-sharded
+        contrib = {"ckv": hint(lat["ckv"], "data", "model", None),
+                   "krope": hint(lat["krope"], "data", "model", None)}
     else:
         q, k, v = _qkv(p, xn, cfg)
         if use_rope:
@@ -283,7 +293,8 @@ def attn_layer_full(p, x, cfg: ModelConfig, seg: Segment, positions, spec: MaskS
         out = attend_full(q, k, v, spec)
         B, T = x.shape[:2]
         x = x + out.reshape(B, T, -1) @ p["wo"]
-        contrib = {"k": k, "v": v}
+        contrib = {"k": hint(k, "data", "model", None, None),
+                   "v": hint(v, "data", "model", None, None)}
     if seg.cross:
         B, F = enc_out.shape[:2]
         H, hd = cfg.num_heads, cfg.resolved_head_dim
@@ -337,8 +348,12 @@ def attn_layer_step(p, x, kcache, vcache, lengths, cfg: ModelConfig,
     self-attention through the kernel's non-causal form.  An "audio"
     config has no RoPE (its positions are added at the embedding)."""
     B, T = x.shape[:2]
-    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    xn = hint(rms_norm(x, p["ln1"], cfg.norm_eps), None, None, "data")   # weight-stationary
     q, k, v = _qkv(p, xn, cfg)
+    # cache I/O is batch-sharded: the block's (small) q/k/v move, not the cache
+    q = hint(q, "data", None, None, None)
+    k = hint(k, "data", None, None, None)
+    v = hint(v, "data", None, None, None)
     if cfg.arch_type != "audio":
         qpos = lengths[:, None] + torch.arange(T, device=x.device)[None, :]
         q = apply_rope(q, qpos, cfg.rope_theta)
@@ -349,7 +364,10 @@ def attn_layer_step(p, x, kcache, vcache, lengths, cfg: ModelConfig,
             blk, blk_scales = kv_quantize(blk)
             spread_write(scales, blk_scales, lengths, wrap=ring)
         spread_write(cache, blk, lengths, wrap=ring)
-    out = ops.decode_attention(q.contiguous(), kcache, vcache, (lengths + T).to(torch.int32),
+    # flash-decode layout: the cache's sequence dim on "model"
+    out = ops.decode_attention(q.contiguous(), hint(kcache, "data", "model", None, None),
+                               hint(vcache, "data", "model", None, None),
+                               (lengths + T).to(torch.int32),
                                pos=pos, window=cfg.local_window if ring else 0,
                                k_scale=kscale, v_scale=vscale)
     x = x + out.reshape(B, T, -1) @ p["wo"]
@@ -397,9 +415,12 @@ def attn_layer_step_paged(p, x, kpages, vpages, tbl, lengths, cfg: ModelConfig,
     past the accepted prefix and the stale slots are overwritten later."""
     B, T = x.shape[:2]
     ps = kpages.shape[1]
-    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    xn = hint(rms_norm(x, p["ln1"], cfg.norm_eps), None, None, "data")   # weight-stationary
     qpos = lengths[:, None].long() + torch.arange(T, device=x.device)[None, :]
     q, k, v = _qkv(p, xn, cfg)
+    q = hint(q, "data", None, None, None)
+    k = hint(k, "data", None, None, None)
+    v = hint(v, "data", None, None, None)
     q = apply_rope(q, qpos, cfg.rope_theta)
     k = apply_rope(k, qpos, cfg.rope_theta)
     _, wphys = logical_to_physical(tbl, qpos, ps)
@@ -470,15 +491,20 @@ def run_segment_full(sp, x, cfg: ModelConfig, seg: Segment, positions,
 
         def body(lp, x):
             return checkpoint(plain, lp, x, use_reentrant=False)
-    got = {name: [] for name in names}
+
+    def layer(x, i):
+        # batch-sharded activations (both axes when the batch divides: the
+        # training layout), so the weights are gathered, not the activations
+        x = hint(x, ("data", "model"), None, None)
+        x, con, a = body(gathered(_layer(sp, i), x), x)
+        return hint(x, "data", None, None), (con, a)
+    x, outs = loops.scan(layer, x, seg.n)
     aux = zero
-    for i in range(seg.n):
-        x, con, a = body(_layer(sp, i), x)
+    for _, a in outs:
         aux = aux + a
-        if collect:
-            for name in names:
-                got[name].append(con[name])
-    return x, ({name: torch.stack(v) for name, v in got.items()} if collect else {}), aux
+    if not collect:
+        return x, {}, aux
+    return x, {name: torch.stack([con[name] for con, _ in outs]) for name in names}, aux
 
 
 def ring_positions(pos: torch.Tensor, lengths: torch.Tensor, T: int) -> None:
@@ -494,19 +520,18 @@ def _stateful_step(step_fn, sp, x, seg_cache, n: int, take):
     """The layers of an SSM or RG-LRU segment over a block: candidates
     {"conv", "state"} stacked (n, B, T, ...), or with `take` each layer's
     selected window and state written in place and no candidates."""
-    convs, states = [], []
-    for i in range(n):
+    def layer(x, i):
         x, cand = step_fn(_layer(sp, i), x,
                           {"conv": seg_cache["conv"][i], "state": seg_cache["state"][i]}, take)
-        if take is not None:
-            seg_cache["conv"][i].copy_(cand["conv"])
-            seg_cache["state"][i].copy_(cand["state"])
-            continue
-        convs.append(cand["conv"])
-        states.append(cand["state"])
+        if take is None:
+            return x, cand
+        seg_cache["conv"][i].copy_(cand["conv"])
+        seg_cache["state"][i].copy_(cand["state"])
+        return x, None
+    x, cands = loops.scan(layer, x, n)
     if take is not None:
         return x, {}
-    return x, {"conv": torch.stack(convs), "state": torch.stack(states)}
+    return x, {name: torch.stack([c[name] for c in cands]) for name in ("conv", "state")}
 
 
 def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
@@ -533,29 +558,30 @@ def run_segment_step(sp, x, seg_cache, lengths, cfg: ModelConfig, seg: Segment,
             return _ffn(lp, x, cfg, seg, dropless=True)[0], cand
         return _stateful_step(rglru_fn, sp, x, seg_cache, seg.n, take)
     if "ckv" in seg_cache:          # MLA: slot = position, its "pos" is no ring's
-        for i in range(seg.n):
-            x = mla_layer_step(_layer(sp, i), x, seg_cache["ckv"][i], seg_cache["krope"][i],
-                               lengths, cfg, seg)
-        return x, {}
-    if "kp" in seg_cache:
+        def layer(x, i):
+            return mla_layer_step(_layer(sp, i), x, seg_cache["ckv"][i], seg_cache["krope"][i],
+                                  lengths, cfg, seg), None
+    elif "kp" in seg_cache:
         ksp, vsp = seg_cache.get("ksp"), seg_cache.get("vsp")
-        for i in range(seg.n):
-            x = attn_layer_step_paged(_layer(sp, i), x, seg_cache["kp"][i],
-                                      seg_cache["vp"][i], tbl, lengths, cfg, seg,
-                                      kscale=None if ksp is None else ksp[i],
-                                      vscale=None if vsp is None else vsp[i])
-        return x, {}
-    pos = seg_cache.get("pos")
-    if pos is not None:
-        ring_positions(pos, lengths, x.shape[1])
-    ks, vs = seg_cache.get("ks"), seg_cache.get("vs")
-    for i in range(seg.n):
-        cross = (seg_cache["xk"][i], seg_cache["xv"][i], xlen) if seg.cross else None
-        x = attn_layer_step(_layer(sp, i), x, seg_cache["k"][i], seg_cache["v"][i],
-                            lengths, cfg, seg, pos=pos, cross=cross,
-                            kscale=None if ks is None else ks[i],
-                            vscale=None if vs is None else vs[i])
-    return x, {}
+
+        def layer(x, i):
+            return attn_layer_step_paged(_layer(sp, i), x, seg_cache["kp"][i],
+                                         seg_cache["vp"][i], tbl, lengths, cfg, seg,
+                                         kscale=None if ksp is None else ksp[i],
+                                         vscale=None if vsp is None else vsp[i]), None
+    else:
+        pos = seg_cache.get("pos")
+        if pos is not None:
+            ring_positions(pos, lengths, x.shape[1])
+        ks, vs = seg_cache.get("ks"), seg_cache.get("vs")
+
+        def layer(x, i):
+            cross = (seg_cache["xk"][i], seg_cache["xv"][i], xlen) if seg.cross else None
+            return attn_layer_step(_layer(sp, i), x, seg_cache["k"][i], seg_cache["v"][i],
+                                   lengths, cfg, seg, pos=pos, cross=cross,
+                                   kscale=None if ks is None else ks[i],
+                                   vscale=None if vs is None else vs[i]), None
+    return loops.scan(layer, x, seg.n)[0], {}
 
 
 # ---------------------------------------------------------------------------

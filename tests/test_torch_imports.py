@@ -40,7 +40,11 @@ def test_port_has_modules():
     names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
     assert {"data/synthetic.py", "data/sharegpt.py", "training/pretrain.py",
             "checkpoint/ckpt.py", "launch/train.py", "serving/config.py", "serving/http.py",
-            "launch/serve.py", "launch/api_server.py", "launch/load_gen.py"} <= names
+            "launch/serve.py", "launch/api_server.py", "launch/load_gen.py",
+            "launch/mesh.py", "launch/distributed.py", "launch/sharding.py", "launch/hints.py",
+            "launch/dryrun.py", "launch/dryrun_all.py", "launch/step_analysis.py",
+            "roofline.py", "models/loops.py"} <= names
+    assert "torch_serve_drift.py" in {p.name for p in EXAMPLES}
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [SMOKE] + EXAMPLES + SCRIPTS,

@@ -94,6 +94,19 @@ def test_config_copy_matches_reference(name, tiny):
     assert ct.torch_dtype == getattr(torch, cj.jnp_dtype.name)
 
 
+def test_input_shapes_copy_matches_reference():
+    """The dry run's and the roofline's input shapes and the assigned
+    architectures, copied from the reference's registry."""
+    from repro.configs import ASSIGNED_ARCHS as J_ASSIGNED, INPUT_SHAPES as J_SHAPES
+    from repro.configs.base import InputShape as JShape
+    from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, InputShape
+    assert [f.name for f in dataclasses.fields(InputShape)] == \
+        [f.name for f in dataclasses.fields(JShape)]
+    assert {k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in J_SHAPES.items()}
+    assert list(INPUT_SHAPES) == list(J_SHAPES) and ASSIGNED_ARCHS == J_ASSIGNED
+
+
 def test_unported_architectures_raise():
     """Nothing is refused any more (``kv_quant`` builds, its K/V int8);
     only, as in the reference, a paged cache of a cross-attention config."""
